@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled on first use into
 ``build/brpc_tpu_torch/lib<name>-<hash>.so`` at the root of the checkout:
 a shared library with a plain C interface, so the build takes seconds
-(no PyTorch headers). The file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time.
+(no PyTorch headers). The file name carries a hash of the source, of the
+shared headers (``csrc/*.cuh``) and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -42,8 +43,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read())
+    # every header under csrc/ enters every source's hash: an edited
+    # header rebuilds each library that may include it
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 

@@ -1,16 +1,26 @@
-"""Attention kernels of the serving path, written in CUDA for Hopper.
+"""Attention and normalisation kernels, written in CUDA for Hopper.
 
 The module keeps the name of its JAX counterpart,
 ``brpc_tpu/tpu/pallas_ops.py``, so each function's original is easy to
 find; the kernels here are not Pallas but CUDA C++ under ``csrc/``,
 built with nvcc and called through ctypes (``tpu/_build.py``).
 
-- :func:`attention_reference` is the plain PyTorch version: the CPU
-  tests use it and ``chip_smoke.py`` holds the kernel against it.
-- :func:`flash_attention` is the wrapper. A CPU tensor goes to the plain
-  version; a CUDA tensor launches ``csrc/flash_attention.cu`` or raises.
-- ``launches`` counts kernel launches per wrapper, so a run can show that
-  its main path went through the kernel.
+- Each kernel has a plain PyTorch version beside it
+  (:func:`attention_reference`, :func:`flash_fwd_reference`,
+  :func:`flash_bwd_reference`, :func:`rmsnorm_reference`): the CPU tests
+  use them and ``chip_smoke.py`` holds each kernel against its own.
+- The wrappers take the plain version for a CPU tensor only; a CUDA
+  tensor launches the kernel or raises.
+- ``launches`` counts kernel launches per kernel, so a run can show that
+  its main path went through the kernels.
+
+Serving prefill uses :func:`flash_attention`, whose kernel is the
+forward of ``csrc/flash_fwd.cu`` without lse. Training uses
+:func:`flash_attention_mha`, an autograd function whose forward is the
+same kernel and whose backward is the dQ and dK/dV kernels of
+``csrc/flash_bwd.cu``, and :func:`rmsnorm`, whose forward is
+``csrc/rmsnorm.cu`` and whose backward is plain PyTorch, as it is XLA in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -21,9 +31,13 @@ import threading
 
 import torch
 
+EPS = 1e-6
 NEG_INF = -1e30
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)     # csrc/flash_fwd.cu
+_MHA_HEAD_DIMS = (32, 64, 128)     # csrc/flash_bwd.cu
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh codes
+_MAX_GRID_Y = 65535                # batch * heads ride the grid's y axis
 
 
 class LaunchCounts:
@@ -32,7 +46,9 @@ class LaunchCounts:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._n = {"flash_attention": 0}
+        self._n = {name: 0 for name in ("flash_attention", "flash_fwd",
+                                        "flash_bwd_dq", "flash_bwd_dkv",
+                                        "rmsnorm")}
 
     def add(self, name: str) -> None:
         with self._lock:
@@ -41,6 +57,10 @@ class LaunchCounts:
     def __getitem__(self, name: str) -> int:
         with self._lock:
             return self._n[name]
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._n)
 
     def reset(self) -> None:
         with self._lock:
@@ -51,19 +71,88 @@ class LaunchCounts:
 launches = LaunchCounts()
 
 
+# ---------------------------------------------------------------------------
+# Binding and launch checks shared by every kernel
+# ---------------------------------------------------------------------------
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_fns = {}
+
+
+def _bind(source: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<source>.cu``, built and loaded
+    at first use."""
+    fn = _fns.get((source, symbol))
+    if fn is None:
+        from brpc_tpu_torch.tpu import _build
+
+        lib = _build.load(source)
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = _i32
+        lib.brpc_cuda_error_string.argtypes = [_i32]
+        lib.brpc_cuda_error_string.restype = ctypes.c_char_p
+        _fns[(source, symbol)] = fn
+    return fn
+
+
+def _raise_on(rc: int, source: str, what: str) -> None:
+    if rc != 0:
+        from brpc_tpu_torch.tpu import _build
+
+        text = _build.load(source).brpc_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {text} ({rc})")
+
+
+def _on_cpu(name: str, *tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs),
+    False when all lie on one CUDA device (the kernel runs); raises on
+    anything else."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    return dev.type == "cpu"
+
+
+def _check_kernel_inputs(name: str, dtype, **tensors) -> None:
+    """What every training kernel takes: one dtype of _DTYPES, contiguous,
+    16-byte aligned."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, not "
+                        f"{dtype}")
+    for tname, t in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {tname} is {t.dtype}, want {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be 16-byte aligned")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Serving prefill: flash attention over (S, D) or (S, H, D)
+# ---------------------------------------------------------------------------
 def attention_reference(q, k, v, causal: bool = False):
-    """O(S^2)-memory plain attention: q (Sq, D) and k, v (Sk, D), or the
-    same with heads on axis 1, (S, H, D)."""
-    heads = q.dim() == 3
+    """O(S^2)-memory plain attention in fp32, cast back to q's dtype:
+    q (Sq, D) and k, v (Sk, D), or the same with heads on the next-to-last
+    axis, (S, H, D) or (B, S, H, D). Causal is aligned at position 0."""
+    heads = q.dim() >= 3
     qf, kf, vf = (t.float() if heads else t.float().unsqueeze(1)
                   for t in (q, k, v))
-    s = torch.einsum("qhd,khd->hqk", qf, kf) / math.sqrt(q.shape[-1])
+    s = torch.einsum("...qhd,...khd->...hqk", qf, kf) / math.sqrt(
+        q.shape[-1])
     if causal:
         mask = torch.ones(s.shape[-2:], dtype=torch.bool,
                           device=s.device).tril()
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("hqk,khd->qhd", p, vf).to(q.dtype)
+    out = torch.einsum("...hqk,...khd->...qhd", p, vf).to(q.dtype)
     return out if heads else out.squeeze(1)
 
 
@@ -86,11 +175,8 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     _check_blocks(q.shape[0], k.shape[0], block_q, block_k)
-    if q.device.type == "cpu":
+    if _on_cpu("flash_attention", q, k, v):
         return attention_reference(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
     return _flash_cuda(q, k, v, causal)
 
 
@@ -100,55 +186,364 @@ def _flash_cuda(q, k, v, causal: bool):
     sq, h, d = q3.shape
     sk = k3.shape[0]
     for name, t in (("q", q3), ("k", k3), ("v", v3)):
-        if t.device != q3.device:
-            raise ValueError(f"{name} on {t.device}, q on {q3.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"flash_attention kernel takes float32, "
                             f"{name} is {t.dtype}")
         if t.stride(2) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
+        if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
+            raise ValueError(f"{name}'s rows must be 16-byte aligned")
     if k3.shape != (sk, h, d) or v3.shape != (sk, h, d):
         raise ValueError(f"k/v shapes {tuple(k3.shape)}, {tuple(v3.shape)} "
                          f"do not match q {tuple(q3.shape)}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
     o = torch.empty((sq, h, d), dtype=torch.float32, device=q3.device)
-    fn = _kernel()
-    with torch.cuda.device(q3.device):
-        stream = torch.cuda.current_stream(q3.device).cuda_stream
-        rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-                sq, sk, h, d, q3.stride(0), q3.stride(1), k3.stride(0),
-                k3.stride(1), v3.stride(0), v3.stride(1), o.stride(0),
-                o.stride(1), int(causal), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: "
-                           f"{_error_string(rc)} ({rc})")
+    # heads are the kernel's N axis: (S, H, D) read through its strides
+    _fwd_launch(q3, k3, v3, o, None, h, sq, sk, causal,
+                [(t.stride(1), t.stride(0)) for t in (q3, k3, v3, o)])
     launches.add("flash_attention")
     return o if heads else o.squeeze(1)
 
 
-_fn = None
+def _fwd_launch(q, k, v, o, lse, n, sq, sk, causal, strides):
+    """One launch of csrc/flash_fwd.cu; ``strides`` holds the (N, row)
+    element strides of q, k, v and o; ``lse`` None writes o only."""
+    fn = _bind("flash_fwd", "brpc_flash_fwd",
+               [_ptr] * 5 + [_i32] * 6 + [_i64] * 8 + [_ptr])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(), n, sq, sk,
+                q.shape[-1], _DTYPES[q.dtype], int(causal),
+                *(x for pair in strides for x in pair), _stream(q))
+    _raise_on(rc, "flash_fwd", "flash_fwd")
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        from brpc_tpu_torch.tpu import _build
-
-        lib = _build.load("flash_attention")
-        fn = lib.brpc_flash_attention_f32
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                       i64, i64, i64, i64, i64, i64, i64, i64, i32, ptr]
-        fn.restype = i32
-        lib.brpc_cuda_error_string.argtypes = [i32]
-        lib.brpc_cuda_error_string.restype = ctypes.c_char_p
-        _fn = fn
-    return _fn
+# ---------------------------------------------------------------------------
+# Training: flash attention over [N, S, D] with lse, and its backward
+# ---------------------------------------------------------------------------
+def _causal_mask(sq: int, sk: int, q_start: int, k_start: int, device):
+    """[sq, sk] bool, True where q_start + row >= k_start + col."""
+    rows = torch.arange(sq, device=device)[:, None] + q_start
+    cols = torch.arange(sk, device=device)[None, :] + k_start
+    return rows >= cols
 
 
-def _error_string(rc: int) -> str:
-    from brpc_tpu_torch.tpu import _build
+def _scores(q, k, causal, q_start, k_start):
+    """q k^T / sqrt(D) in fp32 with the causal mask (absolute positions)
+    as NEG_INF; and the mask itself (None when not causal)."""
+    s = torch.einsum("nqd,nkd->nqk", q.float(), k.float()) / math.sqrt(
+        q.shape[-1])
+    if not causal:
+        return s, None
+    live = _causal_mask(q.shape[1], k.shape[1], q_start, k_start, q.device)
+    return torch.where(live, s, torch.full_like(s, NEG_INF)), live
 
-    return _build.load("flash_attention").brpc_cuda_error_string(rc) \
-        .decode()
+
+def flash_fwd_reference(q, k, v, causal: bool, q_start: int = 0,
+                        k_start: int = 0):
+    """Plain version of the forward kernel: q [N, Sq, D], k, v [N, Sk, D]
+    -> (o [N, Sq, D] in q's dtype, lse [N, Sq, 1] fp32). Products in fp32,
+    P rounded to v's dtype before P V as the TPU kernel does; a row that
+    sees no key gets o = 0 and lse = NEG_INF. The offsets place the
+    blocks for a causal mask at absolute positions (the kernel's are 0)."""
+    s, live = _scores(q, k, causal, q_start, k_start)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if live is not None:
+        p = torch.where(live, p, torch.zeros_like(p))
+    l = p.sum(dim=-1, keepdim=True)
+    seen = l > 0
+    safe = torch.where(seen, l, torch.ones_like(l))
+    o = torch.einsum("nqk,nkd->nqd", p.to(v.dtype).float(), v.float()) / safe
+    lse = torch.where(seen, m + torch.log(safe), torch.full_like(l, NEG_INF))
+    return o.to(q.dtype), lse
+
+
+def flash_bwd_reference(q, k, v, lse, do, delta, q_start: int, k_start: int,
+                        causal: bool):
+    """Plain version of the dQ and dK/dV kernels: (dq, dk, dv) in the
+    inputs' dtypes. P = exp(s - lse), 0 where lse <= NEG_INF / 2 (a row
+    that attended to nothing); P and dS rounded to the operand dtype
+    before their products, as the TPU kernels do."""
+    s, _ = _scores(q, k, causal, q_start, k_start)
+    # masked scores are NEG_INF, so exp(s - lse) is 0 there already
+    p = torch.where(lse > NEG_INF / 2, torch.exp(s - lse),
+                    torch.zeros_like(s))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dv = torch.einsum("nqk,nqd->nkd", p.to(do.dtype).float(), do.float())
+    dp = torch.einsum("nqd,nkd->nqk", do.float(), v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("nqk,nkd->nqd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    dk = torch.einsum("nqk,nqd->nkd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_delta(o, do):
+    """delta = rowsum(dO * O) in fp32, [N, Sq, 1]: plain PyTorch, as it is
+    plain jnp in the JAX package, computed once by the caller."""
+    return torch.sum(do.float() * o.float(), dim=-1, keepdim=True)
+
+
+def _fit_block(s: int, want: int) -> int:
+    """Largest divisor of s that is <= want."""
+    b = min(want, s)
+    while s % b:
+        b -= 1
+    return b
+
+
+# The CUDA kernels tile on their own (common.cuh); the blocks of the TPU
+# wrappers only decide which wrapper runs (causal with bq == bk folds) and
+# which sequence lengths are refused. The defaults are those the JAX
+# package picks off the TPU, so both refuse and dispatch alike.
+_WANT_BLOCK = 128
+
+
+def _pick_blocks(sq: int, sk: int, block_q: int = None, block_k: int = None):
+    """Explicit block sizes are honoured exactly (and refused if they do
+    not divide); defaults take the largest dividing block."""
+    bq = min(block_q, sq) if block_q else _fit_block(sq, _WANT_BLOCK)
+    bk = min(block_k, sk) if block_k else _fit_block(sk, _WANT_BLOCK)
+    _check_blocks(sq, sk, bq, bk)
+    return bq, bk
+
+
+def _check_nsd(name: str, q, k, v):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{name} takes [N, S, D] tensors, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    n, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != n or k.shape[2] != d:
+        raise ValueError(f"{name}: k/v shapes {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+
+
+def _check_mha_kernel_shape(name: str, q, k) -> None:
+    n, sq, d = q.shape
+    if d not in _MHA_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {_MHA_HEAD_DIMS}")
+    if n > _MAX_GRID_Y:
+        raise ValueError(f"{name}: batch * heads {n} > {_MAX_GRID_Y}")
+    if 0 in (n, sq, k.shape[1]):
+        raise ValueError(f"{name}: empty input {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool):
+    _check_mha_kernel_shape("flash_fwd", q, k)
+    _check_kernel_inputs("flash_fwd", q.dtype, q=q, k=k, v=v)
+    n, sq, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((n, sq, 1), dtype=torch.float32, device=q.device)
+    _fwd_launch(q, k, v, o, lse, n, sq, k.shape[1], causal,
+                [(t.stride(0), t.stride(1)) for t in (q, k, v, o)])
+    launches.add("flash_fwd")
+    return o, lse
+
+
+def _flash_fwd_bhsd(q, k, v, causal: bool, bq: int, bk: int):
+    """Forward over [N, S, D] (N = B*H): returns (o [N,S,D], lse
+    [N,S,1] fp32). Replaces the (q-tile, k-tile) grid kernel."""
+    _check_nsd("_flash_fwd_bhsd", q, k, v)
+    _check_blocks(q.shape[1], k.shape[1], bq, bk)
+    if _on_cpu("_flash_fwd_bhsd", q, k, v):
+        return flash_fwd_reference(q, k, v, causal)
+    return _flash_fwd_cuda(q, k, v, causal)
+
+
+def _flash_fwd_folded(q, k, v, b: int):
+    """Causal forward over [N, S, D] with bq = bk = b: returns (o, lse).
+    Replaces the triangular-grid kernel; on the card it launches the same
+    kernel as :func:`_flash_fwd_bhsd`, which skips the tiles above the
+    diagonal itself."""
+    _check_nsd("_flash_fwd_folded", q, k, v)
+    n, sq, _ = q.shape
+    if sq != k.shape[1]:
+        raise ValueError("folded causal kernel requires sq == sk")
+    if sq % b:
+        raise ValueError(f"shape ({n},{sq}) vs blocks (b={b})")
+    if _on_cpu("_flash_fwd_folded", q, k, v):
+        return flash_fwd_reference(q, k, v, True)
+    return _flash_fwd_cuda(q, k, v, True)
+
+
+def _flash_fwd_best(q, k, v, causal: bool, bq: int, bk: int):
+    """Forward dispatch: causal self-attention with bq == bk takes the
+    folded wrapper, everything else the rectangular one."""
+    if causal and bq == bk and q.shape[1] == k.shape[1]:
+        return _flash_fwd_folded(q, k, v, bq)
+    return _flash_fwd_bhsd(q, k, v, causal, bq, bk)
+
+
+def _flash_bwd_bhsd(q, k, v, lse, do, delta, q_start: int, k_start: int,
+                    causal: bool, bq: int, bk: int):
+    """Backward over [N, S, D]: returns (dq, dk, dv). q_start / k_start
+    are absolute sequence offsets, so a ring hop can reuse the kernels
+    with its causal mask intact. On the card: the dQ kernel, then the
+    dK/dV kernel."""
+    _check_nsd("_flash_bwd_bhsd", q, k, v)
+    n, sq, _ = q.shape
+    _check_blocks(sq, k.shape[1], bq, bk)
+    if do.shape != q.shape or lse.shape != (n, sq, 1) or \
+            delta.shape != (n, sq, 1):
+        raise ValueError(f"_flash_bwd_bhsd: do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if _on_cpu("_flash_bwd_bhsd", q, k, v, lse, do, delta):
+        return flash_bwd_reference(q, k, v, lse, do, delta, q_start,
+                                   k_start, causal)
+    args = (q, k, v, lse, do, delta, q_start, k_start, causal)
+    return (_flash_bwd_dq_cuda(*args), *_flash_bwd_dkv_cuda(*args))
+
+
+def _bwd_launch_args(q, k, v, lse, do, delta, q_start, k_start, causal):
+    """Checks the backward kernels' inputs; their leading pointers and
+    trailing ints of the C interface."""
+    _check_mha_kernel_shape("flash_bwd", q, k)
+    _check_kernel_inputs("flash_bwd", q.dtype, q=q, k=k, v=v, do=do)
+    _check_kernel_inputs("flash_bwd", torch.float32, lse=lse, delta=delta)
+    n, sq, d = q.shape
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    tail = (n, sq, k.shape[1], d, _DTYPES[q.dtype], int(q_start),
+            int(k_start), int(causal))
+    return ins, tail
+
+
+def _flash_bwd_dq_cuda(q, k, v, lse, do, delta, q_start, k_start, causal):
+    ins, tail = _bwd_launch_args(q, k, v, lse, do, delta, q_start, k_start,
+                                 causal)
+    dq = torch.empty_like(q)
+    fn = _bind("flash_bwd", "brpc_flash_bwd_dq",
+               [_ptr] * 7 + [_i32] * 8 + [_ptr])
+    with torch.cuda.device(q.device):
+        rc = fn(*ins, dq.data_ptr(), *tail, _stream(q))
+    _raise_on(rc, "flash_bwd", "flash_bwd_dq")
+    launches.add("flash_bwd_dq")
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, lse, do, delta, q_start, k_start, causal):
+    ins, tail = _bwd_launch_args(q, k, v, lse, do, delta, q_start, k_start,
+                                 causal)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = _bind("flash_bwd", "brpc_flash_bwd_dkv",
+               [_ptr] * 8 + [_i32] * 8 + [_ptr])
+    with torch.cuda.device(q.device):
+        rc = fn(*ins, dk.data_ptr(), dv.data_ptr(), *tail, _stream(q))
+    _raise_on(rc, "flash_bwd", "flash_bwd_dkv")
+    launches.add("flash_bwd_dkv")
+    return dk, dv
+
+
+class _FlashMHA(torch.autograd.Function):
+    """[N, S, D] flash attention: the forward kernel, and the dQ and dK/dV
+    kernels for the backward (the JAX package's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bq, bk):
+        o, lse = _flash_fwd_best(q, k, v, causal, bq, bk)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, bq, bk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, bq, bk = ctx.args
+        do = do.contiguous()
+        dq, dk, dv = _flash_bwd_bhsd(q, k, v, lse, do, _flash_delta(o, do),
+                                     0, 0, causal, bq, bk)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_mha(q, k, v, causal: bool = False, block_q: int = None,
+                        block_k: int = None):
+    """(B, H, S, D) multi-head flash attention, differentiable: B*H fold
+    into the kernels' N. A CPU tensor runs the plain versions; a CUDA
+    tensor launches the forward kernel and, in the backward, the dQ and
+    dK/dV kernels."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention_mha takes (B, H, S, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bq, bk = _pick_blocks(sq, sk, block_q, block_k)
+    o = _FlashMHA.apply(q.reshape(b * h, sq, d).contiguous(),
+                        k.reshape(b * h, sk, d).contiguous(),
+                        v.reshape(b * h, sk, d).contiguous(), causal, bq, bk)
+    return o.reshape(b, h, sq, d)
+
+
+# ---------------------------------------------------------------------------
+# Training: RMSNorm
+# ---------------------------------------------------------------------------
+def rmsnorm_reference(x, w, eps: float = EPS):
+    """Plain RMSNorm over the last dim in fp32, cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def _rmsnorm_fwd_call(x, w, eps: float = EPS):
+    """Fused RMSNorm over the last dim. x: [..., D], w: [D]. A CPU tensor
+    runs :func:`rmsnorm_reference`; a CUDA tensor launches the kernel."""
+    d = x.shape[-1]
+    if w.shape != (d,):
+        raise ValueError(f"rmsnorm: w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if _on_cpu("rmsnorm", x, w):
+        return rmsnorm_reference(x, w, eps)
+    x2 = x.reshape(-1, d).contiguous()
+    _check_kernel_inputs("rmsnorm", x.dtype, x=x2, w=w)
+    out = torch.empty_like(x2)
+    if x2.shape[0] and d:
+        fn = _bind("rmsnorm", "brpc_rmsnorm",
+                   [_ptr, _ptr, _ptr, _i64, _i32, _i32, ctypes.c_float,
+                    _ptr])
+        with torch.cuda.device(x.device):
+            rc = fn(x2.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    x2.shape[0], d, _DTYPES[x.dtype], eps, _stream(x2))
+        _raise_on(rc, "rmsnorm", "rmsnorm")
+        launches.add("rmsnorm")
+    return out.reshape(x.shape)
+
+
+def _rmsnorm_bwd(x, w, g, eps: float):
+    """The JAX package's ``_rmsnorm_diff_bwd``: plain elementwise ops and
+    reductions; dw sums over every row of an input of any rank."""
+    xf, gf, wf = x.float(), g.float(), w.float()
+    d = x.shape[-1]
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    gw = gf * wf
+    dx = gw * r - xf * (r ** 3 / d) * torch.sum(gw * xf, dim=-1,
+                                                keepdim=True)
+    dw = torch.sum((gf * xf * r).reshape(-1, d), dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm_fwd_call(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _rmsnorm_bwd(x, w, g, ctx.eps)
+        return dx, dw, None
+
+
+def rmsnorm(x, w, eps: float = EPS):
+    """Fused RMSNorm over the last dim, differentiable: the kernel
+    forward, the plain backward. x: [..., D], w: [D]."""
+    return _RMSNorm.apply(x, w, eps)

@@ -230,7 +230,9 @@ class TinyTransformer(nn.Module):
         if s >= cfg.ring_threshold:
             raise NotImplementedError(
                 f"prompt of {s} tokens needs ring attention (ring_threshold "
-                f"{cfg.ring_threshold}), which the torch port lacks")
+                f"{cfg.ring_threshold}) over the process's device mesh, "
+                f"which the torch port lacks until its mesh slice "
+                f"(ROADMAP.md, slice 9)")
         self.kv.assert_writable(table, 0, s)
         bucket = max(16, _next_pow2(s))
         if bucket > 128:

@@ -7,8 +7,9 @@ built with nvcc and called through ctypes (``tpu/_build.py``).
 
 - Each kernel has a plain PyTorch version beside it
   (:func:`attention_reference`, :func:`flash_fwd_reference`,
-  :func:`flash_bwd_reference`, :func:`rmsnorm_reference`): the CPU tests
-  use them and ``chip_smoke.py`` holds each kernel against its own.
+  :func:`flash_bwd_reference`, :func:`rmsnorm_reference`,
+  :func:`flash_carry_reference`, :func:`softmax_xent_reference`): the CPU
+  tests use them and ``chip_smoke.py`` holds each kernel against its own.
 - The wrappers take the plain version for a CPU tensor only; a CUDA
   tensor launches the kernel or raises.
 - ``launches`` counts kernel launches per kernel, so a run can show that
@@ -20,7 +21,12 @@ forward of ``csrc/flash_fwd.cu`` without lse. Training uses
 same kernel and whose backward is the dQ and dK/dV kernels of
 ``csrc/flash_bwd.cu``, and :func:`rmsnorm`, whose forward is
 ``csrc/rmsnorm.cu`` and whose backward is plain PyTorch, as it is XLA in
-the JAX package.
+the JAX package, and :func:`softmax_xent`, the fused cross-entropy of
+``csrc/xent.cu`` with a plain backward likewise. Ring attention
+(``tpu/ring.py``) runs :func:`flash_attention_carry`, the carry form of
+the forward kernel, and the backward kernels at absolute offsets;
+:func:`_flash_fwd_qgrid` is the q-grid forward's entry, on the card the
+same forward kernel.
 """
 
 from __future__ import annotations
@@ -47,8 +53,9 @@ class LaunchCounts:
     def __init__(self):
         self._lock = threading.Lock()
         self._n = {name: 0 for name in ("flash_attention", "flash_fwd",
+                                        "flash_fwd_qgrid", "flash_carry",
                                         "flash_bwd_dq", "flash_bwd_dkv",
-                                        "rmsnorm")}
+                                        "rmsnorm", "softmax_xent")}
 
     def add(self, name: str) -> None:
         with self._lock:
@@ -333,15 +340,17 @@ def _check_mha_kernel_shape(name: str, q, k) -> None:
                          f"{tuple(k.shape)}")
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool):
-    _check_mha_kernel_shape("flash_fwd", q, k)
-    _check_kernel_inputs("flash_fwd", q.dtype, q=q, k=k, v=v)
+def _flash_fwd_cuda(q, k, v, causal: bool, counter: str = "flash_fwd"):
+    """One launch of the forward kernel with lse, counted under
+    ``counter`` (the TPU entry it stands for)."""
+    _check_mha_kernel_shape(counter, q, k)
+    _check_kernel_inputs(counter, q.dtype, q=q, k=k, v=v)
     n, sq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((n, sq, 1), dtype=torch.float32, device=q.device)
     _fwd_launch(q, k, v, o, lse, n, sq, k.shape[1], causal,
                 [(t.stride(0), t.stride(1)) for t in (q, k, v, o)])
-    launches.add("flash_fwd")
+    launches.add(counter)
     return o, lse
 
 
@@ -369,6 +378,25 @@ def _flash_fwd_folded(q, k, v, b: int):
     if _on_cpu("_flash_fwd_folded", q, k, v):
         return flash_fwd_reference(q, k, v, True)
     return _flash_fwd_cuda(q, k, v, True)
+
+
+def _flash_fwd_qgrid(q, k, v, causal: bool, bq: int, bkc: int, bn: int = 1):
+    """q-grid forward over [N, S, D]: returns (o, lse [N,S,1] fp32), the
+    causal mask aligned at 0. Replaces the TPU kernel that keeps K/V
+    resident and loops over k-chunks of ``bkc`` inside it; the CUDA
+    forward kernel already has that schedule (a key loop inside each block,
+    stopped at the diagonal), so on the card it launches that kernel.
+    Refuses the shapes the TPU wrapper refuses; ``bn`` (heads per TPU grid
+    step) means nothing on the card and is validated only."""
+    _check_nsd("_flash_fwd_qgrid", q, k, v)
+    n, sq, _ = q.shape
+    sk = k.shape[1]
+    if n % bn or sq % bq or sk % bkc:
+        raise ValueError(f"shape ({n},{sq},{sk}) vs blocks "
+                         f"({bn},{bq},{bkc})")
+    if _on_cpu("_flash_fwd_qgrid", q, k, v):
+        return flash_fwd_reference(q, k, v, causal)
+    return _flash_fwd_cuda(q, k, v, causal, "flash_fwd_qgrid")
 
 
 def _flash_fwd_best(q, k, v, causal: bool, bq: int, bk: int):
@@ -547,3 +575,169 @@ def rmsnorm(x, w, eps: float = EPS):
     """Fused RMSNorm over the last dim, differentiable: the kernel
     forward, the plain backward. x: [..., D], w: [D]."""
     return _RMSNorm.apply(x, w, eps)
+
+
+# ---------------------------------------------------------------------------
+# Ring attention's inner kernel: the carry form of the flash forward
+# ---------------------------------------------------------------------------
+def flash_carry_reference(q, k, v, m, l, acc, q_start: int, k_start: int,
+                          causal: bool = False):
+    """Plain version of the carry kernel: one online-softmax pass of q
+    [..., Sq, D] over k, v [..., Sk, D], continuing the state m, l
+    [..., Sq, 1] and acc [..., Sq, D] (fp32) -> (m', l', acc'), not
+    normalised. Causal at absolute positions (q_start + row >= k_start +
+    col). As the TPU kernel: masked scores are NEG_INF, a row whose running
+    max is still NEG_INF keeps p = 0 and rescales by 0, and P is rounded to
+    v's dtype before P V. A row that sees no key keeps its state exactly."""
+    sq, d = q.shape[-2:]
+    q3, k3, v3 = (t.reshape(-1, t.shape[-2], d) for t in (q, k, v))
+    s, _ = _scores(q3, k3, causal, q_start, k_start)
+    m3 = m.reshape(-1, sq, 1).float()
+    m_new = torch.maximum(m3, s.amax(dim=-1, keepdim=True))
+    alive = m_new > NEG_INF / 2
+    p = torch.where(alive, torch.exp(s - m_new), torch.zeros_like(s))
+    alpha = torch.where(alive, torch.exp(m3 - m_new), torch.zeros_like(m3))
+    l_new = l.reshape(-1, sq, 1).float() * alpha + p.sum(dim=-1,
+                                                         keepdim=True)
+    acc_new = acc.reshape(-1, sq, d).float() * alpha + torch.einsum(
+        "nqk,nkd->nqd", p.to(v.dtype).float(), v3.float())
+    return (m_new.reshape(m.shape), l_new.reshape(l.shape),
+            acc_new.reshape(acc.shape))
+
+
+def flash_attention_carry(q, k, v, m, l, acc, q_start: int, k_start: int,
+                          causal: bool = False, block_q: int = 128,
+                          block_k: int = 128):
+    """One online-softmax accumulation pass over (k, v) for queries q,
+    continuing the running state: q [..., Sq, D]; k, v [..., Sk, D]; m, l
+    [..., Sq, 1] and acc [..., Sq, D] fp32; q_start / k_start absolute
+    sequence offsets for the causal mask. Leading axes (a ring's batch and
+    heads) ride one launch. Returns (m', l', acc'); normalise with acc / l
+    after the last pass. Sequence lengths must divide the blocks, as for
+    the TPU kernel. A CPU tensor runs :func:`flash_carry_reference`; a CUDA
+    tensor launches the carry form of ``csrc/flash_fwd.cu``."""
+    sq, d = q.shape[-2:]
+    sk = k.shape[-2]
+    lead = tuple(q.shape[:-2])
+    if (tuple(k.shape) != lead + (sk, d) or v.shape != k.shape
+            or tuple(m.shape) != lead + (sq, 1) or l.shape != m.shape
+            or acc.shape != q.shape):
+        raise ValueError(f"flash_attention_carry: shapes q {tuple(q.shape)},"
+                         f" k {tuple(k.shape)}, v {tuple(v.shape)}, m "
+                         f"{tuple(m.shape)}, l {tuple(l.shape)}, acc "
+                         f"{tuple(acc.shape)} do not fit")
+    _check_blocks(sq, sk, block_q, block_k)
+    if _on_cpu("flash_attention_carry", q, k, v, m, l, acc):
+        return flash_carry_reference(q, k, v, m, l, acc, q_start, k_start,
+                                     causal)
+    return _flash_carry_cuda(q, k, v, m, l, acc, q_start, k_start, causal)
+
+
+def _flash_carry_cuda(q, k, v, m, l, acc, q_start, k_start, causal):
+    _check_kernel_inputs("flash_carry", q.dtype, q=q, k=k, v=v)
+    _check_kernel_inputs("flash_carry", torch.float32, m=m, l=l, acc=acc)
+    sq, d = q.shape[-2:]
+    q3, k3, v3 = (t.reshape(-1, t.shape[-2], d) for t in (q, k, v))
+    _check_mha_kernel_shape("flash_carry", q3, k3)
+    m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
+    fn = _bind("flash_fwd", "brpc_flash_carry",
+               [_ptr] * 9 + [_i32] * 8 + [_i64] * 6 + [_ptr])
+    with torch.cuda.device(q.device):
+        rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), m.data_ptr(),
+                l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
+                l_out.data_ptr(), acc_out.data_ptr(), q3.shape[0], sq,
+                k3.shape[1], d, _DTYPES[q.dtype], int(causal), int(q_start),
+                int(k_start), *(x for t in (q3, k3, v3)
+                                for x in (t.stride(0), t.stride(1))),
+                _stream(q))
+    _raise_on(rc, "flash_fwd", "flash_carry")
+    launches.add("flash_carry")
+    return m_out, l_out, acc_out
+
+
+# ---------------------------------------------------------------------------
+# Training: fused softmax cross-entropy
+# ---------------------------------------------------------------------------
+def _xent_rows_reference(logits, targets):
+    """Plain per-row NLL in fp32: logsumexp(x) - x[t], with x[t] taken as 0
+    for a target outside [0, V), as the TPU kernel's masked sum gives."""
+    x = logits.float()
+    v = x.shape[-1]
+    t = targets.long()
+    picked = torch.gather(x, 1, t.clamp(0, v - 1)[:, None])[:, 0]
+    picked = torch.where((t >= 0) & (t < v), picked, torch.zeros_like(picked))
+    return torch.logsumexp(x, dim=-1) - picked
+
+
+def softmax_xent_reference(logits, targets):
+    """Mean negative log-likelihood; logits [N, V], targets [N] int."""
+    return _xent_rows_reference(logits, targets).mean()
+
+
+def _xent_forward_rows(logits, targets, block_rows: int = 256):
+    """Per-row NLL [N] fp32 of logits [N, V] (fp32 or bf16) and targets [N]
+    (int32 or int64). Any N: the TPU wrapper pads rows to ``block_rows``
+    and slices the padding off; here each row is independent, so the block
+    is validated only. A CPU tensor runs the plain version; a CUDA tensor
+    launches ``csrc/xent.cu``."""
+    if logits.dim() != 2 or tuple(targets.shape) != (logits.shape[0],):
+        raise ValueError(f"softmax_xent takes logits [N, V] and targets "
+                         f"[N], got {tuple(logits.shape)}, "
+                         f"{tuple(targets.shape)}")
+    if block_rows < 1:
+        raise ValueError(f"block_rows {block_rows} < 1")
+    if _on_cpu("softmax_xent", logits, targets):
+        return _xent_rows_reference(logits, targets)
+    return _xent_cuda(logits, targets)
+
+
+def _xent_cuda(logits, targets):
+    n, v = logits.shape
+    _check_kernel_inputs("softmax_xent", logits.dtype, logits=logits)
+    if targets.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"softmax_xent: targets are {targets.dtype}, want "
+                        f"int32 or int64")
+    if v == 0 or n >= 2 ** 31:
+        raise ValueError(f"softmax_xent kernel: logits {tuple(logits.shape)}")
+    targets = targets.contiguous()
+    nll = torch.empty(n, dtype=torch.float32, device=logits.device)
+    if n:
+        fn = _bind("xent", "brpc_xent",
+                   [_ptr, _ptr, _ptr, _i64, _i32, _i32, _i32, _ptr])
+        with torch.cuda.device(logits.device):
+            rc = fn(logits.data_ptr(), targets.data_ptr(), nll.data_ptr(), n,
+                    v, _DTYPES[logits.dtype], targets.element_size() * 8,
+                    _stream(logits))
+        _raise_on(rc, "xent", "softmax_xent")
+        launches.add("softmax_xent")
+    return nll
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    """Mean NLL: the kernel forward; the plain backward (softmax - onehot)
+    * g / N in the logits' dtype, which the JAX package leaves to XLA."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, block_rows):
+        ctx.save_for_backward(logits, targets)
+        return _xent_forward_rows(logits, targets, block_rows).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets = ctx.saved_tensors
+        n, v = logits.shape
+        p = torch.softmax(logits.float(), dim=-1)
+        # p - onehot(t) in place; a target outside [0, V) subtracts nothing,
+        # as jax.nn.one_hot gives a zero row for it
+        hit = ((targets >= 0) & (targets < v)).float()
+        p.scatter_add_(1, targets.long().clamp(0, v - 1)[:, None],
+                       -hit[:, None])
+        return p.mul_(g).div_(n).to(logits.dtype), None, None
+
+
+def softmax_xent(logits, targets, block_rows: int = 256):
+    """Fused mean cross-entropy; logits [N, V], targets [N] int.
+    Differentiable, so it drops into training losses; N == 0 gives 0.0."""
+    if logits.shape[0] == 0:
+        return logits.float().sum() * 0.0  # 0.0, with a zero gradient
+    return _SoftmaxXent.apply(logits, targets, block_rows)

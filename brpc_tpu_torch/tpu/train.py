@@ -6,12 +6,14 @@ same parameter names and shapes, the same loss and the same
 SGD step. With ``use_flash_attention`` (the default) attention is
 :func:`~brpc_tpu_torch.tpu.pallas_ops.flash_attention_mha`, whose forward
 and backward are CUDA kernels on the card; with ``use_pallas_norm`` every
-norm is :func:`~brpc_tpu_torch.tpu.pallas_ops.rmsnorm`. The QKV, output,
-MLP and head products stay ``torch.matmul``, as the JAX package leaves
-them to XLA.
+norm is :func:`~brpc_tpu_torch.tpu.pallas_ops.rmsnorm`; with
+``use_fused_xent`` the loss is
+:func:`~brpc_tpu_torch.tpu.pallas_ops.softmax_xent`, whose forward is a
+CUDA kernel on the card. The QKV, output, MLP and head products stay
+``torch.matmul``, as the JAX package leaves them to XLA.
 
 Not ported yet, and refused with ``NotImplementedError``: a mesh (the
-sharded step with ring attention) and ``use_fused_xent``.
+sharded step with ring attention).
 
 Entry points: :class:`TrainLM` (``forward``), :func:`loss_fn`,
 :func:`value_and_grad`, :func:`sgd_train_step` and :func:`demo_batch`;
@@ -35,8 +37,6 @@ from brpc_tpu_torch.tpu.device_lane import resolve_device
 _MESH_SLICE = ("a mesh (the sharded train step with ring attention) is not "
                "ported yet: it comes with the port's mesh and sharded "
                "training slice (ROADMAP.md, slice 9)")
-_XENT_SLICE = ("use_fused_xent (the fused cross-entropy kernel) is not "
-               "ported yet: it comes with slice 3 of the port (ROADMAP.md)")
 
 
 @dataclass(frozen=True)
@@ -153,11 +153,14 @@ class TrainLM(nn.Module):
 
 
 def loss_fn(model: TrainLM, batch, mesh=None):
-    """Mean next-token cross-entropy in fp32."""
-    if model.config.use_fused_xent:
-        raise NotImplementedError(_XENT_SLICE)
+    """Mean next-token cross-entropy in fp32; with ``use_fused_xent`` the
+    fused kernel over the [B*S, V] logits."""
     tokens, targets = batch
     logits = model(tokens, mesh).float()
+    if model.config.use_fused_xent and mesh is None:
+        b, s, v = logits.shape
+        return pallas_ops.softmax_xent(logits.reshape(b * s, v),
+                                       targets.reshape(-1))
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets[..., None]).mean()
 

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then two paths:
+(nvcc, sm_90a, one process per source, all at once). Then four paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (strided (S, H, D) fp32, no lse), against its plain PyTorch version
@@ -14,11 +14,21 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   profiled run of the same requests shows where the time goes.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm kernel against their plain versions in fp32 and bf16, checks
-  one fp32 training step with the kernels against one without them, then
+  one fp32 training step of the shipping configuration (flash, RMSNorm
+  and fused cross-entropy kernels) against one without kernels, then
   takes five SGD steps of the flagship LM at full width in bf16 and
   checks that the loss falls and that every step launched each kernel
   the expected number of times; one more, profiled step shows where the
-  time goes.
+  time goes. Then holds the fused cross-entropy kernel against its plain
+  version row by row.
+- The q-grid forward: held against the plain forward at
+  ``tools/qgrid_sweep.py``'s shape, then driven through that sweep's
+  block configurations.
+- Ring attention on one card: holds the carry kernel against its plain
+  version (split K/V, identity state, a key block wholly in the future),
+  then runs a forward and a backward through ``ring_attention`` at
+  ``bench_ring_path``'s shape (tools/kernel_bench.py) and checks its
+  launches and its agreement with the plain ring.
 
 Exits non-zero, with no result line, on any failure, without a card, or
 without the package beside it.
@@ -47,7 +57,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,  # noqa: E402
                                     ModelConfig, PagedKVCache,
                                     ServingEngine, TinyTransformer)
-from brpc_tpu_torch.tpu import _build, pallas_ops, train  # noqa: E402
+from brpc_tpu_torch.tpu import _build, pallas_ops, ring, train  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and FLOP/s of
 # the inputs' type: fp32 outside the tensor cores, bf16 on them
@@ -346,6 +356,34 @@ def profile_engine(dev):
 # Training slice: flash forward with lse, the backward pair, RMSNorm, and
 # the single-device trainer at the flagship's widths
 # ---------------------------------------------------------------------------
+# fused cross-entropy, per row: |nll - plain| <= XENT_TOL * max(1, |plain|).
+# Both sides widen to fp32 and differ only in the order of the sums, in
+# bf16 as in fp32. Shapes: the flagship's logits, JAX's odd row count, V a
+# multiple of 4 that is not a power of two, and V not a multiple of 4 (the
+# kernel's scalar loop); the first two rows of each get targets out of
+# range (V and -1), whose NLL is the logsumexp
+XENT_TOL = 1e-4
+XENT_SHAPES = [(8192, 16384), (100, 64), (1000, 1000), (1000, 1003)]
+XENT_MAIN = (8192, 16384)   # B 8 x S 1024 rows of vocab 16384
+# tools/qgrid_sweep.py: its shape (B 4 x H 8, S 2048, head_dim 128, bf16)
+# and its (causal, bq, bkc, bn) configurations
+QGRID_MAIN = (32, 2048, 128)
+QGRID_SWEEP = [(True, 1024, 512, 1), (True, 1024, 512, 2),
+               (True, 1024, 1024, 1), (True, 1024, 1024, 2),
+               (True, 512, 512, 1), (True, 512, 512, 2), (True, 512, 512, 4),
+               (True, 512, 1024, 2), (True, 2048, 512, 1),
+               (True, 2048, 1024, 1), (False, 1024, 1024, 1),
+               (False, 1024, 1024, 2), (False, 512, 2048, 2),
+               (False, 2048, 1024, 1)]
+QGRID_CHECKED = [QGRID_SWEEP[0], QGRID_SWEEP[10]]  # held, and timed causal
+QGRID_REFUSED = [(1000, 512, 1), (1024, 1000, 1), (1024, 512, 3)]
+# the carry kernel at one ring hop of bench_ring_path: B 4 x H 8 heads, a
+# 512-row block, each head dim the training kernels take
+CARRY_N, CARRY_S, CARRY_DIMS = 32, 512, (32, 64, 128)
+# tools/kernel_bench.py:185 (bench_ring_path): B, H, S, D, sp; blocks 512
+RING_B, RING_H, RING_S, RING_D, RING_SP, RING_BLOCK = 4, 8, 2048, 128, 4, 512
+RING_SMALL = (2, 512, 4, 64)  # the fp32 check, [B, S, H, D]
+
 # kernel vs plain, relative to max(1, max |plain|): fp32 on both sides
 # differs only in the order of the sums; a bf16 kernel against the fp32
 # plain version on the same bf16-rounded inputs is held to the JAX
@@ -368,7 +406,8 @@ MHA_MAIN = (64, 1024, 128)  # what the trainer gives the kernels, causal
 RMS_SHAPES = [(8192, 1024), (1000, 1024), (256, 32),
               (7, 50)]  # ragged: fewer rows than a block, odd width
 RMS_MAIN = (8192, 1024)     # B 8 x S 1024 rows of d_model 1024
-# the flagship of tools/kernel_bench.py:395-398, kernels on, plain loss
+# the flagship of tools/kernel_bench.py:395-398; it ships with every
+# kernel on (flash attention, RMSNorm, fused cross-entropy)
 FLAGSHIP = dict(vocab=16384, d_model=1024, n_heads=8, d_ff=4096,
                 max_seq=1024)
 TRAIN_B, TRAIN_S, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR = 8, 1024, 8, 5, 1e-2
@@ -624,8 +663,17 @@ def check_rmsnorm(dev):
     return row
 
 
+def expect_launches(counts, want, what):
+    """Raises unless ``counts`` has ``want``'s numbers and 0 for every
+    other kernel."""
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launches {counts}, want {full}")
+
+
 def train_parity(dev):
-    """Phase 9: one value_and_grad with the kernels on and one with them
+    """Phase 9: one value_and_grad of the shipping configuration (every
+    kernel on, fused cross-entropy included) and one with every kernel
     off, on the same parameters: the flagship's widths at 2 layers, B 2,
     S 1024, fp32 with TF32 off. Loss within rtol 1e-4 and every gradient
     within rtol 5e-3, atol 5e-4: the JAX package's own flash-vs-XLA
@@ -634,15 +682,18 @@ def train_parity(dev):
     each gradient is also held by its relative norm, ||on - off|| /
     ||off|| <= GRAD_REL_TOL, which a swapped or wrong gradient breaks."""
     on = train.ModelConfig(**FLAGSHIP, n_layers=2, use_flash_attention=True,
-                           use_pallas_norm=True)
+                           use_pallas_norm=True, use_fused_xent=True)
     off = dataclasses.replace(on, use_flash_attention=False,
-                              use_pallas_norm=False)
+                              use_pallas_norm=False, use_fused_xent=False)
     model = train.TrainLM(on, torch.Generator().manual_seed(0), device=dev)
     batch = train.demo_batch(torch.Generator().manual_seed(1), on, 2, 1024,
                              device=dev)
     pallas_ops.launches.reset()
     loss_on, grads_on = train.value_and_grad(model, batch)
     counts = pallas_ops.launches.snapshot()
+    expect_launches(counts, {"flash_fwd": 2, "flash_bwd_dq": 2,
+                             "flash_bwd_dkv": 2, "rmsnorm": 5,
+                             "softmax_xent": 1}, "parity step")
     model.config = off
     loss_off, grads_off = train.value_and_grad(model, batch)
     worst, worst_rel = 0.0, 0.0
@@ -668,16 +719,16 @@ def train_parity(dev):
 
 
 def run_trainer(dev, smi):
-    """Phase 10, the slice's main path: the flagship at full width in bf16
-    (8 layers, B 8, S 1024, flash attention and the RMSNorm kernel on,
-    plain loss), TRAIN_STEPS sgd_train_steps on one demo_batch from seed
-    1. The counts are reset just before the steps and read just after;
-    then one more step runs under torch.profiler."""
+    """Phase 10, the trainer's main path: the flagship at full width in
+    bf16 as it ships (8 layers, B 8, S 1024, flash attention, the RMSNorm
+    kernel and the fused cross-entropy on), TRAIN_STEPS sgd_train_steps on
+    one demo_batch from seed 1. The counts are reset just before the steps
+    and read just after; then one more step runs under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = train.ModelConfig(**FLAGSHIP, n_layers=TRAIN_LAYERS,
                             dtype=torch.bfloat16, use_flash_attention=True,
-                            use_pallas_norm=True, use_fused_xent=False)
+                            use_pallas_norm=True, use_fused_xent=True)
     model = train.TrainLM(cfg, torch.Generator().manual_seed(0), device=dev)
     batch = train.demo_batch(torch.Generator().manual_seed(1), cfg, TRAIN_B,
                              TRAIN_S, device=dev)
@@ -692,10 +743,10 @@ def run_trainer(dev, smi):
         step_s.append(time.perf_counter() - t0)
     counts = pallas_ops.launches.snapshot()
     want = {"flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
-            "flash_bwd_dkv": TRAIN_LAYERS, "rmsnorm": 2 * TRAIN_LAYERS + 1}
-    per_step = {name: counts[name] / TRAIN_STEPS for name in want}
-    if per_step != want or counts["flash_attention"]:
-        raise AssertionError(f"launches per step {per_step}, want {want}")
+            "flash_bwd_dkv": TRAIN_LAYERS, "rmsnorm": 2 * TRAIN_LAYERS + 1,
+            "softmax_xent": 1}
+    per_step = {name: counts[name] / TRAIN_STEPS for name in counts}
+    expect_launches(per_step, want, "launches per step")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"losses {losses}: not finite or not falling")
@@ -731,6 +782,341 @@ def run_trainer(dev, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: the fused cross-entropy, the q-grid forward, the carry kernel and
+# ring attention on one card
+# ---------------------------------------------------------------------------
+def check_xent(dev):
+    """Phase 11: the fused cross-entropy kernel against its plain version
+    row by row (a wrong row hides in a mean over 8192), fp32 and bf16
+    logits, int64 and int32 targets, two targets out of range per shape;
+    the mean's gradient against autograd through the plain loss; then
+    timed at the flagship's logits (fp32, as the loss casts them) beside
+    the plain version and F.cross_entropy(reduction="none")."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(4)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for n, v in XENT_SHAPES:
+        for dtype in worst:
+            x = (3 * torch.randn(n, v, generator=gen)).to(device=dev,
+                                                          dtype=dtype)
+            t = torch.randint(0, v, (n,), generator=gen)
+            t[:2] = torch.tensor([v, -1])
+            for tt in (t.to(dev), t.to(device=dev, dtype=torch.int32)):
+                got = pallas_ops._xent_forward_rows(x, tt)
+                want = pallas_ops._xent_rows_reference(x, tt)
+                torch.cuda.synchronize()
+                rel = float(((got - want).abs()
+                             / want.abs().clamp_min(1.0)).max())
+                tag = f"softmax_xent {(n, v)} {dtype} targets {tt.dtype}"
+                if got.shape != (n,) or not math.isfinite(rel) or \
+                        rel > XENT_TOL:
+                    raise AssertionError(f"{tag}: per-row |kernel - plain|"
+                                         f" / max(1, |plain|) {rel} > "
+                                         f"{XENT_TOL}")
+                worst[dtype] = max(worst[dtype], rel)
+    n, v = 1000, 1003
+    x = randn(gen, (n, v), torch.float32, dev)
+    t = torch.randint(0, v, (n,), generator=gen).to(dev)
+    grads = [torch.autograd.grad(loss(x.requires_grad_(), t), x)[0]
+             for loss in (pallas_ops.softmax_xent,
+                          pallas_ops.softmax_xent_reference)]
+    grad_err = float((grads[0] - grads[1]).abs().max())
+    if not grad_err <= 1e-6:
+        raise AssertionError(f"softmax_xent gradient: max |fused - plain| "
+                             f"{grad_err} > 1e-6")
+    n, v = XENT_MAIN
+    x = (3 * torch.randn(n, v, generator=gen)).to(dev)
+    t = torch.randint(0, v, (n,), generator=gen).to(dev)
+    row = timings({
+        "kernel": lambda: pallas_ops._xent_cuda(x, t),
+        "plain": lambda: pallas_ops._xent_rows_reference(x, t),
+        "library": lambda: F.cross_entropy(x, t, reduction="none"),
+    }, iters=20)
+    # each logit read once, targets read and the NLL written once; ~4
+    # fp32 operations per logit (max, subtract, exp, add)
+    row["bound"] = bound(n * v * 4 + n * 8 + n * 4, 4 * n * v,
+                         torch.float32)
+    row.update(max_err_fp32=worst[torch.float32],
+               max_err_bf16=worst[torch.bfloat16], grad_max_err=grad_err)
+    print(json.dumps({"softmax_xent": row}), flush=True)
+    return row
+
+
+def check_qgrid(dev):
+    """Phase 12: the q-grid forward against flash_fwd_reference at
+    qgrid_sweep's shape in bf16 (causal (1024, 512, 1), non-causal (1024,
+    1024, 1)) and at a small shape in fp32 and bf16; the blocks it must
+    refuse; then the sweep's main path: every configuration of
+    tools/qgrid_sweep.py once, counted, each output equal to the first of
+    its causal flag (the kernel tiles on its own). Timed beside the plain
+    version and SDPA's forward."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gen = torch.Generator().manual_seed(5)
+    worst = new_worst()
+    cases = [(QGRID_MAIN, causal, blocks, (torch.bfloat16,))
+             for causal, *blocks in QGRID_CHECKED] + [
+        ((6, 256, 64), causal, (128, 64, 2), tuple(TOL))
+        for causal in (True, False)]
+    for shape, causal, blocks, dtypes in cases:
+        for dtype in dtypes:
+            q, k, v = (randn(gen, shape, dtype, dev) for _ in range(3))
+            o, lse = pallas_ops._flash_fwd_qgrid(q, k, v, causal, *blocks)
+            ro, rl = pallas_ops.flash_fwd_reference(q.float(), k.float(),
+                                                    v.float(), causal)
+            torch.cuda.synchronize()
+            tag = f"flash_fwd_qgrid {shape} causal={causal} {blocks} {dtype}"
+            held(tag + " o", o, ro, dtype, worst)
+            held(tag + " lse", lse, rl, dtype, worst)
+    q, k, v = (randn(gen, QGRID_MAIN, torch.bfloat16, dev) for _ in range(3))
+    before = pallas_ops.launches.snapshot()
+    for blocks in QGRID_REFUSED:
+        try:
+            pallas_ops._flash_fwd_qgrid(q, k, v, True, *blocks)
+        except ValueError:
+            continue
+        raise AssertionError(f"_flash_fwd_qgrid took blocks {blocks}")
+    if pallas_ops.launches.snapshot() != before:
+        raise AssertionError("a refused q-grid call launched a kernel")
+
+    pallas_ops.launches.reset()
+    first = {}
+    for causal, bq, bkc, bn in QGRID_SWEEP:
+        o, lse = pallas_ops._flash_fwd_qgrid(q, k, v, causal, bq, bkc, bn)
+        o0, lse0 = first.setdefault(causal, (o, lse))
+        if not (torch.equal(o, o0) and torch.equal(lse, lse0)):
+            raise AssertionError(f"q-grid sweep {(causal, bq, bkc, bn)}: "
+                                 f"output differs from the first config")
+    torch.cuda.synchronize()
+    counts = pallas_ops.launches.snapshot()
+    expect_launches(counts, {"flash_fwd_qgrid": len(QGRID_SWEEP)},
+                    "q-grid sweep")
+
+    n, s, d = QGRID_MAIN
+    qh, kh, vh = (t.unsqueeze(0) for t in (q, k, v))  # N heads of one
+    blocks = QGRID_CHECKED[0][1:]
+    row = timings({
+        "kernel": lambda: pallas_ops._flash_fwd_qgrid(q, k, v, True,
+                                                      *blocks),
+        "plain": lambda: pallas_ops.flash_fwd_reference(q, k, v, True),
+        "library": lambda: sdpa(qh, kh, vh, is_causal=True),
+    }, iters=10)
+    row["bound"] = mha_bounds(n, s, d, True, torch.bfloat16)["flash_fwd"]
+    row["launches"] = counts["flash_fwd_qgrid"]
+    row.update(readings(worst))
+    print(json.dumps({"flash_fwd_qgrid": row}), flush=True)
+    return row
+
+
+def identity_state(n, s, d, dev):
+    return (torch.full((n, s, 1), pallas_ops.NEG_INF, device=dev),
+            torch.zeros(n, s, 1, device=dev), torch.zeros(n, s, d, device=dev))
+
+
+def check_carry(dev):
+    """Phase 13: the carry kernel against flash_carry_reference at (32,
+    512, D), D in (32, 64, 128), fp32 and bf16, on m, l, acc and acc / l:
+    the identity state plus one causal pass (also against the forward
+    kernel), two passes over split K/V against one over all of it, a
+    carried state through a block wholly in the past (unmasked), and a key
+    block wholly in the future, which must give the input state back bit
+    for bit. Then timed at a full hop in bf16 beside the plain version (no
+    PyTorch call computes the carry state)."""
+    gen = torch.Generator().manual_seed(6)
+    worst = new_worst()
+    n, s = CARRY_N, CARRY_S
+    carry = pallas_ops.flash_attention_carry
+    plain = pallas_ops.flash_carry_reference
+
+    def hold(tag, got, want, dtype):
+        for name, g, w in zip(("m", "l", "acc"), got, want):
+            held(f"{tag} {name}", g, w, dtype, worst, rows=name == "acc")
+        held(f"{tag} acc/l", got[2] / got[1], want[2] / want[1], dtype,
+             worst)
+
+    for d in CARRY_DIMS:
+        for dtype in TOL:
+            q, k, v, k2, v2 = (randn(gen, (n, s, d), dtype, dev)
+                               for _ in range(5))
+            tag = f"flash_carry ({n}, {s}, {d}) {dtype}"
+            ident = identity_state(n, s, d, dev)
+            one = carry(q, k, v, *ident, 0, 0, causal=True, block_q=s,
+                        block_k=s)
+            hold(tag + " one pass", one,
+                 plain(q, k, v, *ident, 0, 0, True), dtype)
+            o, lse = pallas_ops._flash_fwd_bhsd(q, k, v, True, s, s)
+            held(tag + " vs forward o", one[2] / one[1], o.float(), dtype,
+                 worst)
+            held(tag + " vs forward lse", one[0] + torch.log(one[1]), lse,
+                 dtype, worst)
+            h = s // 2
+            half = carry(q, k[:, :h].contiguous(), v[:, :h].contiguous(),
+                         *ident, 0, 0, causal=True, block_q=s, block_k=h)
+            split = carry(q, k[:, h:].contiguous(), v[:, h:].contiguous(),
+                          *half, 0, h, causal=True, block_q=s, block_k=h)
+            held(tag + " split vs whole acc/l", split[2] / split[1],
+                 one[2] / one[1], dtype, worst)
+            past = carry(q, k2, v2, *one, s, 0, causal=True, block_q=s,
+                         block_k=s)
+            hold(tag + " carried past block", past,
+                 plain(q, k2, v2, *one, s, 0, True), dtype)
+            for state in (ident, one):
+                fut = carry(q, k2, v2, *state, 0, s, causal=True, block_q=s,
+                            block_k=s)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(fut, state)):
+                    raise AssertionError(f"{tag}: a key block wholly in the"
+                                         f" future changed the state")
+    d = RING_D
+    q, k, v = (randn(gen, (n, s, d), torch.bfloat16, dev) for _ in range(3))
+    state = carry(q, k, v, *identity_state(n, s, d, dev), 0, 0, causal=True,
+                  block_q=s, block_k=s)
+    row = timings({
+        "kernel": lambda: carry(q, k, v, *state, s, 0, causal=True,
+                                block_q=s, block_k=s),
+        "plain": lambda: plain(q, k, v, *state, s, 0, True),
+    }, iters=20)
+    # a full hop: q, k, v read once, the fp32 state read and written once;
+    # 4 D operations per (q, k) pair
+    row["bound"] = bound(3 * n * s * d * 2 + 2 * n * s * (d + 2) * 4,
+                         4 * d * n * s * s, torch.bfloat16)
+    row.update(library_ms=None, library_graph_ms=None)
+    row.update(readings(worst))
+    print(json.dumps({"flash_carry": row}), flush=True)
+    return row
+
+
+def ring_run(q, k, v, g, use_flash, causal=True, block=RING_BLOCK):
+    """One forward and backward through ring_attention; (out, grads)."""
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ring.ring_attention(*ins, RING_SP, causal=causal,
+                              use_flash=use_flash, block_q=block,
+                              block_k=block)
+    return out.detach(), torch.autograd.grad(out, ins, g)
+
+
+def rel_norm(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def run_ring(dev):
+    """Phase 14, the ring lane's main path. First in fp32 at RING_SMALL,
+    causal and not: the flash lane (carry kernel, backward kernels) against
+    the plain lane and full_attention_reference, outputs within 1e-4 and
+    gradients by relative norm within 1e-4, and sp^2 = 16 launches of each
+    kernel when not causal. Then bench_ring_path's shape in bf16, causal,
+    blocks 512: the counts are reset just before one forward and backward
+    and read just after (sp (sp + 1) / 2 = 10 live hops each), and the
+    result is held against the plain ring. Timed beside
+    flash_attention_mha and SDPA over the whole sequence."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gen = torch.Generator().manual_seed(7)
+    stats = {}
+    b, s, h, d = RING_SMALL
+    for causal in (True, False):
+        q, k, v, g = (randn(gen, RING_SMALL, torch.float32, dev)
+                      for _ in range(4))
+        pallas_ops.launches.reset()
+        out, grads = ring_run(q, k, v, g, True, causal, block=128)
+        counts = pallas_ops.launches.snapshot()
+        hops = RING_SP * (RING_SP + 1) // 2 if causal else RING_SP ** 2
+        expect_launches(counts, {"flash_carry": hops, "flash_bwd_dq": hops,
+                                 "flash_bwd_dkv": hops},
+                        f"ring fp32 causal={causal}")
+        p_out, p_grads = ring_run(q, k, v, g, False, causal)
+        full = ring.full_attention_reference(q, k, v, causal)
+        err = max(float((out - p_out).abs().max()),
+                  float((out - full).abs().max()))
+        grad_rel = max(rel_norm(a, c) for a, c in zip(grads, p_grads))
+        if not err <= 1e-4 or not grad_rel <= 1e-4:
+            raise AssertionError(f"ring fp32 causal={causal}: output error "
+                                 f"{err}, gradient relative norm "
+                                 f"{grad_rel} (limit 1e-4 each)")
+        stats[f"fp32_causal_{causal}"] = {"max_err": err,
+                                          "grad_rel_norm": grad_rel,
+                                          "launches": counts}
+
+    shape = (RING_B, RING_S, RING_H, RING_D)
+    q, k, v, g = (randn(gen, shape, torch.bfloat16, dev) for _ in range(4))
+    torch.cuda.synchronize()
+    pallas_ops.launches.reset()
+    out, grads = ring_run(q, k, v, g, True)
+    torch.cuda.synchronize()
+    counts = pallas_ops.launches.snapshot()
+    hops = RING_SP * (RING_SP + 1) // 2
+    expect_launches(counts, {"flash_carry": hops, "flash_bwd_dq": hops,
+                             "flash_bwd_dkv": hops}, "ring lane")
+    worst = new_worst()
+    p_out, p_grads = ring_run(q, k, v, g, False)
+    held("ring bf16 out vs plain ring", out, p_out, torch.bfloat16, worst)
+    full = ring.full_attention_reference(q.float(), k.float(), v.float(),
+                                         True)
+    held("ring bf16 out vs full attention", out, full, torch.bfloat16, worst)
+    for name, a, c in zip("qkv", grads, p_grads):
+        # bf16 against the plain lane's fp32 arithmetic: dq cancels far
+        # below its terms (see check_flash_bwd), so the TOL limit only
+        held(f"ring bf16 d{name}", a, c, torch.bfloat16, worst, rows=False)
+    stats["bf16"] = {"launches": counts,
+                     "grad_rel_norm": max(rel_norm(a, c)
+                                          for a, c in zip(grads, p_grads)),
+                     **readings(worst)}
+    del p_out, p_grads, full
+
+    qh, kh, vh, gh = (t.transpose(1, 2).contiguous().detach()
+                      .requires_grad_() for t in (q, k, v, g))
+
+    def ring_fwd():
+        with torch.no_grad():
+            ring.ring_attention(q, k, v, RING_SP, causal=True,
+                                use_flash=True, block_q=RING_BLOCK,
+                                block_k=RING_BLOCK)
+
+    def mha_fwd_bwd():
+        out = pallas_ops.flash_attention_mha(qh, kh, vh, causal=True)
+        torch.autograd.grad(out, (qh, kh, vh), gh)
+
+    def sdpa_fwd_bwd():
+        out = sdpa(qh, kh, vh, is_causal=True)
+        torch.autograd.grad(out, (qh, kh, vh), gh)
+
+    times = {
+        "ring_fwd_ms": time_ms(ring_fwd, 5),
+        "ring_fwd_bwd_ms": time_ms(lambda: ring_run(q, k, v, g, True), 5),
+        "mha_fwd_bwd_ms": time_ms(mha_fwd_bwd, 5),
+        "sdpa_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, 5),
+    }
+    # tools/kernel_bench.py:273: causal useful FLOPs of the forward (2
+    # products) and the backward (5), 3.5 x 2 B H S (S + 1) D
+    flops = 3.5 * 2.0 * RING_B * RING_H * RING_S * (RING_S + 1) * RING_D
+    for key in ("ring_fwd_bwd_ms", "mha_fwd_bwd_ms", "sdpa_fwd_bwd_ms"):
+        times[key.replace("_ms", "_tflop_per_s")] = \
+            flops / (times[key] * 1e-3) / 1e12
+    stats.update(times, gflop=flops / 1e9)
+    print(json.dumps({"ring": stats}), flush=True)
+    return counts
+
+
+def kernel_entry(name, src, replaces, row, key, shape, launches, bound_):
+    """One entry of the kernels line from a phase's timings."""
+    return {
+        "name": name, "route": "cuda",
+        "source": f"brpc_tpu_torch/csrc/{src}", "replaces": replaces,
+        "shape": list(shape), "dtype": "bfloat16", "launches": launches,
+        "max_abs_err": max(row["max_err_fp32"], row["max_err_bf16"]),
+        "max_abs_err_fp32": row["max_err_fp32"],
+        "max_row_rel_err_bf16": row.get("max_row_rel_err_bf16"),
+        "ms": row[f"{key}_ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": bound_[0], "bound_by": bound_[1],
+        "library_ms": row["library_ms"],
+        "graph_ms": row[f"{key}_graph_ms"],
+        "plain_graph_ms": row["plain_graph_ms"],
+        "library_graph_ms": row["library_graph_ms"],
+    }
+
+
 def kernel_rows(fwd, bwd, rms, counts):
     """The kernels line's entries of the training kernels, timed at the
     trainer's shapes in bf16."""
@@ -749,23 +1135,34 @@ def kernel_rows(fwd, bwd, rms, counts):
          MHA_MAIN),
         ("rmsnorm", "rmsnorm.cu", f"{pallas}:43", rms, "kernel", RMS_MAIN),
     ]
-    out = []
-    for name, src, replaces, row, key, shape in spec:
-        out.append({
-            "name": name, "route": "cuda",
-            "source": f"brpc_tpu_torch/csrc/{src}", "replaces": replaces,
-            "shape": list(shape), "dtype": "bfloat16",
-            "launches": counts[name],
-            "max_abs_err": max(row["max_err_fp32"], row["max_err_bf16"]),
-            "max_abs_err_fp32": row["max_err_fp32"],
-            "max_row_rel_err_bf16": row["max_row_rel_err_bf16"],
-            "ms": row[f"{key}_ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": row["library_ms"],
-            "graph_ms": row[f"{key}_graph_ms"],
-            "plain_graph_ms": row["plain_graph_ms"],
-            "library_graph_ms": row["library_graph_ms"],
-        })
+    return [kernel_entry(name, src, replaces, row, key, shape, counts[name],
+                         bounds[name])
+            for name, src, replaces, row, key, shape in spec]
+
+
+def slice3_rows(xent, qgrid, carry, train_counts, ring_counts):
+    """The kernels line's entries of this slice's kernels: the fused
+    cross-entropy at the flagship's fp32 logits (launches of the trainer's
+    main path), the q-grid forward at the sweep's shape (launches of the
+    sweep), the carry kernel at one full ring hop (launches of the ring
+    lane)."""
+    pallas = "brpc_tpu/tpu/pallas_ops.py"
+    out = [
+        kernel_entry("softmax_xent", "xent.cu", f"{pallas}:1060", xent,
+                     "kernel", XENT_MAIN, train_counts["softmax_xent"],
+                     xent["bound"]),
+        kernel_entry("flash_fwd_qgrid", "flash_fwd.cu", f"{pallas}:686",
+                     qgrid, "kernel", QGRID_MAIN, qgrid["launches"],
+                     qgrid["bound"]),
+        kernel_entry("flash_carry", "flash_fwd.cu", f"{pallas}:922", carry,
+                     "kernel", (CARRY_N, CARRY_S, RING_D),
+                     ring_counts["flash_carry"], carry["bound"]),
+    ]
+    out[0].update(dtype="float32", max_row_rel_err_bf16=None,
+                  max_row_rel_err=max(xent["max_err_fp32"],
+                                      xent["max_err_bf16"]))
+    out[2]["library"] = ("none: no single PyTorch call computes the "
+                         "online-softmax carry state")
     return out
 
 
@@ -810,6 +1207,10 @@ def main():
     rms = check_rmsnorm(dev)
     train_parity(dev)
     counts = run_trainer(dev, smi)
+    xent = check_xent(dev)
+    qgrid = check_qgrid(dev)
+    carry = check_carry(dev)
+    ring_counts = run_ring(dev)
 
     main_row = flash[MAIN_SHAPE]
     kernels = [{
@@ -825,7 +1226,8 @@ def main():
         "graph_ms": main_row["kernel_graph_ms"],
         "plain_graph_ms": main_row["plain_graph_ms"],
         "library_graph_ms": main_row["library_graph_ms"],
-    }] + kernel_rows(fwd, bwd, rms, counts)
+    }] + kernel_rows(fwd, bwd, rms, counts) + slice3_rows(
+        xent, qgrid, carry, counts, ring_counts)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

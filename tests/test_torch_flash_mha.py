@@ -224,3 +224,38 @@ def test_bf16_forward_close_to_fp32():
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert float((o.float() - o32).abs().max()) < 2e-2
     assert float((lse - lse32).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("bn", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_qgrid_forward_matches_jax(causal, bn):
+    q, k, v = _inputs((N, 128, D), seed=30 + bn)
+    want = jax_ops._flash_fwd_qgrid(*_j(q, k, v), causal, 64, 32, True, bn)
+    got = torch_ops._flash_fwd_qgrid(*_t(q, k, v), causal, 64, 32, bn)
+    assert got[0].shape == (N, 128, D) and got[1].shape == (N, 128, 1)
+    _close(got, want)
+
+
+def test_qgrid_forward_with_longer_keys_matches_jax():
+    q, = _inputs((N, 64, D), seed=33, count=1)
+    k, v = _inputs((N, 128, D), seed=34, count=2)
+    want = jax_ops._flash_fwd_qgrid(*_j(q, k, v), False, 32, 64, True, 3)
+    got = torch_ops._flash_fwd_qgrid(*_t(q, k, v), False, 32, 64, 3)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("bq,bkc,bn", [(48, 32, 1), (64, 48, 1), (64, 32, 4),
+                                       (128, 32, 1)],
+                         ids=["bq", "bkc", "bn", "bq_past_sq"])
+def test_qgrid_refuses_what_jax_refuses(bq, bkc, bn):
+    q, k, v = _inputs((N, 64, D), seed=35)
+    with pytest.raises(ValueError):
+        jax_ops._flash_fwd_qgrid(*_j(q, k, v), True, bq, bkc, True, bn)
+    with pytest.raises(ValueError, match="vs blocks"):
+        torch_ops._flash_fwd_qgrid(*_t(q, k, v), True, bq, bkc, bn)
+
+
+def test_qgrid_cpu_path_never_counts_a_launch():
+    q, k, v = _t(*_inputs((N, 64, D), seed=36))
+    torch_ops._flash_fwd_qgrid(q, k, v, True, 32, 32)
+    assert torch_ops.launches["flash_fwd_qgrid"] == 0

@@ -57,7 +57,7 @@ def test_forbidden_matches_exact_module_names():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, brpc_tpu_torch.serving, brpc_tpu_torch.tpu.pallas_ops,"
             " brpc_tpu_torch.tpu._build, brpc_tpu_torch.serving.weights,"
-            " brpc_tpu_torch.tpu.train\n"
+            " brpc_tpu_torch.tpu.train, brpc_tpu_torch.tpu.ring\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'brpc_tpu'))\n"
             "assert not bad, bad\n")

@@ -7,6 +7,9 @@ the same numbers. The JAX side runs its Pallas kernels in interpret mode
 (its default off a TPU); the port runs its plain versions, which
 ``chip_smoke.py`` holds its CUDA kernels to on the card.
 
+The shipping configuration (``tools/kernel_bench.py:397-398``) adds
+``use_fused_xent``: the loss through ``softmax_xent`` on both sides.
+
 Tolerances (float32 on both sides; XLA and PyTorch sum in other orders):
 logits atol 1e-4, loss rtol 1e-5, gradients rtol 1e-4 atol 1e-5,
 parameters after three SGD steps atol 1e-5.
@@ -28,7 +31,9 @@ WIDTHS = dict(vocab=64, d_model=64, n_heads=2, n_layers=2, d_ff=128,
               max_seq=128)
 B, S = 2, 128
 KERNELS = {"on": dict(use_flash_attention=True, use_pallas_norm=True),
-           "off": dict(use_flash_attention=False, use_pallas_norm=False)}
+           "off": dict(use_flash_attention=False, use_pallas_norm=False),
+           "shipping": dict(use_flash_attention=True, use_pallas_norm=True,
+                            use_fused_xent=True)}
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +130,7 @@ def test_logits_match_jax_forward(jax_setup, kernels):
                                atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("kernels", ["on", "off"])
+@pytest.mark.parametrize("kernels", ["on", "off", "shipping"])
 def test_loss_and_grads_match_jax(jax_setup, kernels):
     params, batch = jax_setup
     loss_j, grads_j = jax.value_and_grad(jax_train.loss_fn)(
@@ -142,9 +147,16 @@ def test_loss_and_grads_match_jax(jax_setup, kernels):
 
 
 def test_three_sgd_steps_track_jax(jax_setup):
-    params, batch = jax_setup
-    cfg_j = _jax_cfg("on")
-    model = _port(params)
+    _three_sgd_steps(*jax_setup, "on")
+
+
+def test_three_sgd_steps_with_fused_xent_track_jax(jax_setup):
+    _three_sgd_steps(*jax_setup, "shipping")
+
+
+def _three_sgd_steps(params, batch, kernels):
+    cfg_j = _jax_cfg(kernels)
+    model = _port(params, kernels)
     tb = _torch_batch(batch)
     losses_j, losses = [], []
     for _ in range(3):
@@ -200,11 +212,28 @@ def test_mesh_is_not_ported(jax_setup):
         train.sgd_train_step(model, _torch_batch(batch), mesh=object())
 
 
-def test_fused_xent_is_not_ported(jax_setup):
+def test_fused_xent_loss_equals_the_plain_loss(jax_setup):
     params, batch = jax_setup
-    model = _port(params, use_fused_xent=True)
-    with pytest.raises(NotImplementedError, match="use_fused_xent"):
-        train.loss_fn(model, _torch_batch(batch))
+    model = _port(params, "shipping")
+    fused = train.loss_fn(model, _torch_batch(batch))
+    model.config = _port(params).config
+    plain = train.loss_fn(model, _torch_batch(batch))
+    np.testing.assert_allclose(float(fused.detach()), float(plain.detach()),
+                               rtol=1e-6)
+
+
+def test_fused_xent_loss_goes_through_softmax_xent(jax_setup, monkeypatch):
+    params, batch = jax_setup
+    calls = []
+    xent = pallas_ops.softmax_xent
+
+    def spy(logits, targets, *a):
+        calls.append((tuple(logits.shape), logits.dtype, tuple(targets.shape)))
+        return xent(logits, targets, *a)
+
+    monkeypatch.setattr(pallas_ops, "softmax_xent", spy)
+    train.value_and_grad(_port(params, "shipping"), _torch_batch(batch))
+    assert calls == [((B * S, 64), torch.float32, (B * S,))]
 
 
 def test_default_device_without_a_card_raises():

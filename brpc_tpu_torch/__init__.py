@@ -6,8 +6,9 @@ it is). It imports ``torch`` and ``numpy``, never ``jax`` and nothing of
 TPU kernel on a ported path is a CUDA kernel written by hand for Hopper
 (``csrc/``), built with nvcc at first use.
 
-- :mod:`brpc_tpu_torch.tpu` — the device store, the kernels and the
-  flagship LM's single-device training step (``tpu.train``).
+- :mod:`brpc_tpu_torch.tpu` — the device store and its data plane
+  (``tpu.device_lane``, copies by ``tpu.bench_kernels``), the kernels and
+  the flagship LM's single-device training step (``tpu.train``).
 - :mod:`brpc_tpu_torch.serving` — the LLM serving engine's prefill and
   decode path: paged KV cache, toy transformer, continuous-batching
   engine.

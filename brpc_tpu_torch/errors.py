@@ -1,4 +1,4 @@
-"""RPC error codes the serving engine reports.
+"""RPC error codes the serving engine and the device data plane report.
 
 The port's own copy of the codes in ``brpc_tpu/rpc/errors.py``, with the
 same numbers, so a later RPC front maps them onto the wire unchanged.
@@ -6,6 +6,7 @@ same numbers, so a later RPC front maps them onto the wire unchanged.
 
 OK = 0
 
+ENOMETHOD = 1002       # method (or device handle) not found
 EREQUEST = 1003        # bad request (parse/serialize failure)
 ERPCTIMEDOUT = 1008    # RPC deadline exceeded
 EFAILEDSOCKET = 1009   # the connection was broken during the RPC
@@ -15,6 +16,7 @@ EOVERCROWDED = 2004    # server too busy
 
 _TEXT = {
     OK: "OK",
+    ENOMETHOD: "method not found",
     EREQUEST: "bad request",
     ERPCTIMEDOUT: "rpc timed out",
     EFAILEDSOCKET: "socket failed during rpc",

@@ -55,7 +55,9 @@ class LaunchCounts:
         self._n = {name: 0 for name in ("flash_attention", "flash_fwd",
                                         "flash_fwd_qgrid", "flash_carry",
                                         "flash_bwd_dq", "flash_bwd_dkv",
-                                        "rmsnorm", "softmax_xent")}
+                                        "rmsnorm", "softmax_xent",
+                                        # csrc/copy.cu (tpu/bench_kernels.py)
+                                        "hbm_copy", "hbm_copy_batched")}
 
     def add(self, name: str) -> None:
         with self._lock:

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then four paths:
+(nvcc, sm_90a, one process per source, all at once). Then five paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (strided (S, H, D) fp32, no lse), against its plain PyTorch version
@@ -29,6 +29,15 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   then runs a forward and a backward through ``ring_attention`` at
   ``bench_ring_path``'s shape (tools/kernel_bench.py) and checks its
   launches and its agreement with the plain ring.
+- The device data plane at ``bench.py``'s sizes: holds the copy kernel
+  (``csrc/copy.cu``) against its plain version bit for bit at every
+  length, offset, dtype, row count and batch size listed below; then
+  drives ``DeviceStore`` as ``bench_device_lane`` does (puts, a copy
+  round trip, 8 MiB pumps of 1024 rounds, transient copies, stats), the
+  coalesced op rate of ``_device_op_rate``, the datapath probe of
+  ``bench_device_probe`` and the RMSNorm copy ceiling of
+  ``tools/kernel_bench.py``'s ``bench_rmsnorm``; each with its launches
+  counted and its results checked.
 
 Exits non-zero, with no result line, on any failure, without a card, or
 without the package beside it.
@@ -57,7 +66,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,  # noqa: E402
                                     ModelConfig, PagedKVCache,
                                     ServingEngine, TinyTransformer)
-from brpc_tpu_torch.tpu import _build, pallas_ops, ring, train  # noqa: E402
+from brpc_tpu_torch.tpu import (_build, bench_kernels,  # noqa: E402
+                                 device_lane, pallas_ops, ring, train)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and FLOP/s of
 # the inputs' type: fp32 outside the tensor cores, bf16 on them
@@ -1099,6 +1109,418 @@ def run_ring(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: the device data plane, at bench.py's sizes (full, not QUICK)
+# ---------------------------------------------------------------------------
+# the copy kernel's checks: byte lengths, source and destination offsets
+# into a larger buffer, 2-D row counts (2048 lanes), batch sizes
+COPY_LENGTHS = [1, 15, 16, 1000, 4096, (1 << 20) + 3, 8 << 20, 64 << 20]
+COPY_OFFSETS = (0, 1, 3, 8)
+COPY_DTYPES = (torch.uint8, torch.int32, torch.bfloat16)
+COPY_ROWS = (16, 600, 1024)
+COPY_BATCHES = (1, 4, 32)
+LANES = 2048
+# bench_device_lane (bench.py:1433-1530): 16 warm and 16 timed 1 MiB puts,
+# a 64 KiB round trip, 8 pumps of 1024 rounds over 8 MiB, 256 transient
+# copies
+LANE_PUT_BYTES, LANE_PUTS = 1 << 20, 16
+LANE_BLOB = bytes(range(256)) * 256
+PUMP_BYTES, PUMP_ROUNDS, PUMP_RUNS = 8 << 20, 1024, 8
+LANE_TRANSIENTS = 256
+# _device_op_rate (bench.py:457-486): 1 KiB, 16384 ops in batches of 256
+OP_RATE_BYTES, OP_RATE_OPS, OP_RATE_BATCH = 1024, 16384, 256
+# bench_device_probe (bench.py:1586-1612): 64 MiB of int32 ones
+PROBE_BYTES, PROBE_ROUNDS = 64 << 20, (16, 1024)
+# bench_rmsnorm (tools/kernel_bench.py:283-338): 256 MiB of bf16, past the
+# L2; the chained copy is the ceiling's main path
+CEIL_SHAPE, CEIL_CHAIN = (65536, 2048), 64
+
+
+def byte_err(got, want):
+    """max |got - want| over the two tensors' bytes (0 when bit-equal)."""
+    a, b = (t.reshape(-1).view(torch.uint8) for t in (got, want))
+    if a.shape != b.shape:
+        raise AssertionError(f"{a.numel()} bytes against {b.numel()}")
+    return float((a.to(torch.int16) - b.to(torch.int16)).abs().max()) \
+        if a.numel() else 0.0
+
+
+def exact(tag, got, want):
+    """Raises unless got and want hold the same bytes; returns the error."""
+    err = byte_err(got, want)
+    if err != 0.0:
+        raise AssertionError(f"{tag}: copy differs from its plain version "
+                             f"(max byte error {err})")
+    return err
+
+
+def random_bytes(gen, n, dev):
+    return torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                         generator=gen)
+
+
+def copy_bound(nbytes):
+    """A copy reads and writes every byte once: 2 nbytes over HBM's rate."""
+    return bound(2 * nbytes, 0, torch.bfloat16)
+
+
+def check_copy(dev):
+    """Phase 15: the copy kernel against hbm_copy_reference, bit for bit:
+    every length of COPY_LENGTHS at every pair of source and destination
+    offsets (the bytes around the destination untouched), hbm_copy in
+    uint8, int32 and bf16 (random bits, NaN patterns included),
+    hbm_copy2d at COPY_ROWS rows of 2048 lanes, and hbm_copy_batched at
+    COPY_BATCHES copies of mixed lengths and offsets in one launch."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    pad = 16
+    src = random_bytes(gen, max(COPY_LENGTHS) + pad, dev)
+    dst = torch.empty_like(src)
+    cases = 0
+    for n in COPY_LENGTHS:
+        for so in COPY_OFFSETS:
+            for do in COPY_OFFSETS:
+                dst.fill_(0xA5)
+                s = src[so:so + n]
+                bench_kernels.copy_bytes(s, dst[do:do + n])
+                tag = f"copy_bytes {n} B src+{so} dst+{do}"
+                exact(tag, dst[do:do + n], bench_kernels.hbm_copy_reference(s))
+                outside = torch.cat([dst[:do], dst[do + n:]])
+                if bool((outside != 0xA5).any()):
+                    raise AssertionError(f"{tag}: wrote outside its range")
+                cases += 1
+    for dtype in COPY_DTYPES:
+        size = torch.empty((), dtype=dtype).element_size()
+        for n in (4096, (1 << 20) + 4, 64 << 20):
+            x = src[:n].view(dtype)
+            exact(f"hbm_copy {n} B {dtype}", bench_kernels.hbm_copy(x),
+                  bench_kernels.hbm_copy_reference(x))
+            cases += 1
+        for rows in COPY_ROWS:
+            x = src[:rows * LANES * size].view(dtype).view(rows, LANES)
+            exact(f"hbm_copy2d ({rows}, {LANES}) {dtype}",
+                  bench_kernels.hbm_copy2d(x),
+                  bench_kernels.hbm_copy_reference(x))
+            cases += 1
+    lengths = [n for n in COPY_LENGTHS if n <= PUMP_BYTES]
+    for k in COPY_BATCHES:
+        xs = [src[COPY_OFFSETS[i % 4]:][:lengths[i % len(lengths)]]
+              for i in range(k)]
+        outs = bench_kernels.hbm_copy_batched(xs)
+        for i, (x, o) in enumerate(zip(xs, outs)):
+            exact(f"hbm_copy_batched k={k} copy {i} ({x.numel()} B)", o,
+                  bench_kernels.hbm_copy_reference(x))
+        cases += 1
+    torch.cuda.synchronize()
+    print(json.dumps({"copy_checks": {"cases": cases, "max_byte_err": 0.0}}),
+          flush=True)
+
+
+def run_device_lane(dev):
+    """Phase 16, the data plane's main path, as bench_device_lane drives
+    it, through DeviceStore calls on the card's global store (the calls
+    DeviceDataService makes): 16 warm and 16 timed 1 MiB puts; a 64 KiB
+    put -> copy -> get round trip; an 8 MiB pump of one warm round, then
+    8 of 1024 rounds, every checksum equal to the warm one and to the host's
+    sum of the payload's first and last int32, moved bytes exact, 2 x 1024
+    launches each; 256 transient copies, fenced, the transient ring equal to
+    the source; moved bytes equal to the sum of what each call reported.
+    The counts are reset just before and read just after."""
+    store = device_lane.global_store(dev)
+    gen = torch.Generator().manual_seed(9)
+    store.fence()
+    moved0, moved = store.stats()[2], 0
+    warm = [store.put(bytes([0xAB]) * LANE_PUT_BYTES)[0]
+            for _ in range(LANE_PUTS)]
+    torch.cuda.synchronize()
+    pallas_ops.launches.reset()
+    t0 = time.perf_counter()
+    timed = [store.put(bytes([0xAB]) * LANE_PUT_BYTES)[0]
+             for _ in range(LANE_PUTS)]
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+
+    small, _ = store.put(LANE_BLOB)
+    h2, n2 = store.copy(small)
+    moved += 2 * n2
+    if store.get(h2) != LANE_BLOB:
+        raise AssertionError("device round trip corrupt")
+    copy_launches = pallas_ops.launches["hbm_copy"]
+
+    payload = torch.randint(0, 256, (PUMP_BYTES,), dtype=torch.uint8,
+                            generator=gen).numpy().tobytes()
+    words = np.frombuffer(payload, dtype=np.int32).reshape(-1, LANES)
+    want = int(np.array([words[0, 0], words[-1, -1]], np.int32).sum(
+        dtype=np.int32))
+    src, _ = store.put(payload)
+    use = words.size * 4
+    checksum, mv = store.pump(src, 1)
+    moved += mv
+    if checksum != want or mv != 4 * use:
+        raise AssertionError(f"warm pump: ({checksum}, {mv}), want ({want},"
+                             f" {4 * use})")
+    t0 = time.perf_counter()
+    pumped = 0
+    for _ in range(PUMP_RUNS):
+        before = pallas_ops.launches["hbm_copy"]
+        c, mv = store.pump(src, PUMP_ROUNDS)
+        got = pallas_ops.launches["hbm_copy"] - before
+        if c != checksum or mv != 4 * PUMP_ROUNDS * use or \
+                got != 2 * PUMP_ROUNDS:
+            raise AssertionError(f"pump: checksum {c} (warm {checksum}), "
+                                 f"moved {mv}, launches {got}")
+        pumped += mv
+    pump_s = time.perf_counter() - t0
+    moved += pumped
+    pump_launches = pallas_ops.launches["hbm_copy"] - copy_launches
+
+    store.fence()
+    before = device_lane.step_dispatch.snapshot()
+    t0 = time.perf_counter()
+    for _ in range(LANE_TRANSIENTS):
+        if store.copy(src, transient=True) != (0, PUMP_BYTES):
+            raise AssertionError("transient copy refused")
+        moved += 2 * PUMP_BYTES
+    store.fence()
+    transient_s = time.perf_counter() - t0
+    batched, ops, _ = device_lane.DispatchCounter.delta(
+        before, device_lane.step_dispatch.snapshot())
+    counts = pallas_ops.launches.snapshot()
+    ring_ = list(store._transient)
+    if ops != LANE_TRANSIENTS or len(ring_) != bench_kernels.MAX_BATCH:
+        raise AssertionError(f"transients: {ops} ops, ring of {len(ring_)}")
+    source = store.lookup(src)
+    for t in ring_:
+        exact("transient copy", t, source)
+    expect_launches(counts, {"hbm_copy": copy_launches + pump_launches,
+                             "hbm_copy_batched": batched}, "device lane")
+    if (copy_launches, pump_launches) != (1, 2 * (1 + PUMP_RUNS *
+                                                 PUMP_ROUNDS)):
+        raise AssertionError(f"device lane launches: copy {copy_launches},"
+                             f" pumps {pump_launches}")
+    if store.stats()[2] - moved0 != moved:
+        raise AssertionError(f"stats moved {store.stats()[2] - moved0}, "
+                             f"want {moved}")
+    for h in warm + timed + [small, h2, src]:
+        store.free(h)
+    stats = {
+        "put_gb_per_s": LANE_PUTS * LANE_PUT_BYTES / put_s / 1e9,
+        "pump_gb_per_s": pumped / pump_s / 1e9,
+        "pump_checksum": checksum, "pump_ms_per_1024_rounds":
+            pump_s / PUMP_RUNS * 1e3,
+        "transient_copies_per_s": LANE_TRANSIENTS / transient_s,
+        "transient_launches": batched, "moved_bytes": moved,
+        "launches": counts,
+    }
+    print(json.dumps({"device_lane": stats}), flush=True)
+    return {"copy": copy_launches, "pump": pump_launches}
+
+
+def run_op_rate(dev):
+    """Phase 17, _device_op_rate: a 1 KiB buffer, copy_coalesced(h, 64) and
+    a fence to warm up, then 16384 transient copies queued 256 per call.
+    step_dispatch must move by exactly (512, 16384, 0) and the counts
+    (reset just before) by 512 hbm_copy_batched launches and nothing
+    else; the ring equals the source."""
+    store = device_lane.global_store(dev)
+    h, _ = store.put(bytes(range(256)) * (OP_RATE_BYTES // 256))
+    store.copy_coalesced(h, 64)
+    store.fence()
+    pallas_ops.launches.reset()
+    before = device_lane.step_dispatch.snapshot()
+    t0 = time.perf_counter()
+    for _ in range(OP_RATE_OPS // OP_RATE_BATCH):
+        store.copy_coalesced(h, OP_RATE_BATCH)
+    store.fence()
+    wall = time.perf_counter() - t0
+    delta = device_lane.DispatchCounter.delta(
+        before, device_lane.step_dispatch.snapshot())
+    counts = pallas_ops.launches.snapshot()
+    launches = OP_RATE_OPS // bench_kernels.MAX_BATCH
+    if delta != (launches, OP_RATE_OPS, 0):
+        raise AssertionError(f"op rate: step_dispatch delta {delta}, want "
+                             f"({launches}, {OP_RATE_OPS}, 0)")
+    expect_launches(counts, {"hbm_copy_batched": launches}, "op rate")
+    for t in store._transient:
+        exact("op-rate transient", t, store.lookup(h))
+    store.free(h)
+    stats = {"ops": OP_RATE_OPS, "launches": delta[0], "wall_s": wall,
+             "ops_per_s": OP_RATE_OPS / wall}
+    print(json.dumps({"op_rate": stats}), flush=True)
+    return counts["hbm_copy_batched"]
+
+
+def run_probe(dev):
+    """Phase 18, bench_device_probe: echo_loop_probe over 64 MiB of int32
+    ones at 16 and 1024 rounds, value 2 each time (2 x rounds launches);
+    best of 3 host-clocked calls each, each ending in the probe's read.
+    The marginal time per round gives GB/s counting 4 x payload per round
+    (two copies, read + write, as pump counts); JAX's line counts 2 x.
+    The counts are reset just before and read just after; returns the
+    hbm_copy2d launches."""
+    x = torch.ones((PROBE_BYTES // 4 // LANES, LANES), dtype=torch.int32,
+                   device=dev)
+    torch.cuda.synchronize()
+    pallas_ops.launches.reset()
+    times = {}
+    for rounds in PROBE_ROUNDS:
+        before = pallas_ops.launches["hbm_copy"]
+        v = int(bench_kernels.echo_loop_probe(x, rounds))
+        if v != 2 or pallas_ops.launches["hbm_copy"] - before != 2 * rounds:
+            raise AssertionError(f"probe at {rounds} rounds: {v}")
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            int(bench_kernels.echo_loop_probe(x, rounds))
+            best = min(best, time.perf_counter() - t0)
+        times[rounds] = best
+    counts = pallas_ops.launches.snapshot()
+    expect_launches(counts, {"hbm_copy": 4 * 2 * sum(PROBE_ROUNDS)},
+                    "device probe")
+    lo, hi = PROBE_ROUNDS
+    marginal = (times[hi] - times[lo]) / (hi - lo)
+    stats = {"seconds": {str(r): t for r, t in times.items()},
+             "marginal_us_per_round": marginal * 1e6,
+             "gb_per_s_4x_payload": 4 * PROBE_BYTES / marginal / 1e9,
+             "gb_per_s_2x_payload_as_jax_counts":
+                 2 * PROBE_BYTES / marginal / 1e9, "launches": counts}
+    print(json.dumps({"device_probe": stats}), flush=True)
+    return counts["hbm_copy"]
+
+
+def run_ceiling(dev):
+    """Phase 19, bench_rmsnorm's ceiling at (65536, 2048) bf16: the main
+    path is a chain of CEIL_CHAIN hbm_copy2d calls, each reading the last
+    one's output (counts reset just before, read just after; the end equal
+    to the start); then per call, every input read from HBM: the RMSNorm
+    kernel, hbm_copy2d (#12), x + 1 (the elementwise wire), the plain
+    clone() and dst.copy_(src), as GB/s of read + write."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(CEIL_SHAPE, device=dev, generator=gen).to(torch.bfloat16)
+    w = torch.randn(CEIL_SHAPE[1], device=dev, generator=gen).to(
+        torch.bfloat16)
+    nbytes = x.numel() * 2
+    torch.cuda.synchronize()
+    pallas_ops.launches.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    xc = x
+    for _ in range(CEIL_CHAIN):
+        xc = bench_kernels.hbm_copy2d(xc)
+    end.record()
+    end.synchronize()
+    counts = pallas_ops.launches.snapshot()
+    expect_launches(counts, {"hbm_copy": CEIL_CHAIN}, "copy ceiling chain")
+    err = exact("copy ceiling chain", xc, x)
+    chain_ms = start.elapsed_time(end) / CEIL_CHAIN
+    out = torch.empty_like(x)
+    row = timings({
+        "kernel": lambda: bench_kernels.hbm_copy2d(x),
+        "plain": lambda: bench_kernels.hbm_copy_reference(x),
+        "library": lambda: out.copy_(x),
+        "rmsnorm": lambda: pallas_ops._rmsnorm_fwd_call(x, w),
+        "xplus1": lambda: x + 1,
+    }, iters=20)
+    gbps = {k: 2 * nbytes / (row[f"{k}_graph_ms"] * 1e-3) / 1e9
+            for k in ("kernel", "plain", "library", "rmsnorm", "xplus1")}
+    row.update(chain_ms=chain_ms, launches=counts["hbm_copy"],
+               max_byte_err=err,
+               gb_per_s_device={k: v for k, v in gbps.items()},
+               rmsnorm_pct_of_copy=100 * gbps["rmsnorm"] / gbps["kernel"])
+    print(json.dumps({"copy_ceiling": row}), flush=True)
+    return row
+
+
+def time_copies(dev):
+    """The copy entries' timings at their main-path shapes: hbm_copy at
+    64 MiB (1-D int32) and hbm_copy2d at the probe's (8192, 2048) int32
+    (64 MiB), both past the 50 MiB L2 and so held against HBM's rate;
+    hbm_copy2d again at the pump's (1024, 2048) int32, whose 8 MiB source
+    and destination stay in the L2 (no bound: the card states no L2 rate);
+    and hbm_copy_batched at the op rate's 32 x 1 KiB; beside clone() and
+    one PyTorch call (dst.copy_(src); torch._foreach_copy_ for the
+    batch)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+    for key, name, n, shape in (
+            ("hbm_copy", "hbm_copy", PROBE_BYTES, (PROBE_BYTES // 4,)),
+            ("hbm_copy2d", "hbm_copy2d", PROBE_BYTES,
+             (PROBE_BYTES // 4 // LANES, LANES)),
+            ("hbm_copy2d_pump_l2", "hbm_copy2d", PUMP_BYTES,
+             (PUMP_BYTES // 4 // LANES, LANES))):
+        x = random_bytes(gen, n, dev).view(torch.int32).view(shape)
+        fn = getattr(bench_kernels, name)
+        out = torch.empty_like(x)
+        err = exact(f"{name} {shape}", fn(x), bench_kernels.hbm_copy_reference(x))
+        rows[key] = timings({
+            "kernel": lambda: fn(x),
+            "plain": lambda: bench_kernels.hbm_copy_reference(x),
+            "library": lambda: out.copy_(x),
+        }, iters=50)
+        rows[key].update(shape=list(shape), dtype="int32", nbytes=n,
+                         max_abs_err=err)
+    xs = [random_bytes(gen, OP_RATE_BYTES, dev)] * bench_kernels.MAX_BATCH
+    outs = [torch.empty_like(t) for t in xs]
+    err = max(exact("hbm_copy_batched", o, t) for o, t in
+              zip(bench_kernels.hbm_copy_batched(xs), xs))
+    rows["hbm_copy_batched"] = timings({
+        "kernel": lambda: bench_kernels.hbm_copy_batched(xs),
+        "plain": lambda: [bench_kernels.hbm_copy_reference(t) for t in xs],
+        "library": lambda: torch._foreach_copy_(outs, xs),
+    }, iters=200)
+    rows["hbm_copy_batched"].update(
+        shape=[bench_kernels.MAX_BATCH, OP_RATE_BYTES], dtype="uint8",
+        nbytes=bench_kernels.MAX_BATCH * OP_RATE_BYTES, max_abs_err=err)
+    print(json.dumps({"copy_timings": rows}), flush=True)
+    return rows
+
+
+def slice4_rows(times, lane, probe_launches, op_rate_launches, ceiling):
+    """The kernels line's entries of the copy kernel: #10 at 64 MiB
+    (launches: DeviceStore.copy on the device lane), #11 at the probe's
+    64 MiB (launches: the probe; the lane's pumps and the L2-resident
+    8 MiB pump-shape times beside them), #12 at 256 MiB bf16 (launches:
+    the ceiling's chain) and the batched form at the op rate's shape
+    (launches: the op rate)."""
+    bk = "brpc_tpu/tpu/bench_kernels.py"
+    spec = [
+        ("hbm_copy", f"{bk}:22 (hbm_copy :27)", times["hbm_copy"],
+         lane["copy"]),
+        ("hbm_copy2d", f"{bk}:22 (hbm_copy2d :64, echo_loop_probe :81)",
+         times["hbm_copy2d"], probe_launches),
+        ("copy_ceiling", "tools/kernel_bench.py:320 (copy_call)",
+         dict(ceiling, shape=list(CEIL_SHAPE), dtype="bfloat16",
+              nbytes=2 * CEIL_SHAPE[0] * CEIL_SHAPE[1],
+              max_abs_err=ceiling["max_byte_err"]), ceiling["launches"]),
+        ("hbm_copy_batched", f"{bk}:22, k copies per launch (the JAX "
+         f"dispatcher's batched XLA copy, brpc_tpu/tpu/device_lane.py:315)",
+         times["hbm_copy_batched"], op_rate_launches),
+    ]
+    out = []
+    for name, replaces, row, launches in spec:
+        b = copy_bound(row["nbytes"])
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "brpc_tpu_torch/csrc/copy.cu", "replaces": replaces,
+            "shape": row["shape"], "dtype": row["dtype"],
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": row["library_ms"],
+            "graph_ms": row["kernel_graph_ms"],
+            "plain_graph_ms": row["plain_graph_ms"],
+            "library_graph_ms": row["library_graph_ms"],
+        })
+    l2 = times["hbm_copy2d_pump_l2"]
+    out[1].update(pump_launches=lane["pump"], pump_shape=l2["shape"],
+                  pump_shape_ms=l2["kernel_ms"],
+                  pump_shape_graph_ms=l2["kernel_graph_ms"])
+    out[-1]["library"] = "torch._foreach_copy_"
+    for e in out[:-1]:
+        e["library"] = "dst.copy_(src) (cudaMemcpyAsync device to device)"
+    return out
+
+
 def kernel_entry(name, src, replaces, row, key, shape, launches, bound_):
     """One entry of the kernels line from a phase's timings."""
     return {
@@ -1211,6 +1633,12 @@ def main():
     qgrid = check_qgrid(dev)
     carry = check_carry(dev)
     ring_counts = run_ring(dev)
+    check_copy(dev)
+    lane = run_device_lane(dev)
+    op_rate_launches = run_op_rate(dev)
+    probe_launches = run_probe(dev)
+    ceiling = run_ceiling(dev)
+    copy_times = time_copies(dev)
 
     main_row = flash[MAIN_SHAPE]
     kernels = [{
@@ -1227,7 +1655,8 @@ def main():
         "plain_graph_ms": main_row["plain_graph_ms"],
         "library_graph_ms": main_row["library_graph_ms"],
     }] + kernel_rows(fwd, bwd, rms, counts) + slice3_rows(
-        xent, qgrid, carry, counts, ring_counts)
+        xent, qgrid, carry, counts, ring_counts) + slice4_rows(
+        copy_times, lane, probe_launches, op_rate_launches, ceiling)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """The port stands alone: brpc_tpu_torch and chip_smoke.py import neither
-JAX nor anything of the JAX package (brpc_tpu or brpc_tpu.*)."""
+JAX nor anything of the JAX package (brpc_tpu or brpc_tpu.*). The store,
+the copy kernels and chip_smoke.py load no protobuf either: the card's
+machine has none, and only DeviceDataService imports it, lazily."""
 
 import ast
 import os
@@ -57,11 +59,24 @@ def test_forbidden_matches_exact_module_names():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, brpc_tpu_torch.serving, brpc_tpu_torch.tpu.pallas_ops,"
             " brpc_tpu_torch.tpu._build, brpc_tpu_torch.serving.weights,"
-            " brpc_tpu_torch.tpu.train, brpc_tpu_torch.tpu.ring\n"
+            " brpc_tpu_torch.tpu.train, brpc_tpu_torch.tpu.ring,"
+            " brpc_tpu_torch.tpu.bench_kernels, brpc_tpu_torch.tpu.device_lane\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'brpc_tpu'))\n"
             "assert not bad, bad\n")
+    _run(code)
+
+
+def _run(code):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_data_plane_and_chip_smoke_load_no_protobuf():
+    _run("import sys, brpc_tpu_torch.tpu.bench_kernels,"
+         " brpc_tpu_torch.tpu.device_lane, brpc_tpu_torch.serving, chip_smoke\n"
+         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+         "assert not bad, bad\n")

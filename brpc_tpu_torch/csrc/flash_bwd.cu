@@ -13,30 +13,42 @@
 //   dP = dO v^T,  dS = P * (dP - delta),  delta = rowsum(dO * O);
 //   dQ = dS k / sqrt(D),  dK = dS^T q / sqrt(D),  dV = P^T dO.
 //
-// bf16 inputs are widened to fp32 for every product; P and dS are rounded
-// to the input dtype before the products that take them, as the TPU
-// kernels' p.astype(do.dtype) and ds.astype(q.dtype) do. Outputs are in
-// the input dtype.
+// Products accumulate in fp32; P and dS are rounded to the input dtype
+// before the products that take them, as the TPU kernels' p.astype(do.dtype)
+// and ds.astype(q.dtype) do. Outputs are in the input dtype.
 //
-// Design (simple and right, not yet fast), with the row layout of
-// common.cuh (a row of D values held by D / 8 lanes of a warp):
-// - dQ: grid = (q-tiles, N). A block owns kThreads / (D / 8) query rows,
+// - dQ, fp32 and bf16: `flash_dq_kernel`, FMA on the CUDA cores, with the
+//   row layout of common.cuh (a row of D values held by D / 8 lanes of a
+//   warp). grid = (q-tiles, N). A block owns kThreads / (D / 8) query rows,
 //   keeps q, dO and the dQ sum in registers and walks the key tiles (k and
 //   v staged in shared memory), stopping past the diagonal when causal.
-// - dK/dV: grid = (k-tiles, N). A block owns kThreads / (D / 8) key rows,
-//   keeps k, v and the dK and dV sums in registers and walks the query
-//   tiles (q, dO, lse and delta staged in shared memory) from the diagonal
-//   on when causal. Each block owns its output rows, so there are no
-//   atomics and the result does not change from run to run.
+// - dK/dV, fp32: `flash_dkv_kernel`, the same FMA layout. grid = (k-tiles,
+//   N). A block owns kThreads / (D / 8) key rows, keeps k, v and the dK
+//   and dV sums in registers and walks the query tiles (q, dO, lse and
+//   delta staged in shared memory) from the diagonal on when causal.
+// - dK/dV, bf16 at head dim 32, 64 and 128: `dkv_wgmma_kernel`, on the
+//   tensor cores (hopper.cuh). grid = (N, k-tiles). A block owns kBK = 128
+//   key rows, 64 per warpgroup; TMA brings its k and v once and then, per
+//   q-tile of kBQ = 64 rows from the first live one, q, dO, lse and delta
+//   into two stages on mbarriers. Per q-tile each warpgroup takes S^T =
+//   k q^T and dP^T = v dO^T as wgmma chains from shared memory, forms P^T
+//   and dS^T on the fp32 fragments (lse and delta broadcast along the
+//   columns), and adds P^T dO into dV and dS^T q into dK with P^T and dS^T
+//   rounded to bf16 in registers as the A operands (dO and q MN-major).
+//   dK and dV stay in registers for the whole block and are written once.
+// Each block owns its output rows, so there are no atomics and the result
+// does not change from run to run.
 //
 // What bounds them on this card: at the flagship training shape (N = 64,
 // S = 1024, D = 128, causal, bf16) dQ does 6 D and dK/dV 8 D FLOP per live
 // (q, k) pair, about 25.8 and 34.4 GFLOP, against about 84 MB moved each:
-// 0.39 and 0.51 ms at 67 TFLOP/s of fp32 FMA, so both are bound by
-// operations. Like the forward they spend shuffles and shared-memory
-// loads per score and run well below that bound.
+// 0.026 and 0.035 ms at 989 TFLOP/s of bf16 tensor-core math, so both are
+// bound by operations. The dQ kernel, on fp32 FMAs (0.39 ms at 67 TFLOP/s
+// before the shuffles and shared-memory loads it spends per score), is
+// still to be redesigned.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
 
@@ -178,6 +190,183 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 dK/dV: the tensor-core kernel
+// ---------------------------------------------------------------------
+using hopper::kLog2e;
+using hopper::kWgThreads;
+constexpr int kBK = 128;  // key rows per block, 64 per warpgroup
+constexpr int kBQ = 64;   // query rows per tile
+
+template <int D>
+struct DkvSmem {  // each tile a multiple of 1024 bytes: every tile aligned
+  __nv_bfloat16 k[kBK * D];
+  __nv_bfloat16 v[kBK * D];
+  __nv_bfloat16 q[2][kBQ * D];
+  __nv_bfloat16 dout[2][kBQ * D];
+  float lse[2][kBQ];
+  float delta[2][kBQ];
+  uint64_t kv_full, full[2];
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tlse,
+                 const __grid_constant__ CUtensorMap tdelta,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                 int q_start, int k_start, int causal, float scale,
+                 float scale_log2) {
+  using namespace hopper;
+  using T = Tile<D>;
+  constexpr int kAcc = D / 2;       // dK and dV registers per thread
+  constexpr int kScores = kBQ / 2;  // S^T and dP^T registers per thread
+  constexpr uint32_t kStageBytes = 2 * kBQ * D * 2 + 2 * kBQ * 4;
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int n = blockIdx.x;
+  const int k0 = blockIdx.y * kBK;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const Frag f(tid % 128);
+  const int key_lo = k0 + 64 * wg + f.row0;  // this thread's keys: +0, +8
+  // causal: query r is live for some key of the block iff
+  // q_start + r >= k_start + k0
+  const int q_begin = causal ? max(0, k_start + k0 - q_start) : 0;
+  const int t0 = q_begin / kBQ;
+  const int tiles = max(0, (sq + kBQ - 1) / kBQ - t0);
+
+  auto load_q = [&](int i) {  // q-tile t0 + i into stage i % 2
+    const int s = i & 1;
+    const int qt = (t0 + i) * kBQ;
+    mbar_expect_tx(&sm.full[s], kStageBytes);
+#pragma unroll
+    for (int b = 0; b < T::kBlocks; ++b) {
+      tma_load_3d(sm.q[s] + b * kBQ * T::kAtom, &tq, &sm.full[s],
+                  b * T::kAtom, qt, n);
+      tma_load_3d(sm.dout[s] + b * kBQ * T::kAtom, &tdo, &sm.full[s],
+                  b * T::kAtom, qt, n);
+    }
+    tma_load_1d(sm.lse[s], &tlse, &sm.full[s], n * sq + qt);
+    tma_load_1d(sm.delta[s], &tdelta, &sm.full[s], n * sq + qt);
+  };
+  if (tid == 0) {
+    mbar_init(&sm.kv_full, 1);
+    mbar_init(&sm.full[0], 1);
+    mbar_init(&sm.full[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && tiles > 0) {
+    mbar_expect_tx(&sm.kv_full, 2 * kBK * D * 2);
+#pragma unroll
+    for (int b = 0; b < T::kBlocks; ++b) {
+      tma_load_3d(sm.k + b * kBK * T::kAtom, &tk, &sm.kv_full, b * T::kAtom,
+                  k0, n);
+      tma_load_3d(sm.v + b * kBK * T::kAtom, &tv, &sm.kv_full, b * T::kAtom,
+                  k0, n);
+    }
+    load_q(0);
+    if (tiles > 1) load_q(1);
+  }
+
+  float dka[kAcc], dva[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) dka[i] = dva[i] = 0.f;
+  if (tiles > 0) mbar_wait(&sm.kv_full, 0);
+  const int first_key = k_start + k0 + 64 * wg;  // this warpgroup's, absolute
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i & 1;
+    const int qt = (t0 + i) * kBQ;
+    mbar_wait(&sm.full[s], (i >> 1) & 1);
+
+    // S^T = k q^T and dP^T = v dO^T: rows are keys, columns queries
+    float st[kScores], dpt[kScores];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<kBQ>::ss(st, desc_k_major<D>(sm.k, kBK, 64 * wg, kk),
+                     desc_k_major<D>(sm.q[s], kBQ, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<kBQ>::ss(dpt, desc_k_major<D>(sm.v, kBK, 64 * wg, kk),
+                     desc_k_major<D>(sm.dout[s], kBQ, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T = exp(S^T - lse[col]), 0 for a query that attended to nothing and,
+    // on tiles that reach past the end or the diagonal, for masked pairs;
+    // dS^T = P^T (dP^T - delta[col])
+    const bool edge = qt + kBQ > sq ||
+                      (causal && q_start + qt < first_key + 63);
+#pragma unroll
+    for (int r = 0; r < kScores; ++r) {
+      const int cq = f.col(r);
+      const float row_lse = sm.lse[s][cq];
+      bool live = row_lse > kNegInf / 2;
+      if (edge) {
+        live = live && qt + cq < sq &&
+               (!causal || q_start + qt + cq >= first_key + f.row(r));
+      }
+      const float p =
+          live ? exp2f(fmaf(st[r], scale_log2, -row_lse * kLog2e)) : 0.f;
+      st[r] = p;
+      dpt[r] = p * (dpt[r] - sm.delta[s][cq]);
+    }
+
+    // dV += P^T dO and dK += dS^T q, P^T and dS^T rounded to bf16 in
+    // registers (the JAX kernel's p.astype and ds.astype)
+    uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      a_fragment(st, kk, pa[kk]);
+      a_fragment(dpt, kk, da[kk]);
+    }
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      Wgmma<D>::rs(dva, pa[kk], desc_mn_major<D>(sm.dout[s], kBQ, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      Wgmma<D>::rs(dka, da[kk], desc_mn_major<D>(sm.q[s], kBQ, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+
+    __syncthreads();  // both warpgroups are done with stage s
+    if (tid == 0 && i + 2 < tiles) load_q(i + 2);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = key_lo + 8 * h;
+    if (row >= sk) continue;
+    const int64_t off = (static_cast<int64_t>(n) * sk + row) * D + f.col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j) = pack_bf16(
+          dka[4 * j + 2 * h] * scale, dka[4 * j + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+          pack_bf16(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
@@ -196,38 +385,78 @@ void launch_dq(const Args& a, cudaStream_t stream) {
       1.0f / sqrtf(static_cast<float>(D)));
 }
 
-template <int D, typename T>
+template <int D>
 void launch_dkv(const Args& a, cudaStream_t stream) {
   constexpr int BK = Rows<D>::kPerBlock;
   const dim3 grid((a.sk + BK - 1) / BK, a.n);
-  flash_dkv_kernel<D, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_dkv_kernel<D, float><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk, a.q_start,
-      a.k_start, a.causal, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk,
+      a.q_start, a.k_start, a.causal, 1.0f / sqrtf(static_cast<float>(D)));
 }
 
-// which: 0 = dQ, 1 = dK/dV
+template <int D>
+int launch_dkv_wgmma(const Args& a, cudaStream_t stream) {
+  using hopper::tensor_map_rows;
+  const int64_t q_ns = static_cast<int64_t>(a.sq) * D;
+  const int64_t k_ns = static_cast<int64_t>(a.sk) * D;
+  const int64_t rows = static_cast<int64_t>(a.n) * a.sq;
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  cudaError_t rc = tensor_map_rows<D>(&tq, a.q, a.n, a.sq, q_ns, D, kBQ);
+  if (!rc) rc = tensor_map_rows<D>(&tdo, a.dout, a.n, a.sq, q_ns, D, kBQ);
+  if (!rc) rc = tensor_map_rows<D>(&tk, a.k, a.n, a.sk, k_ns, D, kBK);
+  if (!rc) rc = tensor_map_rows<D>(&tv, a.v, a.n, a.sk, k_ns, D, kBK);
+  if (!rc) {
+    rc = hopper::tensor_map_vec(&tlse, static_cast<const float*>(a.lse),
+                                rows, kBQ);
+  }
+  if (!rc) {
+    rc = hopper::tensor_map_vec(&tdelta, static_cast<const float*>(a.delta),
+                                rows, kBQ);
+  }
+  if (rc) return static_cast<int>(rc);
+  const dim3 grid(a.n, (a.sk + kBK - 1) / kBK);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  return static_cast<int>(hopper::launch(
+      dkv_wgmma_kernel<D>, grid, kWgThreads,
+      static_cast<int>(sizeof(DkvSmem<D>)) + 1024, stream, tq, tk, tv, tdo,
+      tlse, tdelta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.sq, a.sk, a.q_start, a.k_start,
+      a.causal, scale, scale * kLog2e));
+}
+
+// dQ: the FMA kernel, fp32 and bf16
 template <typename T>
-int launch_dim(int which, int head_dim, const Args& a, cudaStream_t st) {
+int dispatch_dq(int head_dim, const Args& a, cudaStream_t st) {
   switch (head_dim) {
-    case 32: which ? launch_dkv<32, T>(a, st) : launch_dq<32, T>(a, st); break;
-    case 64: which ? launch_dkv<64, T>(a, st) : launch_dq<64, T>(a, st); break;
-    case 128:
-      which ? launch_dkv<128, T>(a, st) : launch_dq<128, T>(a, st);
-      break;
+    case 32: launch_dq<32, T>(a, st); break;
+    case 64: launch_dq<64, T>(a, st); break;
+    case 128: launch_dq<128, T>(a, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int which, int head_dim, int dtype, const Args& a,
-             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_dim<float>(which, head_dim, a, st);
+// dK/dV: fp32 takes the FMA kernel, bf16 the tensor-core kernel
+int dispatch_dkv(int dtype, int head_dim, const Args& a, cudaStream_t st) {
+  if (dtype == kFloat32) {
+    switch (head_dim) {
+      case 32: launch_dkv<32>(a, st); break;
+      case 64: launch_dkv<64>(a, st); break;
+      case 128: launch_dkv<128>(a, st); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   if (dtype == kBFloat16) {
-    return launch_dim<__nv_bfloat16>(which, head_dim, a, st);
+    switch (head_dim) {
+      case 32: return launch_dkv_wgmma<32>(a, st);
+      case 64: return launch_dkv_wgmma<64>(a, st);
+      case 128: return launch_dkv_wgmma<128>(a, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -245,7 +474,10 @@ extern "C" int brpc_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
                n, sq, sk, q_start, k_start, causal};
-  return dispatch(0, head_dim, dtype, a, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32) return dispatch_dq<float>(head_dim, a, st);
+  if (dtype == kBFloat16) return dispatch_dq<__nv_bfloat16>(head_dim, a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // As brpc_flash_bwd_dq, writing dk and dv [n, sk, d] in the input dtype.
@@ -257,5 +489,5 @@ extern "C" int brpc_flash_bwd_dkv(const void* q, const void* k,
                                   int k_start, int causal, void* stream) {
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv,
                n, sq, sk, q_start, k_start, causal};
-  return dispatch(1, head_dim, dtype, a, stream);
+  return dispatch_dkv(dtype, head_dim, a, static_cast<cudaStream_t>(stream));
 }

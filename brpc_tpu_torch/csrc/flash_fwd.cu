@@ -21,9 +21,9 @@
 // when lse is null), with an optional causal mask at absolute positions:
 // query row r sees key c iff q_start + r >= k_start + c (both offsets 0
 // outside the ring). A row that saw no key gets o = 0 and lse = NEG_INF,
-// as the TPU kernels write it. bf16 inputs are widened to fp32 for every
-// product; P is rounded to the input dtype before P V, as the TPU kernel's
-// p.astype(v.dtype) does.
+// as the TPU kernels write it. Products accumulate in fp32; P is rounded
+// to the input dtype before P V, as the TPU kernel's p.astype(v.dtype)
+// does.
 //
 // The carry form starts each row from the running state (m, l, acc) of
 // earlier passes instead of (-inf, 0, 0) and writes the state back, not
@@ -34,31 +34,46 @@
 // pass (a key block wholly in its future) writes its state back bit for
 // bit, and its rescale is never exp(0).
 //
-// Design (simple and right, not yet fast): grid = (q-tiles, N). A block
-// owns kThreads / (D / 8) query rows of one head, each row held by D / 8
-// lanes of a warp (common.cuh). It walks the key tiles of 32 rows in a
-// loop, staged through shared memory as fp32, and stops at the block's
-// last live key when causal; m, l and the output accumulator stay in
-// registers, and every product is an fp32 FMA (no tensor cores). The TPU's
-// q-grid kernel keeps K/V resident in VMEM and runs exact causal trip
-// counts; this loop already stops at the diagonal, and K/V tiles come from
-// L2 across the q-tiles of a head.
+// Two kernels, chosen by dtype behind one C interface:
+//
+// fp32 (and head dim 16, the serving path): `flash_fwd_kernel`, FMA on the
+// CUDA cores. grid = (q-tiles, N). A block owns kThreads / (D / 8) query
+// rows of one head, each row held by D / 8 lanes of a warp (common.cuh).
+// It walks key tiles of 32 rows staged through shared memory as fp32 and
+// stops at the block's last live key when causal; m, l and the output
+// accumulator stay in registers. Every product is an fp32 FMA, so the fp32
+// parity lanes compute in full fp32 (no TF32).
+//
+// bf16 at head dim 32, 64 and 128: `fwd_wgmma_kernel`, on the tensor
+// cores (hopper.cuh). grid = (N, q-tiles), the q-tiles in reverse so that
+// the heaviest causal tiles start first. A block owns kBM = 128 query rows
+// of one head, 64 per warpgroup. TMA brings q once and the kBN = 128-key
+// tiles of k and v into two stages on mbarriers (128-byte swizzle; 64-byte
+// at D = 32): thread 0 issues tile t + 2 into the stage tile t has freed
+// while both warpgroups compute on tile t + 1. Per tile, S = q k^T is one
+// wgmma chain from shared memory into fp32 registers; the online softmax
+// runs on those fragments in base-2 (a row's max is two quad shuffles);
+// P is rounded to bf16 in registers (the JAX kernel's p.astype(v.dtype))
+// and is the A operand of O += P v, with v read MN-major. The causal mask
+// is applied only on tiles that straddle a warpgroup's diagonal or the
+// ragged end; TMA zero-fills rows past the end of q, k and v. l is summed
+// per thread and across the quad once, at the end. m stays in natural-log
+// units: a tile in which a row's max does not move (no live key for it)
+// rescales by exactly 1, so the carry form gives back the state of a row
+// that saw no key bit for bit.
 //
 // What bounds it on this card: at the flagship training shape (N = 64,
 // S = 1024, D = 128, causal, bf16) it does about 17.2 GFLOP (4 D per live
 // (q, k) pair) and must move about 67 MB: 0.017 ms at 989 TFLOP/s of bf16
 // tensor-core math against 0.020 ms at 3.35 TB/s, so its bound is bytes.
-// With fp32 FMAs it cannot come near that: 17.2 GFLOP at 67 TFLOP/s of
-// fp32 outside the tensor cores is already 0.26 ms, and the layout spends
-// a shuffle reduction and a shared-memory load per score on top; wgmma on
-// bf16 tiles is a later PR. A full ring hop of the carry form at
-// (32, 512, 128) bf16 moves about 29.6 MB (q, k, v and the fp32 state in
-// and out): 0.0088 ms at 3.35 TB/s, against 0.0043 ms of bf16 operations.
-// At the serving path's shapes (S <= 1024, H = 4, D = 16, fp32) a call
-// moves about 1 MB and is bound by the launch and the latency of its
-// serial key loop.
+// A full ring hop of the carry form at (32, 512, 128) bf16 moves about
+// 29.6 MB (q, k, v and the fp32 state in and out): 0.0088 ms at 3.35
+// TB/s, against 0.0043 ms of bf16 operations. At the serving path's shapes
+// (S <= 1024, H = 4, D = 16, fp32) a call moves about 1 MB and is bound by
+// the launch and the latency of its serial key loop.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
 
@@ -174,6 +189,219 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------
+using hopper::kLog2e;
+using hopper::kWgThreads;
+constexpr int kBM = 128;  // query rows per block, 64 per warpgroup
+constexpr int kBN = 128;  // keys per tile
+
+template <int D>
+struct FwdSmem {  // each array a multiple of 1024 bytes: every tile aligned
+  __nv_bfloat16 q[kBM * D];
+  __nv_bfloat16 k[2][kBN * D];
+  __nv_bfloat16 v[2][kBN * D];
+  uint64_t q_full, full[2];
+};
+
+template <int D, bool kCarry>
+__global__ void __launch_bounds__(kWgThreads, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 Carry c, int sq, int sk, Strides ost, int causal,
+                 int q_start, int k_start, float scale, float scale_log2) {
+  using namespace hopper;
+  using T = Tile<D>;
+  constexpr int kAcc = D / 2;     // output registers per thread
+  constexpr int kScores = kBN / 2;  // score registers per thread
+  constexpr uint32_t kStageBytes = 2 * kBN * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int n = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const Frag f(tid % 128);
+  const int row_lo = q0 + 64 * wg + f.row0;  // this thread's rows: +0, +8
+  // causal: key c is live for some row of the block iff
+  // k_start + c <= q_start + q0 + kBM - 1; a bound <= 0 runs no tile
+  const int k_end = causal
+      ? max(0, min(sk, q_start + q0 + kBM - k_start)) : sk;
+  const int tiles = (k_end + kBN - 1) / kBN;
+
+  auto load_kv = [&](int t) {
+    const int s = t & 1;
+    mbar_expect_tx(&sm.full[s], kStageBytes);
+#pragma unroll
+    for (int b = 0; b < T::kBlocks; ++b) {
+      tma_load_3d(sm.k[s] + b * kBN * T::kAtom, &tk, &sm.full[s],
+                  b * T::kAtom, t * kBN, n);
+      tma_load_3d(sm.v[s] + b * kBN * T::kAtom, &tv, &sm.full[s],
+                  b * T::kAtom, t * kBN, n);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.full[0], 1);
+    mbar_init(&sm.full[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && tiles > 0) {
+    mbar_expect_tx(&sm.q_full, kBM * D * 2);
+#pragma unroll
+    for (int b = 0; b < T::kBlocks; ++b) {
+      tma_load_3d(sm.q + b * kBM * T::kAtom, &tq, &sm.q_full, b * T::kAtom,
+                  q0, n);
+    }
+    load_kv(0);
+    if (tiles > 1) load_kv(1);
+  }
+
+  // running state of rows row_lo and row_lo + 8: m in natural-log units,
+  // l this thread's share of the row sum (the quad's shares are added at
+  // the end), acc the unnormalised output
+  float acc[kAcc], m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    const int64_t srow = static_cast<int64_t>(n) * sq + row;
+    if constexpr (kCarry) {
+      m[h] = row < sq ? c.m_in[srow] : kNegInf;
+      l[h] = row < sq && f.col0 == 0 ? c.l_in[srow] : 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        float2 x = make_float2(0.f, 0.f);
+        if (row < sq) {
+          x = *reinterpret_cast<const float2*>(c.acc_in + srow * D + f.col0 +
+                                               8 * j);
+        }
+        acc[4 * j + 2 * h] = x.x;
+        acc[4 * j + 2 * h + 1] = x.y;
+      }
+    } else {
+      m[h] = -INFINITY;
+      l[h] = 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * h] = acc[4 * j + 2 * h + 1] = 0.f;
+      }
+    }
+  }
+
+  if (tiles > 0) mbar_wait(&sm.q_full, 0);
+  const int first_row = q_start + q0 + 64 * wg;  // this warpgroup's, absolute
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t & 1;
+    const int k0 = t * kBN;
+    mbar_wait(&sm.full[s], (t >> 1) & 1);
+
+    float sc[kScores];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<kBN>::ss(sc, desc_k_major<D>(sm.q, kBM, 64 * wg, kk),
+                     desc_k_major<D>(sm.k[s], kBN, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // the mask, only where a key of the tile lies past the end or past
+    // this warpgroup's first row
+    if (k0 + kBN > sk || (causal && k_start + k0 + kBN - 1 > first_row)) {
+#pragma unroll
+      for (int i = 0; i < kScores; ++i) {
+        const int kc = k0 + f.col(i);
+        if (kc >= sk || (causal && first_row + f.row(i) < k_start + kc)) {
+          sc[i] = -INFINITY;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kScores; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float mb[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      // a row whose max did not move (no live key here, say) keeps its
+      // state bit for bit: alpha is exactly 1, not exp2 of a difference
+      // that contraction into an FMA would leave at the rounding error
+      const float m_new = fmaxf(m[h], mx[h] * scale);
+      mb[h] = m_new == -INFINITY ? 0.f : m_new * kLog2e;
+      alpha[h] = m_new == m[h] ? 1.f  // 0 below on the first live tile
+                               : exp2f(__fmul_rn(m[h], kLog2e) - mb[h]);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < kScores; ++i) {
+      // masked scores are -inf: exactly 0
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -mb[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += sc[i];
+    }
+
+    uint32_t pa[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) a_fragment(sc, kk, pa[kk]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      Wgmma<D>::rs(acc, pa[kk], desc_mn_major<D>(sm.v[s], kBN, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    __syncthreads();  // both warpgroups are done with stage s
+    if (tid == 0 && t + 2 < tiles) load_kv(t + 2);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = row_lo + 8 * h;
+    if (row >= sq) continue;
+    const int64_t srow = static_cast<int64_t>(n) * sq + row;
+    if constexpr (kCarry) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(c.acc_out + srow * D + f.col0 + 8 * j) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+      if (f.col0 == 0) {
+        c.m_out[srow] = m[h];
+        c.l_out[srow] = l[h];
+      }
+    } else {
+      const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
+      __nv_bfloat16* orow = o + n * ost.n + row * ost.row + f.col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            hopper::pack_bf16(acc[4 * j + 2 * h] * inv,
+                              acc[4 * j + 2 * h + 1] * inv);
+      }
+      if (lse != nullptr && f.col0 == 0) {
+        lse[srow] = l[h] == 0.f ? kNegInf : m[h] + logf(l[h]);
+      }
+    }
+  }
+}
+
 // what one launch needs besides the head dim and the dtype
 struct Args {
   const void *q, *k, *v;
@@ -184,35 +412,63 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, typename T, bool kCarry>
-void launch(const Args& a) {
+template <int D, bool kCarry>
+void launch_fma(const Args& a) {
   constexpr int BQ = Rows<D>::kPerBlock;
   const dim3 grid((a.sq + BQ - 1) / BQ, a.n);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_fwd_kernel<D, T, kCarry><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o),
+  flash_fwd_kernel<D, float, kCarry><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o),
       static_cast<float*>(a.lse), a.c, a.sq, a.sk, a.qs, a.ks, a.vs, a.os,
       a.causal, a.q_start, a.k_start, scale);
 }
 
-template <typename T, bool kCarry>
-int launch_dim(int head_dim, const Args& a) {
-  switch (head_dim) {
-    case 16: launch<16, T, kCarry>(a); break;
-    case 32: launch<32, T, kCarry>(a); break;
-    case 64: launch<64, T, kCarry>(a); break;
-    case 128: launch<128, T, kCarry>(a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+template <int D, bool kCarry>
+int launch_wgmma(const Args& a) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t rc = hopper::tensor_map_rows<D>(&tq, a.q, a.n, a.sq, a.qs.n,
+                                              a.qs.row, kBM);
+  if (rc == cudaSuccess) {
+    rc = hopper::tensor_map_rows<D>(&tk, a.k, a.n, a.sk, a.ks.n, a.ks.row,
+                                    kBN);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (rc == cudaSuccess) {
+    rc = hopper::tensor_map_rows<D>(&tv, a.v, a.n, a.sk, a.vs.n, a.vs.row,
+                                    kBN);
+  }
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(a.n, (a.sq + kBM - 1) / kBM);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  return static_cast<int>(hopper::launch(
+      fwd_wgmma_kernel<D, kCarry>, grid, kWgThreads,
+      static_cast<int>(sizeof(FwdSmem<D>)) + 1024, a.stream, tq, tk, tv,
+      static_cast<__nv_bfloat16*>(a.o), static_cast<float*>(a.lse), a.c,
+      a.sq, a.sk, a.os, a.causal, a.q_start, a.k_start, scale,
+      scale * kLog2e));
 }
 
+// fp32 takes the FMA kernel at every head dim, bf16 the tensor-core kernel
+// at 32, 64 and 128; anything else is refused without a launch
 template <bool kCarry>
 int dispatch(int dtype, int head_dim, const Args& a) {
-  if (dtype == kFloat32) return launch_dim<float, kCarry>(head_dim, a);
+  if (dtype == kFloat32) {
+    switch (head_dim) {
+      case 16: launch_fma<16, kCarry>(a); break;
+      case 32: launch_fma<32, kCarry>(a); break;
+      case 64: launch_fma<64, kCarry>(a); break;
+      case 128: launch_fma<128, kCarry>(a); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   if (dtype == kBFloat16) {
-    return launch_dim<__nv_bfloat16, kCarry>(head_dim, a);
+    switch (head_dim) {
+      case 32: return launch_wgmma<32, kCarry>(a);
+      case 64: return launch_wgmma<64, kCarry>(a);
+      case 128: return launch_wgmma<128, kCarry>(a);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

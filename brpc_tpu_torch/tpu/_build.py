@@ -71,19 +71,29 @@ def _finish(name: str, out: str, proc: subprocess.Popen) -> str:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    with open(out + ".log", "w") as fh:
+        fh.write(log)
     return log
 
 
 def build_all() -> Dict[str, str]:
     """Compile every source not built yet, one nvcc per source, all
-    started together. Returns nvcc's output (register and shared-memory
-    use from ``-Xptxas -v``) per source it built."""
+    started together. Returns nvcc's output (register, shared-memory and
+    spill use per kernel from ``-Xptxas -v``) per source, kept beside each
+    library, so a library built earlier reports its build too."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with _lock:
-        todo = {n: _lib_path(n) for n in sources()}
-        todo = {n: p for n, p in todo.items() if not os.path.exists(p)}
+        libs = {n: _lib_path(n) for n in sources()}
+        todo = {n: p for n, p in libs.items() if not os.path.exists(p)}
         procs = {n: _start(n, p) for n, p in todo.items()}
-        return {n: _finish(n, todo[n], proc) for n, proc in procs.items()}
+        for n, proc in procs.items():
+            _finish(n, todo[n], proc)
+        logs = {}
+        for n, p in libs.items():
+            if os.path.exists(p + ".log"):
+                with open(p + ".log") as fh:
+                    logs[n] = fh.read()
+        return logs
 
 
 def load(name: str) -> ctypes.CDLL:

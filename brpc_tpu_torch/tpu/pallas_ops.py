@@ -144,6 +144,43 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _call(fn, t, *args):
+    """``fn(*args, stream)`` on ``t``'s device and current stream: one
+    launch through a C entry point; returns its error code."""
+    with torch.cuda.device(t.device):
+        return fn(*args, _stream(t))
+
+
+# What a TMA tensor map takes (csrc/hopper.cuh), checked before a bf16
+# tensor reaches the tensor-core kernels: a 16-byte aligned base, the last
+# dim contiguous, every other stride a multiple of 16 bytes below 2^40, and
+# every row of every head addressable by a 32-bit TMA coordinate.
+_TMA_STRIDE_ALIGN = 16
+_TMA_STRIDE_MAX = 1 << 40
+_TMA_COORD_MAX = 1 << 31
+
+
+def _check_tma(name: str, **tensors) -> None:
+    for tname, t in tensors.items():
+        size = t.element_size()
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {tname}'s last dim must be contiguous "
+                             f"for TMA")
+        if t.data_ptr() % _TMA_STRIDE_ALIGN:
+            raise ValueError(f"{name}: {tname} must be 16-byte aligned for "
+                             f"TMA")
+        for ax in range(t.dim() - 1):
+            nbytes = t.stride(ax) * size
+            if nbytes % _TMA_STRIDE_ALIGN or not 0 < nbytes < _TMA_STRIDE_MAX:
+                raise ValueError(f"{name}: {tname}'s stride {t.stride(ax)} "
+                                 f"on axis {ax} ({nbytes} bytes) is not a "
+                                 f"positive multiple of 16 bytes below 2^40,"
+                                 f" which TMA needs")
+        if t.numel() // t.shape[-1] >= _TMA_COORD_MAX:
+            raise ValueError(f"{name}: {tname} has {t.numel() // t.shape[-1]}"
+                             f" rows, past TMA's 32-bit coordinates")
+
+
 # ---------------------------------------------------------------------------
 # Serving prefill: flash attention over (S, D) or (S, H, D)
 # ---------------------------------------------------------------------------
@@ -220,11 +257,10 @@ def _fwd_launch(q, k, v, o, lse, n, sq, sk, causal, strides):
     element strides of q, k, v and o; ``lse`` None writes o only."""
     fn = _bind("flash_fwd", "brpc_flash_fwd",
                [_ptr] * 5 + [_i32] * 6 + [_i64] * 8 + [_ptr])
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                None if lse is None else lse.data_ptr(), n, sq, sk,
-                q.shape[-1], _DTYPES[q.dtype], int(causal),
-                *(x for pair in strides for x in pair), _stream(q))
+    rc = _call(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+               None if lse is None else lse.data_ptr(), n, sq, sk,
+               q.shape[-1], _DTYPES[q.dtype], int(causal),
+               *(x for pair in strides for x in pair))
     _raise_on(rc, "flash_fwd", "flash_fwd")
 
 
@@ -344,9 +380,12 @@ def _check_mha_kernel_shape(name: str, q, k) -> None:
 
 def _flash_fwd_cuda(q, k, v, causal: bool, counter: str = "flash_fwd"):
     """One launch of the forward kernel with lse, counted under
-    ``counter`` (the TPU entry it stands for)."""
+    ``counter`` (the TPU entry it stands for): fp32 takes the FMA kernel,
+    bf16 the tensor-core kernel, whose loads are TMA's."""
     _check_mha_kernel_shape(counter, q, k)
     _check_kernel_inputs(counter, q.dtype, q=q, k=k, v=v)
+    if q.dtype == torch.bfloat16:
+        _check_tma(counter, q=q, k=k, v=v)
     n, sq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((n, sq, 1), dtype=torch.float32, device=q.device)
@@ -436,6 +475,9 @@ def _bwd_launch_args(q, k, v, lse, do, delta, q_start, k_start, causal):
     _check_mha_kernel_shape("flash_bwd", q, k)
     _check_kernel_inputs("flash_bwd", q.dtype, q=q, k=k, v=v, do=do)
     _check_kernel_inputs("flash_bwd", torch.float32, lse=lse, delta=delta)
+    if q.dtype == torch.bfloat16:
+        # lse and delta are read as one flat vector: q's rows bound them
+        _check_tma("flash_bwd", q=q, k=k, v=v, do=do)
     n, sq, d = q.shape
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
@@ -450,8 +492,7 @@ def _flash_bwd_dq_cuda(q, k, v, lse, do, delta, q_start, k_start, causal):
     dq = torch.empty_like(q)
     fn = _bind("flash_bwd", "brpc_flash_bwd_dq",
                [_ptr] * 7 + [_i32] * 8 + [_ptr])
-    with torch.cuda.device(q.device):
-        rc = fn(*ins, dq.data_ptr(), *tail, _stream(q))
+    rc = _call(fn, q, *ins, dq.data_ptr(), *tail)
     _raise_on(rc, "flash_bwd", "flash_bwd_dq")
     launches.add("flash_bwd_dq")
     return dq
@@ -464,8 +505,7 @@ def _flash_bwd_dkv_cuda(q, k, v, lse, do, delta, q_start, k_start, causal):
     dv = torch.empty_like(v)
     fn = _bind("flash_bwd", "brpc_flash_bwd_dkv",
                [_ptr] * 8 + [_i32] * 8 + [_ptr])
-    with torch.cuda.device(q.device):
-        rc = fn(*ins, dk.data_ptr(), dv.data_ptr(), *tail, _stream(q))
+    rc = _call(fn, q, *ins, dk.data_ptr(), dv.data_ptr(), *tail)
     _raise_on(rc, "flash_bwd", "flash_bwd_dkv")
     launches.add("flash_bwd_dkv")
     return dk, dv
@@ -641,17 +681,17 @@ def _flash_carry_cuda(q, k, v, m, l, acc, q_start, k_start, causal):
     sq, d = q.shape[-2:]
     q3, k3, v3 = (t.reshape(-1, t.shape[-2], d) for t in (q, k, v))
     _check_mha_kernel_shape("flash_carry", q3, k3)
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash_carry", q=q3, k=k3, v=v3)
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
     fn = _bind("flash_fwd", "brpc_flash_carry",
                [_ptr] * 9 + [_i32] * 8 + [_i64] * 6 + [_ptr])
-    with torch.cuda.device(q.device):
-        rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), m.data_ptr(),
-                l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
-                l_out.data_ptr(), acc_out.data_ptr(), q3.shape[0], sq,
-                k3.shape[1], d, _DTYPES[q.dtype], int(causal), int(q_start),
-                int(k_start), *(x for t in (q3, k3, v3)
-                                for x in (t.stride(0), t.stride(1))),
-                _stream(q))
+    rc = _call(fn, q, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+               m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
+               l_out.data_ptr(), acc_out.data_ptr(), q3.shape[0], sq,
+               k3.shape[1], d, _DTYPES[q.dtype], int(causal), int(q_start),
+               int(k_start), *(x for t in (q3, k3, v3)
+                               for x in (t.stride(0), t.stride(1))))
     _raise_on(rc, "flash_fwd", "flash_carry")
     launches.add("flash_carry")
     return m_out, l_out, acc_out

@@ -13,13 +13,17 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   kernel and that its tokens equal a run with plain attention; a last,
   profiled run of the same requests shows where the time goes.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
-  RMSNorm kernel against their plain versions in fp32 and bf16, checks
+  RMSNorm kernel against their plain versions in fp32 and bf16 (bf16
+  forward and dK/dV are the tensor-core kernels, held also at their tile
+  edges: S in EDGE_S, every head dim, causal or not, the ring's key
+  offsets), prints their ``-Xptxas -v`` registers and spills (0), checks
   one fp32 training step of the shipping configuration (flash, RMSNorm
   and fused cross-entropy kernels) against one without kernels, then
   takes five SGD steps of the flagship LM at full width in bf16 and
   checks that the loss falls and that every step launched each kernel
   the expected number of times; one more, profiled step shows where the
-  time goes. Then holds the fused cross-entropy kernel against its plain
+  time goes and names its attention kernels (no FMA kernel for the bf16
+  forward or dK/dV). Then holds the fused cross-entropy kernel against its plain
   version row by row.
 - The q-grid forward: held against the plain forward at
   ``tools/qgrid_sweep.py``'s shape, then driven through that sweep's
@@ -53,6 +57,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -89,6 +94,43 @@ MAX_NEW = [8, 12, 16, 20, 24, 28, 32, 32]
 # the example's token_budget (512) never admits a prompt longer than the
 # budget, in the JAX engine as in the port; 1024 admits every prompt here
 TOKEN_BUDGET = 1024
+
+
+# the tensor-core kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu (bf16)
+# and the FMA kernels they replaced for bf16, by symbol
+WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel")
+FMA_KERNELS = ("flash_fwd_kernel", "flash_dkv_kernel")
+
+
+def ptxas_report(logs):
+    """-Xptxas -v of each tensor-core kernel instantiation, from the build
+    logs: {symbol: {registers, spill_stores, spill_loads, stack}}; raises
+    if any spills, or if none is found."""
+    out, cur = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = (re.search(r"Compiling entry function '([^']+)'", line)
+                 or re.search(r"Function properties for (\S+)", line))
+            if m:
+                cur = m.group(1)
+                continue
+            if cur is None or not any(k in cur for k in WGMMA_KERNELS):
+                continue
+            row = out.setdefault(cur, {})
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                row["registers"] = int(m.group(1))
+    if not out:
+        raise AssertionError("no -Xptxas -v report of the tensor-core kernels")
+    for name, row in out.items():
+        if row.get("spill_stores", 1) or row.get("spill_loads", 1):
+            raise AssertionError(f"{name} spills: {row}")
+    return out
 
 
 def log(msg):
@@ -327,6 +369,26 @@ def device_time(prof):
                               for k, t, c in top]
 
 
+def attention_kernels(prof):
+    """The attention kernels a profiled bf16 training step ran, by symbol:
+    {name: {"us", "calls"}}. Raises if an FMA kernel ran the forward or
+    dK/dV, or if a tensor-core kernel is missing."""
+    from torch.autograd import DeviceType
+
+    out = {e.key: {"us": e.self_device_time_total, "calls": e.count}
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and any(k in e.key for k in WGMMA_KERNELS + FMA_KERNELS
+                   + ("flash_dq_kernel",))}
+    fma = [k for k in out if any(f in k for f in FMA_KERNELS)]
+    missing = [w for w in WGMMA_KERNELS if not any(w in k for k in out)]
+    if fma or missing:
+        raise AssertionError(f"bf16 training step: FMA attention kernels "
+                             f"{fma}, tensor-core kernels missing {missing}"
+                             f" (ran {sorted(out)})")
+    return out
+
+
 def profile_engine(dev):
     """Phase 5: where the main path's time goes. The same requests under
     torch.profiler: device busy share (kernel intervals merged, over the
@@ -413,6 +475,13 @@ MHA_SHAPES = [((64, 1024, 128), (True,)), ((32, 256, 32), (True,)),
               ((8, 1024, 128), (False,)), ((6, 128, 32), (True, False)),
               ((6, 100, 64), (True, False))]  # ragged: 100 % 32 != 0
 MHA_MAIN = (64, 1024, 128)  # what the trainer gives the kernels, causal
+# bf16 cases at the tensor-core kernels' tile edges (query blocks of 128,
+# key tiles of 128 forward, q-tiles of 64 and key blocks of 128 in dK/dV):
+# one tile, ragged tiles, a ragged last block, whole blocks, the sweep's
+# length; each head dim; EDGE_N heads, so a head's rows end inside a tile
+EDGE_S = (64, 100, 1000, 1024, 2048)
+EDGE_D = (32, 64, 128)
+EDGE_N = 3
 RMS_SHAPES = [(8192, 1024), (1000, 1024), (256, 32),
               (7, 50)]  # ragged: fewer rows than a block, odd width
 RMS_MAIN = (8192, 1024)     # B 8 x S 1024 rows of d_model 1024
@@ -490,6 +559,33 @@ def mha_bounds(n, s, d, causal, dtype):
                                    dtype)}
 
 
+def args_call(fn, args):
+    return lambda: fn(*args)
+
+
+def queued_ms(fn, iters):
+    """Device time of one call, for a call a CUDA graph cannot capture
+    (autograd through SDPA): after a warm-up, a sleep kernel holds the
+    stream while the host queues ``iters`` calls between two CUDA events,
+    so the events see only the device's work. Raises if the host fell
+    behind (the start event had passed before the last call was queued)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e8))  # ~0.2 s: longer than queueing the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    behind = start.query()
+    end.synchronize()
+    if behind:
+        raise AssertionError("queued_ms: the host fell behind the device")
+    return start.elapsed_time(end) / iters
+
+
 def timings(calls, iters, graph=True):
     """{name_ms, name_graph_ms} for each call: per call as a caller pays
     it, host launch cost included, and device time alone from a CUDA-graph
@@ -532,6 +628,22 @@ def check_flash_fwd(dev):
                     tag = f"flash_fwd {shape} causal={causal} {dtype}"
                     held(tag + " o", o, ro, dtype, worst)
                     held(tag + " lse", lse, rl, dtype, worst)
+    edges = 0
+    for s, d in itertools.product(EDGE_S, EDGE_D):
+        for causal in (True, False):
+            q, k, v = (randn(gen, (EDGE_N, s, d), torch.bfloat16, dev)
+                       for _ in range(3))
+            ro, rl = pallas_ops.flash_fwd_reference(q.float(), k.float(),
+                                                    v.float(), causal)
+            runs = [pallas_ops._flash_fwd_bhsd(q, k, v, causal, s, s)]
+            if causal:
+                runs.append(pallas_ops._flash_fwd_folded(q, k, v, s))
+            for o, lse in runs:
+                torch.cuda.synchronize()
+                tag = f"flash_fwd edge {(EDGE_N, s, d)} causal={causal}"
+                held(tag + " o", o, ro, torch.bfloat16, worst)
+                held(tag + " lse", lse, rl, torch.bfloat16, worst)
+                edges += 1
     n, s, d = MHA_MAIN
     q, k, v = (randn(gen, MHA_MAIN, torch.bfloat16, dev) for _ in range(3))
     qh, kh, vh = (t.view(TRAIN_B, n // TRAIN_B, s, d) for t in (q, k, v))
@@ -540,7 +652,7 @@ def check_flash_fwd(dev):
         "plain": lambda: pallas_ops.flash_fwd_reference(q, k, v, True),
         "library": lambda: sdpa(qh, kh, vh, is_causal=True),
     }, iters=20)
-    row.update(readings(worst))
+    row.update(readings(worst), bf16_edge_cases=edges)
     print(json.dumps({"flash_fwd": row}), flush=True)
     return row
 
@@ -586,6 +698,29 @@ def check_flash_bwd(dev):
                                              f"lse NEG_INF and zero grads")
                     for name, g, w in zip(("dq", "dk", "dv"), got, want):
                         held(f"{tag} {name}", g, w, dtype, worst)
+    edges = 0
+    for s, d in itertools.product(EDGE_S, EDGE_D):
+        for causal in (True, False):
+            for k_start in ((0, s // 2, s) if causal else (0,)):
+                q, k, v, do = (randn(gen, (EDGE_N, s, d), torch.bfloat16, dev)
+                               for _ in range(4))
+                f32 = [t.float() for t in (q, k, v, do)]
+                o, lse = pallas_ops.flash_fwd_reference(*f32[:3], causal, 0,
+                                                        k_start)
+                delta = pallas_ops._flash_delta(o, f32[3])
+                dk, dv = pallas_ops._flash_bwd_dkv_cuda(
+                    q, k, v, lse, do, delta, 0, k_start, causal)
+                _, wk, wv = pallas_ops.flash_bwd_reference(
+                    *f32[:3], lse, f32[3], delta, 0, k_start, causal)
+                torch.cuda.synchronize()
+                tag = (f"flash_bwd_dkv edge {(EDGE_N, s, d)} causal={causal}"
+                       f" k_start={k_start}")
+                if k_start == s and (bool(dk.any()) or bool(dv.any())):
+                    raise AssertionError(f"{tag}: a key block wholly in the "
+                                         f"future must give zero grads")
+                held(tag + " dk", dk, wk, torch.bfloat16, worst)
+                held(tag + " dv", dv, wv, torch.bfloat16, worst)
+                edges += 1
     for (n, s, d), flags in MHA_SHAPES[1:]:
         for causal in flags:
             for dtype in TOL:
@@ -624,9 +759,17 @@ def check_flash_bwd(dev):
         "dkv": lambda: pallas_ops._flash_bwd_dkv_cuda(*args),
         "plain": lambda: pallas_ops.flash_bwd_reference(*args),
     }, iters=10)
-    row.update(timings({"library": lambda: torch.autograd.grad(
-        out, (qh, kh, vh), dout, retain_graph=True)}, iters=10,
-        graph=False))
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qh, kh, vh), dout,
+                                           retain_graph=True)
+    row.update(timings({"library": sdpa_bwd}, iters=10, graph=False))
+    # autograd cannot be captured in a graph: SDPA's backward is timed as
+    # device time by queued_ms, the kernels beside it the same way
+    row.update(library_graph_ms=queued_ms(sdpa_bwd, 20),
+               dq_queued_ms=queued_ms(args_call(
+                   pallas_ops._flash_bwd_dq_cuda, args), 20),
+               dkv_queued_ms=queued_ms(args_call(
+                   pallas_ops._flash_bwd_dkv_cuda, args), 20),
+               bf16_edge_cases=edges)
     row["autograd"] = {"max_err_fp32": worst_mha[torch.float32],
                        "max_err_bf16": worst_mha[torch.bfloat16]}
     for dtype in TOL:
@@ -767,6 +910,7 @@ def run_trainer(dev, smi):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, busy, top = device_time(prof)
+    attention = attention_kernels(prof)
     step = sorted(step_s[1:])[len(step_s[1:]) // 2]  # median after the 1st
     # the FLOP count of tools/kernel_bench.py:386-391
     d, f, s = cfg.d_model, cfg.d_ff, TRAIN_S
@@ -784,7 +928,8 @@ def run_trainer(dev, smi):
         "profiled_step": {"wall_us": wall_us, "device_kernels": kernels,
                           "device_busy_us": busy,
                           "device_busy_share": busy / wall_us,
-                          "top_device_us": top},
+                          "top_device_us": top,
+                          "attention_kernels": attention},
     }
     print(json.dumps({"trainer": stats}), flush=True)
     del model
@@ -880,6 +1025,19 @@ def check_qgrid(dev):
             tag = f"flash_fwd_qgrid {shape} causal={causal} {blocks} {dtype}"
             held(tag + " o", o, ro, dtype, worst)
             held(tag + " lse", lse, rl, dtype, worst)
+    edges = 0
+    for s, d in itertools.product(EDGE_S, EDGE_D):
+        for causal in (True, False):
+            q, k, v = (randn(gen, (EDGE_N, s, d), torch.bfloat16, dev)
+                       for _ in range(3))
+            o, lse = pallas_ops._flash_fwd_qgrid(q, k, v, causal, s, s)
+            ro, rl = pallas_ops.flash_fwd_reference(q.float(), k.float(),
+                                                    v.float(), causal)
+            torch.cuda.synchronize()
+            tag = f"flash_fwd_qgrid edge {(EDGE_N, s, d)} causal={causal}"
+            held(tag + " o", o, ro, torch.bfloat16, worst)
+            held(tag + " lse", lse, rl, torch.bfloat16, worst)
+            edges += 1
     q, k, v = (randn(gen, QGRID_MAIN, torch.bfloat16, dev) for _ in range(3))
     before = pallas_ops.launches.snapshot()
     for blocks in QGRID_REFUSED:
@@ -915,7 +1073,7 @@ def check_qgrid(dev):
     }, iters=10)
     row["bound"] = mha_bounds(n, s, d, True, torch.bfloat16)["flash_fwd"]
     row["launches"] = counts["flash_fwd_qgrid"]
-    row.update(readings(worst))
+    row.update(readings(worst), bf16_edge_cases=edges)
     print(json.dumps({"flash_fwd_qgrid": row}), flush=True)
     return row
 
@@ -979,6 +1137,40 @@ def check_carry(dev):
                 if not all(torch.equal(a, b) for a, b in zip(fut, state)):
                     raise AssertionError(f"{tag}: a key block wholly in the"
                                          f" future changed the state")
+    # bf16 at the tile edges, the query block at q_start = S and the key
+    # block at the ring's offsets k_start in (0, S/2, S): wholly past,
+    # straddling, on the diagonal; the state carried from one pass
+    edges = 0
+    for es, d in itertools.product(EDGE_S, EDGE_D):
+        q, k, v, k2, v2 = (randn(gen, (EDGE_N, es, d), torch.bfloat16, dev)
+                           for _ in range(5))
+        one = carry(q, k, v, *identity_state(EDGE_N, es, d, dev), 0, 0,
+                    causal=True, block_q=es, block_k=es)
+        for k_start in (0, es // 2, es):
+            got = carry(q, k2, v2, *one, es, k_start, causal=True,
+                        block_q=es, block_k=es)
+            hold(f"flash_carry edge {(EDGE_N, es, d)} q_start={es} "
+                 f"k_start={k_start}", got,
+                 plain(q, k2, v2, *one, es, k_start, True), torch.bfloat16)
+            edges += 1
+        # the key block at S/2 and at S ahead of q at 0: rows before it see
+        # no key in tiles that do run, and keep their state bit for bit
+        for k_start in (es // 2, es):
+            got = carry(q, k2, v2, *one, 0, k_start, causal=True,
+                        block_q=es, block_k=es)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a[:, :k_start], b[:, :k_start])
+                       for a, b in zip(got, one)):
+                raise AssertionError(f"flash_carry edge {(EDGE_N, es, d)} "
+                                     f"k_start={k_start}: a row that saw no "
+                                     f"key changed its state")
+            if k_start < es:
+                hold(f"flash_carry edge {(EDGE_N, es, d)} q_start=0 "
+                     f"k_start={k_start}", [t[:, k_start:] for t in got],
+                     [t[:, k_start:] for t in plain(q, k2, v2, *one, 0,
+                                                    k_start, True)],
+                     torch.bfloat16)
+            edges += 1
     d = RING_D
     q, k, v = (randn(gen, (n, s, d), torch.bfloat16, dev) for _ in range(3))
     state = carry(q, k, v, *identity_state(n, s, d, dev), 0, 0, causal=True,
@@ -993,7 +1185,7 @@ def check_carry(dev):
     row["bound"] = bound(3 * n * s * d * 2 + 2 * n * s * (d + 2) * 4,
                          4 * d * n * s * s, torch.bfloat16)
     row.update(library_ms=None, library_graph_ms=None)
-    row.update(readings(worst))
+    row.update(readings(worst), bf16_edge_cases=edges)
     print(json.dumps({"flash_carry": row}), flush=True)
     return row
 
@@ -1557,9 +1749,14 @@ def kernel_rows(fwd, bwd, rms, counts):
          MHA_MAIN),
         ("rmsnorm", "rmsnorm.cu", f"{pallas}:43", rms, "kernel", RMS_MAIN),
     ]
-    return [kernel_entry(name, src, replaces, row, key, shape, counts[name],
-                         bounds[name])
-            for name, src, replaces, row, key, shape in spec]
+    out = [kernel_entry(name, src, replaces, row, key, shape, counts[name],
+                        bounds[name])
+           for name, src, replaces, row, key, shape in spec]
+    for e, key in ((out[1], "dq"), (out[2], "dkv")):
+        # SDPA's backward as device time beside the kernel's, queued alike
+        e.update(queued_ms=bwd[f"{key}_queued_ms"],
+                 library="SDPA backward (dq, dk, dv in one call)")
+    return out
 
 
 def slice3_rows(xent, qgrid, carry, train_counts, ring_counts):
@@ -1607,6 +1804,7 @@ def main():
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f}s")
     for name, out in built.items():
         log(f"--- nvcc {name}.cu\n{out.strip()}")
+    print(json.dumps({"ptxas": ptxas_report(built)}), flush=True)
 
     flash = check_flash(dev)
     check_against_cpu(dev)

@@ -15,13 +15,22 @@
 //
 // What bounds it on this card: bytes, 2 * nbytes through device memory
 // (each byte read once and written once): 40 us for 64 MiB at 3.35 TB/s.
-// Design: a grid-stride loop of 16-byte loads and stores, kUnroll loads in
-// flight per thread before their stores, over kBlocksPerSM blocks per SM,
-// so that enough bytes are in flight to cover the memory's latency. When
-// src and dst sit at the same offset modulo 16, a scalar head brings both
-// to 16 bytes and a scalar tail finishes the length; otherwise the whole
-// copy is a byte loop (right, and slow; no caller on the main path passes
-// such pointers).
+// Design, on Hopper's bulk asynchronous copies: a grid of kBlocksPerSM
+// blocks per SM over the 16-byte-aligned body, cut into chunks of
+// kStageBytes dealt round-robin (block b takes chunks b, b + B, ...), so
+// the blocks sweep the copy together. One thread of each block moves its
+// chunks through a ring of kStages shared-memory stages: a bulk load
+// (cp.async.bulk, completed on the stage's mbarrier) brings a chunk in, a
+// bulk store writes it out, and a stage is loaded again only once its
+// store has read it (cp.async.bulk.wait_group.read). So kStages - 1 chunks
+// per block are in flight without holding registers, in large contiguous
+// transactions, and no thread ends on a latency-bound remainder loop.
+// (On an H100, one contiguous span of chunks per block was 1-2% slower at
+// 64 and 256 MiB: brpc_tpu_torch/bench/copy_designs.py, PERF.md.)
+// When src and dst sit at the same offset modulo 16, the other threads
+// copy the unaligned head and tail bytes; otherwise no bulk copy applies
+// and the whole copy is a byte loop (right, and slow; no caller on the
+// main path passes such pointers).
 //
 // brpc_copy_batched runs k <= 32 independent copies in one launch:
 // blockIdx.y picks the copy, and the k (src, dst, nbytes) triples travel by
@@ -29,6 +38,7 @@
 // host-to-device copy of its descriptors.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 // one copy of the batched entry point, as the wrapper lays it out
 // (bench_kernels._CopyItem). Outside the anonymous namespace: a type with
@@ -44,49 +54,95 @@ namespace {
 
 using namespace brpc;
 
-constexpr int kCopyThreads = 256;
-constexpr int kBlocksPerSM = 8;  // 2048 threads: a full SM
-constexpr int kUnroll = 4;       // 16-byte loads in flight per thread
-constexpr int kMaxBatch = 32;    // the store's dispatcher batches <= 32
+constexpr int kCopyThreads = 256;  // the head, tail and byte loops
+constexpr int kBlocksPerSM = 2;
+constexpr int kStages = 4;               // shared-memory stages per block
+constexpr int kStageBytes = 16 << 10;    // bytes per stage and bulk copy
+constexpr int kMaxBatch = 32;  // the store's dispatcher batches <= 32
 
 struct CopyBatch {
   CopyItem item[kMaxBatch];
 };
 
-// bytes [0, n) of src into dst, by the threads t, t + stride, ...
+struct CopySmem {
+  uint8_t stage[kStages][kStageBytes];
+  uint64_t full[kStages];
+};
+constexpr int kSmemBytes = static_cast<int>(sizeof(CopySmem)) + 128;
+
+__device__ __forceinline__ CopySmem& copy_smem() {
+  extern __shared__ uint8_t smem_raw[];
+  return *reinterpret_cast<CopySmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+}
+
+// chunks block, block + blocks, ... of the body (`bytes`, a multiple of
+// 16, both ends 16-byte aligned) of src into dst through the stages; run
+// by one thread
+__device__ void copy_chunks(const uint8_t* src, uint8_t* dst, int64_t bytes,
+                            int64_t block, int64_t blocks, CopySmem& sm) {
+  using namespace hopper;
+  const int64_t total = (bytes + kStageBytes - 1) / kStageBytes;
+  const int64_t chunks =
+      total > block ? (total - block + blocks - 1) / blocks : 0;
+  for (int s = 0; s < kStages; ++s) mbar_init(&sm.full[s], 1);
+  mbar_fence_init();
+  auto off = [&](int64_t j) { return (block + j * blocks) * kStageBytes; };
+  auto size = [&](int64_t j) {
+    const int64_t left = bytes - off(j);
+    return static_cast<uint32_t>(left < kStageBytes ? left : kStageBytes);
+  };
+  auto load = [&](int64_t j) {
+    const int s = static_cast<int>(j % kStages);
+    mbar_expect_tx(&sm.full[s], size(j));
+    bulk_load(sm.stage[s], src + off(j), size(j), &sm.full[s]);
+  };
+  for (int64_t c = 0; c < chunks && c < kStages; ++c) load(c);
+  for (int64_t i = 0; i < chunks; ++i) {
+    const int s = static_cast<int>(i % kStages);
+    mbar_wait(&sm.full[s], static_cast<uint32_t>((i / kStages) & 1));
+    fence_proxy_async();
+    bulk_store(dst + off(i), sm.stage[s], size(i));
+    bulk_commit();
+    // chunk i - 1's stage takes chunk i - 1 + kStages once its store,
+    // the one before this chunk's, has read it
+    if (i >= 1 && i - 1 + kStages < chunks) {
+      bulk_wait_read<1>();
+      load(i - 1 + kStages);
+    }
+  }
+  bulk_wait<0>();
+}
+
+// bytes [0, n) of src into dst: block `block` of `blocks` copies its
+// chunks of the body; all their threads share the head, the tail or the
+// byte loop
 __device__ __forceinline__ void copy_range(const uint8_t* __restrict__ src,
                                            uint8_t* __restrict__ dst,
-                                           int64_t n, int64_t t,
-                                           int64_t stride) {
-  // bytes [head, head + 16 * body) move as 16-byte words
-  int64_t head = 0, body = 0;
+                                           int64_t n, int64_t block,
+                                           int64_t blocks) {
+  const int64_t t = block * kCopyThreads + threadIdx.x;
+  const int64_t stride = blocks * kCopyThreads;
   const uintptr_t mis = reinterpret_cast<uintptr_t>(src) & 15;
-  if (mis == (reinterpret_cast<uintptr_t>(dst) & 15)) {
-    head = static_cast<int64_t>((16 - mis) & 15);
-    head = head < n ? head : n;
-    body = (n - head) / 16;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
-    uint4* d4 = reinterpret_cast<uint4*>(dst + head);
-    int64_t i = t;
-    for (; i + (kUnroll - 1) * stride < body; i += kUnroll * stride) {
-      uint4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) v[u] = s4[i + u * stride];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) d4[i + u * stride] = v[u];
-    }
-    for (; i < body; i += stride) d4[i] = s4[i];
+  if (mis != (reinterpret_cast<uintptr_t>(dst) & 15)) {
+    for (int64_t i = t; i < n; i += stride) dst[i] = src[i];
+    return;
   }
+  int64_t head = static_cast<int64_t>((16 - mis) & 15);
+  head = head < n ? head : n;
+  const int64_t words = (n - head) / 16;  // the body, in 16-byte words
   for (int64_t i = t; i < head; i += stride) dst[i] = src[i];
-  for (int64_t i = head + 16 * body + t; i < n; i += stride) dst[i] = src[i];
+  for (int64_t i = head + 16 * words + t; i < n; i += stride) dst[i] = src[i];
+  if (threadIdx.x == 0 && words > 0) {
+    copy_chunks(src + head, dst + head, 16 * words, block, blocks,
+                copy_smem());
+  }
 }
 
 __global__ void __launch_bounds__(kCopyThreads)
 copy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
             int64_t n) {
-  copy_range(src, dst, n,
-             static_cast<int64_t>(blockIdx.x) * kCopyThreads + threadIdx.x,
-             static_cast<int64_t>(gridDim.x) * kCopyThreads);
+  copy_range(src, dst, n, blockIdx.x, gridDim.x);
 }
 
 // __grid_constant__: the batch is read in place from the parameter space,
@@ -95,16 +151,13 @@ __global__ void __launch_bounds__(kCopyThreads)
 copy_batched_kernel(const __grid_constant__ CopyBatch batch) {
   const CopyItem& it = batch.item[blockIdx.y];
   copy_range(static_cast<const uint8_t*>(it.src),
-             static_cast<uint8_t*>(it.dst), it.nbytes,
-             static_cast<int64_t>(blockIdx.x) * kCopyThreads + threadIdx.x,
-             static_cast<int64_t>(gridDim.x) * kCopyThreads);
+             static_cast<uint8_t*>(it.dst), it.nbytes, blockIdx.x,
+             gridDim.x);
 }
 
-// blocks for a copy of n bytes: enough for one pass of kUnroll words per
-// thread, at most `cap`
+// blocks for a copy of n bytes: one per stage's worth, at most `cap`
 unsigned blocks_for(int64_t n, int64_t cap) {
-  const int64_t per_block = static_cast<int64_t>(kCopyThreads) * kUnroll;
-  int64_t b = ((n + 15) / 16 + per_block - 1) / per_block;
+  int64_t b = (n + kStageBytes - 1) / kStageBytes;
   b = b < cap ? b : cap;
   return static_cast<unsigned>(b > 0 ? b : 1);
 }
@@ -131,10 +184,10 @@ extern "C" int brpc_copy(const void* src, void* dst, int64_t nbytes,
   int64_t cap = 0;
   const cudaError_t rc = grid_cap(&cap);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  copy_kernel<<<blocks_for(nbytes, cap), kCopyThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), nbytes);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(brpc::hopper::launch(
+      copy_kernel, dim3(blocks_for(nbytes, cap)), kCopyThreads, kSmemBytes,
+      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(src),
+      static_cast<uint8_t*>(dst), nbytes));
 }
 
 // k (1 <= k <= 32) copies in one launch; `items` is a host array of k
@@ -156,7 +209,7 @@ extern "C" int brpc_copy_batched(const CopyItem* items, int k, void* stream) {
   // the card's worth of blocks shared among the k copies
   const int64_t share = cap / k > 0 ? cap / k : 1;
   const dim3 grid(blocks_for(longest, share), k);
-  copy_batched_kernel<<<grid, kCopyThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(batch);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(brpc::hopper::launch(
+      copy_batched_kernel, grid, kCopyThreads, kSmemBytes,
+      static_cast<cudaStream_t>(stream), batch));
 }

@@ -17,17 +17,28 @@
 // before the products that take them, as the TPU kernels' p.astype(do.dtype)
 // and ds.astype(q.dtype) do. Outputs are in the input dtype.
 //
-// - dQ, fp32 and bf16: `flash_dq_kernel`, FMA on the CUDA cores, with the
-//   row layout of common.cuh (a row of D values held by D / 8 lanes of a
+// - dQ, fp32: `flash_dq_kernel`, FMA on the CUDA cores, with the row
+//   layout of common.cuh (a row of D values held by D / 8 lanes of a
 //   warp). grid = (q-tiles, N). A block owns kThreads / (D / 8) query rows,
 //   keeps q, dO and the dQ sum in registers and walks the key tiles (k and
 //   v staged in shared memory), stopping past the diagonal when causal.
+// - dQ, bf16 at head dim 32, 64 and 128: `dq_wgmma_kernel`, on the tensor
+//   cores (hopper.cuh). grid = (N, q-blocks), the q-blocks in reverse so
+//   that the heaviest causal blocks start first. A block owns kDqRows = 128
+//   query rows, 64 per warpgroup; TMA brings its q, dO, lse and delta once
+//   and then the key tiles of kDqKeys = 64 rows of k and v, from key 0 to
+//   the causal end, into two stages on mbarriers. Per key tile each
+//   warpgroup takes S = q k^T and dP = dO v^T as wgmma chains from shared
+//   memory (both operands K-major), forms P and dS on the fp32 fragments
+//   (lse and delta broadcast along the rows), and adds dS k into dQ with dS
+//   rounded to bf16 in registers as the A operand and k read MN-major. dQ
+//   stays in registers for the whole block and is written once.
 // - dK/dV, fp32: `flash_dkv_kernel`, the same FMA layout. grid = (k-tiles,
 //   N). A block owns kThreads / (D / 8) key rows, keeps k, v and the dK
 //   and dV sums in registers and walks the query tiles (q, dO, lse and
 //   delta staged in shared memory) from the diagonal on when causal.
 // - dK/dV, bf16 at head dim 32, 64 and 128: `dkv_wgmma_kernel`, on the
-//   tensor cores (hopper.cuh). grid = (N, k-tiles). A block owns kBK = 128
+//   tensor cores. grid = (N, k-tiles). A block owns kBK = 128
 //   key rows, 64 per warpgroup; TMA brings its k and v once and then, per
 //   q-tile of kBQ = 64 rows from the first live one, q, dO, lse and delta
 //   into two stages on mbarriers. Per q-tile each warpgroup takes S^T =
@@ -37,15 +48,14 @@
 //   rounded to bf16 in registers as the A operands (dO and q MN-major).
 //   dK and dV stay in registers for the whole block and are written once.
 // Each block owns its output rows, so there are no atomics and the result
-// does not change from run to run.
+// does not change from run to run. bf16 at those head dims reaches only the
+// tensor-core kernels; the FMA kernels are instantiated for fp32 alone.
 //
 // What bounds them on this card: at the flagship training shape (N = 64,
 // S = 1024, D = 128, causal, bf16) dQ does 6 D and dK/dV 8 D FLOP per live
 // (q, k) pair, about 25.8 and 34.4 GFLOP, against about 84 MB moved each:
 // 0.026 and 0.035 ms at 989 TFLOP/s of bf16 tensor-core math, so both are
-// bound by operations. The dQ kernel, on fp32 FMAs (0.39 ms at 67 TFLOP/s
-// before the shuffles and shared-memory loads it spends per score), is
-// still to be redesigned.
+// bound by operations.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -367,22 +377,238 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 dQ: the tensor-core kernel
+// ---------------------------------------------------------------------
+constexpr int kDqRows = 128;  // query rows per block, 64 per warpgroup
+constexpr int kDqKeys = 64;   // keys per tile
+
+template <int D>
+struct DqSmem {  // each tile a multiple of 1024 bytes: every tile aligned
+  __nv_bfloat16 q[kDqRows * D];
+  __nv_bfloat16 dout[kDqRows * D];
+  __nv_bfloat16 k[2][kDqKeys * D];
+  __nv_bfloat16 v[2][kDqKeys * D];
+  float lse[kDqRows];
+  float delta[kDqRows];
+  uint64_t rows_full, full[2];
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tlse,
+                const __grid_constant__ CUtensorMap tdelta,
+                __nv_bfloat16* __restrict__ dq, int sq, int sk, int q_start,
+                int k_start, int causal, float scale, float scale_log2) {
+  using namespace hopper;
+  using T = Tile<D>;
+  constexpr int kAcc = D / 2;           // dQ registers per thread
+  constexpr int kScores = kDqKeys / 2;  // S and dP registers per thread
+  constexpr uint32_t kRowBytes = 2 * kDqRows * D * 2 + 2 * kDqRows * 4;
+  constexpr uint32_t kStageBytes = 2 * kDqKeys * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int n = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const Frag f(tid % 128);
+  const int row_lo = q0 + 64 * wg + f.row0;  // this thread's rows: +0, +8
+  // causal: key c is live for some row of the block iff
+  // k_start + c <= q_start + q0 + kDqRows - 1; a bound <= 0 runs no tile
+  const int k_end = causal
+      ? max(0, min(sk, q_start + q0 + kDqRows - k_start)) : sk;
+  const int tiles = (k_end + kDqKeys - 1) / kDqKeys;
+
+  auto load_kv = [&](int t) {  // key tile t into stage t % 2
+    const int s = t & 1;
+    mbar_expect_tx(&sm.full[s], kStageBytes);
+#pragma unroll
+    for (int b = 0; b < T::kBlocks; ++b) {
+      tma_load_3d(sm.k[s] + b * kDqKeys * T::kAtom, &tk, &sm.full[s],
+                  b * T::kAtom, t * kDqKeys, n);
+      tma_load_3d(sm.v[s] + b * kDqKeys * T::kAtom, &tv, &sm.full[s],
+                  b * T::kAtom, t * kDqKeys, n);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(&sm.rows_full, 1);
+    mbar_init(&sm.full[0], 1);
+    mbar_init(&sm.full[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && tiles > 0) {
+    mbar_expect_tx(&sm.rows_full, kRowBytes);
+#pragma unroll
+    for (int b = 0; b < T::kBlocks; ++b) {
+      tma_load_3d(sm.q + b * kDqRows * T::kAtom, &tq, &sm.rows_full,
+                  b * T::kAtom, q0, n);
+      tma_load_3d(sm.dout + b * kDqRows * T::kAtom, &tdo, &sm.rows_full,
+                  b * T::kAtom, q0, n);
+    }
+    tma_load_1d(sm.lse, &tlse, &sm.rows_full, n * sq + q0);
+    tma_load_1d(sm.delta, &tdelta, &sm.rows_full, n * sq + q0);
+    load_kv(0);
+    if (tiles > 1) load_kv(1);
+  }
+
+  float dqa[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) dqa[i] = 0.f;
+  // lse (in base 2) and delta of rows row_lo and row_lo + 8. A row that
+  // attended to nothing, or lies past sq (its lse read from the next head
+  // or zero-filled), takes lse = +inf: its P is exp2(-inf) = 0 exactly.
+  float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+  if (tiles > 0) {
+    mbar_wait(&sm.rows_full, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wg + f.row0 + 8 * h;
+      const float l = sm.lse[r];
+      lse2[h] = q0 + r < sq && l > kNegInf / 2 ? l * kLog2e : INFINITY;
+      dlt[h] = sm.delta[r];
+    }
+  }
+  const int first_row = q_start + q0 + 64 * wg;  // this warpgroup's, absolute
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t & 1;
+    const int k0 = t * kDqKeys;
+    mbar_wait(&sm.full[s], (t >> 1) & 1);
+
+    // S = q k^T and dP = dO v^T: rows are queries, columns keys
+    float sc[kScores], dp[kScores];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<kDqKeys>::ss(sc, desc_k_major<D>(sm.q, kDqRows, 64 * wg, kk),
+                         desc_k_major<D>(sm.k[s], kDqKeys, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<kDqKeys>::ss(dp, desc_k_major<D>(sm.dout, kDqRows, 64 * wg, kk),
+                         desc_k_major<D>(sm.v[s], kDqKeys, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P = exp(S - lse[row]), and on tiles that reach past the end of the
+    // keys or past this warpgroup's first row, 0 for masked pairs (keys
+    // past sk arrive as zeros, whose P would be exp(-lse), not 0);
+    // dS = P (dP - delta[row]), kept in dp
+    const bool edge = k0 + kDqKeys > sk ||
+                      (causal && k_start + k0 + kDqKeys - 1 > first_row);
+#pragma unroll
+    for (int i = 0; i < kScores; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = exp2f(fmaf(sc[i], scale_log2, -lse2[h]));
+      if (edge) {
+        const int kc = k0 + f.col(i);
+        if (kc >= sk || (causal && first_row + f.row(i) < k_start + kc)) {
+          p = 0.f;
+        }
+      }
+      dp[i] = p * (dp[i] - dlt[h]);
+    }
+
+    // dQ += dS k, dS rounded to bf16 in registers (the JAX kernel's
+    // ds.astype(k.dtype)), k read MN-major
+    uint32_t da[kDqKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kDqKeys / 16; ++kk) a_fragment(dp, kk, da[kk]);
+    fence_regs(dqa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+      Wgmma<D>::rs(dqa, da[kk], desc_mn_major<D>(sm.k[s], kDqKeys, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
+
+    __syncthreads();  // both warpgroups are done with stage s
+    if (tid == 0 && t + 2 < tiles) load_kv(t + 2);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    if (row >= sq) continue;
+    const int64_t off = (static_cast<int64_t>(n) * sq + row) * D + f.col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dq + off + 8 * j) = pack_bf16(
+          dqa[4 * j + 2 * h] * scale, dqa[4 * j + 2 * h + 1] * scale);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
   int n, sq, sk, q_start, k_start, causal;
 };
 
-template <int D, typename T>
+template <int D>
 void launch_dq(const Args& a, cudaStream_t stream) {
   constexpr int BQ = Rows<D>::kPerBlock;
   const dim3 grid((a.sq + BQ - 1) / BQ, a.n);
-  flash_dq_kernel<D, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_dq_kernel<D, float><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dq), a.sq, a.sk, a.q_start, a.k_start, a.causal,
+      static_cast<float*>(a.dq), a.sq, a.sk, a.q_start, a.k_start, a.causal,
       1.0f / sqrtf(static_cast<float>(D)));
+}
+
+// the tensor maps of the bf16 backward kernels: q and dO in boxes of
+// q_box rows, k and v in boxes of k_box rows, lse and delta as flat
+// vectors in boxes of q_box values
+template <int D>
+cudaError_t bwd_tensor_maps(const Args& a, int q_box, int k_box,
+                            CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
+                            CUtensorMap* tdo, CUtensorMap* tlse,
+                            CUtensorMap* tdelta) {
+  using hopper::tensor_map_rows;
+  const int64_t q_ns = static_cast<int64_t>(a.sq) * D;
+  const int64_t k_ns = static_cast<int64_t>(a.sk) * D;
+  const int64_t rows = static_cast<int64_t>(a.n) * a.sq;
+  cudaError_t rc = tensor_map_rows<D>(tq, a.q, a.n, a.sq, q_ns, D, q_box);
+  if (!rc) rc = tensor_map_rows<D>(tdo, a.dout, a.n, a.sq, q_ns, D, q_box);
+  if (!rc) rc = tensor_map_rows<D>(tk, a.k, a.n, a.sk, k_ns, D, k_box);
+  if (!rc) rc = tensor_map_rows<D>(tv, a.v, a.n, a.sk, k_ns, D, k_box);
+  if (!rc) {
+    rc = hopper::tensor_map_vec(tlse, static_cast<const float*>(a.lse),
+                                rows, q_box);
+  }
+  if (!rc) {
+    rc = hopper::tensor_map_vec(tdelta, static_cast<const float*>(a.delta),
+                                rows, q_box);
+  }
+  return rc;
+}
+
+template <int D>
+int launch_dq_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  const cudaError_t rc = bwd_tensor_maps<D>(a, kDqRows, kDqKeys, &tq, &tk,
+                                            &tv, &tdo, &tlse, &tdelta);
+  if (rc) return static_cast<int>(rc);
+  const dim3 grid(a.n, (a.sq + kDqRows - 1) / kDqRows);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  return static_cast<int>(hopper::launch(
+      dq_wgmma_kernel<D>, grid, kWgThreads,
+      static_cast<int>(sizeof(DqSmem<D>)) + 1024, stream, tq, tk, tv, tdo,
+      tlse, tdelta, static_cast<__nv_bfloat16*>(a.dq), a.sq, a.sk,
+      a.q_start, a.k_start, a.causal, scale, scale * kLog2e));
 }
 
 template <int D>
@@ -399,23 +625,9 @@ void launch_dkv(const Args& a, cudaStream_t stream) {
 
 template <int D>
 int launch_dkv_wgmma(const Args& a, cudaStream_t stream) {
-  using hopper::tensor_map_rows;
-  const int64_t q_ns = static_cast<int64_t>(a.sq) * D;
-  const int64_t k_ns = static_cast<int64_t>(a.sk) * D;
-  const int64_t rows = static_cast<int64_t>(a.n) * a.sq;
   CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
-  cudaError_t rc = tensor_map_rows<D>(&tq, a.q, a.n, a.sq, q_ns, D, kBQ);
-  if (!rc) rc = tensor_map_rows<D>(&tdo, a.dout, a.n, a.sq, q_ns, D, kBQ);
-  if (!rc) rc = tensor_map_rows<D>(&tk, a.k, a.n, a.sk, k_ns, D, kBK);
-  if (!rc) rc = tensor_map_rows<D>(&tv, a.v, a.n, a.sk, k_ns, D, kBK);
-  if (!rc) {
-    rc = hopper::tensor_map_vec(&tlse, static_cast<const float*>(a.lse),
-                                rows, kBQ);
-  }
-  if (!rc) {
-    rc = hopper::tensor_map_vec(&tdelta, static_cast<const float*>(a.delta),
-                                rows, kBQ);
-  }
+  const cudaError_t rc = bwd_tensor_maps<D>(a, kBQ, kBK, &tq, &tk, &tv,
+                                            &tdo, &tlse, &tdelta);
   if (rc) return static_cast<int>(rc);
   const dim3 grid(a.n, (a.sk + kBK - 1) / kBK);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
@@ -427,16 +639,26 @@ int launch_dkv_wgmma(const Args& a, cudaStream_t stream) {
       a.causal, scale, scale * kLog2e));
 }
 
-// dQ: the FMA kernel, fp32 and bf16
-template <typename T>
-int dispatch_dq(int head_dim, const Args& a, cudaStream_t st) {
-  switch (head_dim) {
-    case 32: launch_dq<32, T>(a, st); break;
-    case 64: launch_dq<64, T>(a, st); break;
-    case 128: launch_dq<128, T>(a, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// dQ: fp32 takes the FMA kernel, bf16 the tensor-core kernel
+int dispatch_dq(int dtype, int head_dim, const Args& a, cudaStream_t st) {
+  if (dtype == kFloat32) {
+    switch (head_dim) {
+      case 32: launch_dq<32>(a, st); break;
+      case 64: launch_dq<64>(a, st); break;
+      case 128: launch_dq<128>(a, st); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == kBFloat16) {
+    switch (head_dim) {
+      case 32: return launch_dq_wgmma<32>(a, st);
+      case 64: return launch_dq_wgmma<64>(a, st);
+      case 128: return launch_dq_wgmma<128>(a, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dK/dV: fp32 takes the FMA kernel, bf16 the tensor-core kernel
@@ -474,10 +696,7 @@ extern "C" int brpc_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
                n, sq, sk, q_start, k_start, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return dispatch_dq<float>(head_dim, a, st);
-  if (dtype == kBFloat16) return dispatch_dq<__nv_bfloat16>(head_dim, a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_dq(dtype, head_dim, a, static_cast<cudaStream_t>(stream));
 }
 
 // As brpc_flash_bwd_dq, writing dk and dv [n, sk, d] in the input dtype.

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tensor maps and loads, wgmma
-// shared-memory descriptors, the m64nNk16 bf16 products and the fragment
-// layout of their accumulators.
+// (flash_fwd.cu, flash_bwd.cu) and the copy (copy.cu): mbarriers, TMA
+// tensor maps and loads, bulk copies, wgmma shared-memory descriptors, the
+// m64nNk16 bf16 products and the fragment layout of their accumulators.
 //
 // Shared-memory tiles. A TMA load with a 128-byte swizzle writes a box of
 // kAtom = 64 bf16 columns (one 128-byte row each) into rows of 128 bytes,
@@ -108,6 +108,47 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---------------------------------------------------------------------
+// Bulk copies (no tensor map): `bytes` a multiple of 16, both addresses
+// 16-byte aligned. A load completes on an mbarrier; stores are committed
+// in groups, and a group's wait_read frees its shared-memory source.
+// ---------------------------------------------------------------------
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N committed store groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// waits until at most N committed store groups are still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// orders this thread's view of shared memory before the async proxy's
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------

@@ -13,18 +13,19 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   kernel and that its tokens equal a run with plain attention; a last,
   profiled run of the same requests shows where the time goes.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
-  RMSNorm kernel against their plain versions in fp32 and bf16 (bf16
-  forward and dK/dV are the tensor-core kernels, held also at their tile
-  edges: S in EDGE_S, every head dim, causal or not, the ring's key
-  offsets), prints their ``-Xptxas -v`` registers and spills (0), checks
-  one fp32 training step of the shipping configuration (flash, RMSNorm
-  and fused cross-entropy kernels) against one without kernels, then
+  RMSNorm kernel against their plain versions in fp32 and bf16 (in bf16
+  all three attention kernels are the tensor-core kernels, held also at
+  their tile edges: S in EDGE_S, every head dim, causal or not, the
+  ring's key offsets), prints their ``-Xptxas -v`` registers and spills
+  (0), checks one fp32 training step of the shipping configuration
+  (flash, RMSNorm and fused cross-entropy kernels) against one without
+  kernels, then
   takes five SGD steps of the flagship LM at full width in bf16 and
   checks that the loss falls and that every step launched each kernel
   the expected number of times; one more, profiled step shows where the
   time goes and names its attention kernels (no FMA kernel for the bf16
-  forward or dK/dV). Then holds the fused cross-entropy kernel against its plain
-  version row by row.
+  forward, dQ or dK/dV). Then holds the fused cross-entropy kernel
+  against its plain version row by row.
 - The q-grid forward: held against the plain forward at
   ``tools/qgrid_sweep.py``'s shape, then driven through that sweep's
   block configurations.
@@ -35,7 +36,8 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   launches and its agreement with the plain ring.
 - The device data plane at ``bench.py``'s sizes: holds the copy kernel
   (``csrc/copy.cu``) against its plain version bit for bit at every
-  length, offset, dtype, row count and batch size listed below; then
+  length (those that cross its stages and blocks' spans included),
+  offset, dtype, row count and batch size listed below; then
   drives ``DeviceStore`` as ``bench_device_lane`` does (puts, a copy
   round trip, 8 MiB pumps of 1024 rounds, transient copies, stats), the
   coalesced op rate of ``_device_op_rate``, the datapath probe of
@@ -98,8 +100,8 @@ TOKEN_BUDGET = 1024
 
 # the tensor-core kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu (bf16)
 # and the FMA kernels they replaced for bf16, by symbol
-WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel")
-FMA_KERNELS = ("flash_fwd_kernel", "flash_dkv_kernel")
+WGMMA_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel")
+FMA_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 
 
 def ptxas_report(logs):
@@ -371,15 +373,14 @@ def device_time(prof):
 
 def attention_kernels(prof):
     """The attention kernels a profiled bf16 training step ran, by symbol:
-    {name: {"us", "calls"}}. Raises if an FMA kernel ran the forward or
-    dK/dV, or if a tensor-core kernel is missing."""
+    {name: {"us", "calls"}}. Raises if an FMA kernel ran the forward, dQ
+    or dK/dV, or if a tensor-core kernel is missing."""
     from torch.autograd import DeviceType
 
     out = {e.key: {"us": e.self_device_time_total, "calls": e.count}
            for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
-           and any(k in e.key for k in WGMMA_KERNELS + FMA_KERNELS
-                   + ("flash_dq_kernel",))}
+           and any(k in e.key for k in WGMMA_KERNELS + FMA_KERNELS)}
     fma = [k for k in out if any(f in k for f in FMA_KERNELS)]
     missing = [w for w in WGMMA_KERNELS if not any(w in k for k in out)]
     if fma or missing:
@@ -476,7 +477,8 @@ MHA_SHAPES = [((64, 1024, 128), (True,)), ((32, 256, 32), (True,)),
               ((6, 100, 64), (True, False))]  # ragged: 100 % 32 != 0
 MHA_MAIN = (64, 1024, 128)  # what the trainer gives the kernels, causal
 # bf16 cases at the tensor-core kernels' tile edges (query blocks of 128,
-# key tiles of 128 forward, q-tiles of 64 and key blocks of 128 in dK/dV):
+# key tiles of 128 forward, of 64 in dQ, q-tiles of 64 and key blocks of
+# 128 in dK/dV):
 # one tile, ragged tiles, a ragged last block, whole blocks, the sweep's
 # length; each head dim; EDGE_N heads, so a head's rows end inside a tile
 EDGE_S = (64, 100, 1000, 1024, 2048)
@@ -708,16 +710,19 @@ def check_flash_bwd(dev):
                 o, lse = pallas_ops.flash_fwd_reference(*f32[:3], causal, 0,
                                                         k_start)
                 delta = pallas_ops._flash_delta(o, f32[3])
+                dq = pallas_ops._flash_bwd_dq_cuda(
+                    q, k, v, lse, do, delta, 0, k_start, causal)
                 dk, dv = pallas_ops._flash_bwd_dkv_cuda(
                     q, k, v, lse, do, delta, 0, k_start, causal)
-                _, wk, wv = pallas_ops.flash_bwd_reference(
+                wq, wk, wv = pallas_ops.flash_bwd_reference(
                     *f32[:3], lse, f32[3], delta, 0, k_start, causal)
                 torch.cuda.synchronize()
-                tag = (f"flash_bwd_dkv edge {(EDGE_N, s, d)} causal={causal}"
+                tag = (f"flash_bwd edge {(EDGE_N, s, d)} causal={causal}"
                        f" k_start={k_start}")
-                if k_start == s and (bool(dk.any()) or bool(dv.any())):
+                if k_start == s and any(bool(g.any()) for g in (dq, dk, dv)):
                     raise AssertionError(f"{tag}: a key block wholly in the "
                                          f"future must give zero grads")
+                held(tag + " dq", dq, wq, torch.bfloat16, worst)
                 held(tag + " dk", dk, wk, torch.bfloat16, worst)
                 held(tag + " dv", dv, wv, torch.bfloat16, worst)
                 edges += 1
@@ -1305,8 +1310,13 @@ def run_ring(dev):
 # Slice 4: the device data plane, at bench.py's sizes (full, not QUICK)
 # ---------------------------------------------------------------------------
 # the copy kernel's checks: byte lengths, source and destination offsets
-# into a larger buffer, 2-D row counts (2048 lanes), batch sizes
-COPY_LENGTHS = [1, 15, 16, 1000, 4096, (1 << 20) + 3, 8 << 20, 64 << 20]
+# into a larger buffer, 2-D row counts (2048 lanes), batch sizes. Beside
+# COPY_LENGTHS, check_copy takes lengths at the kernel's own edges
+# (copy_edge_lengths), from its stage size and ring depth (csrc/copy.cu
+# kStageBytes, kStages, kBlocksPerSM)
+COPY_LENGTHS = [1, 15, 16, 1000, 4096, (1 << 20) + 3, 8 << 20, 64 << 20,
+                (64 << 20) + 4]
+COPY_STAGE_BYTES, COPY_STAGES, COPY_BLOCKS_PER_SM = 16 << 10, 4, 2
 COPY_OFFSETS = (0, 1, 3, 8)
 COPY_DTYPES = (torch.uint8, torch.int32, torch.bfloat16)
 COPY_ROWS = (16, 600, 1024)
@@ -1356,19 +1366,33 @@ def copy_bound(nbytes):
     return bound(2 * nbytes, 0, torch.bfloat16)
 
 
+def copy_edge_lengths(sms):
+    """Lengths at the copy kernel's edges on a card of ``sms`` SMs: a
+    stage +- 16 bytes; one chunk more than the grid has blocks (block 0
+    takes a second, 16-byte chunk); every block's ring of stages wrapping
+    (a stage loaded again), block 0 one chunk more, with an odd tail."""
+    grid = COPY_BLOCKS_PER_SM * sms
+    stage = COPY_STAGE_BYTES
+    return [stage - 16, stage + 16, grid * stage + 16,
+            grid * (COPY_STAGES + 1) * stage + 16 * grid + 5]
+
+
 def check_copy(dev):
     """Phase 15: the copy kernel against hbm_copy_reference, bit for bit:
-    every length of COPY_LENGTHS at every pair of source and destination
-    offsets (the bytes around the destination untouched), hbm_copy in
-    uint8, int32 and bf16 (random bits, NaN patterns included),
-    hbm_copy2d at COPY_ROWS rows of 2048 lanes, and hbm_copy_batched at
-    COPY_BATCHES copies of mixed lengths and offsets in one launch."""
+    every length of COPY_LENGTHS and copy_edge_lengths at every pair of
+    source and destination offsets (the bytes around the destination
+    untouched), hbm_copy in uint8, int32 and bf16 (random bits, NaN
+    patterns included), hbm_copy2d at COPY_ROWS rows of 2048 lanes, and
+    hbm_copy_batched at COPY_BATCHES copies of mixed lengths and offsets
+    in one launch."""
     gen = torch.Generator(device=dev).manual_seed(8)
     pad = 16
-    src = random_bytes(gen, max(COPY_LENGTHS) + pad, dev)
+    lengths = COPY_LENGTHS + copy_edge_lengths(
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    src = random_bytes(gen, max(lengths) + pad, dev)
     dst = torch.empty_like(src)
     cases = 0
-    for n in COPY_LENGTHS:
+    for n in lengths:
         for so in COPY_OFFSETS:
             for do in COPY_OFFSETS:
                 dst.fill_(0xA5)
@@ -1393,7 +1417,7 @@ def check_copy(dev):
                   bench_kernels.hbm_copy2d(x),
                   bench_kernels.hbm_copy_reference(x))
             cases += 1
-    lengths = [n for n in COPY_LENGTHS if n <= PUMP_BYTES]
+    lengths = [n for n in lengths if n <= PUMP_BYTES]
     for k in COPY_BATCHES:
         xs = [src[COPY_OFFSETS[i % 4]:][:lengths[i % len(lengths)]]
               for i in range(k)]

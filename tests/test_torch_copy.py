@@ -10,7 +10,16 @@ The JAX copies are compared only at shapes where they are defined: 1-D
 up to one 2^20-element block, rows up to 512 or a multiple of 512. Past
 that the JAX grids leave a tail unwritten (ROADMAP Queue 3), which the
 last tests show.
+
+The kernel moves the aligned body of a copy on Hopper's bulk asynchronous
+copies through a ring of shared-memory stages, one contiguous span per
+block; lengths at its stages' and spans' edges (``chip_smoke``'s
+``copy_edge_lengths``) are held here on the plain path and on the card by
+``chip_smoke.py``.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -18,10 +27,14 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
 from brpc_tpu.tpu import bench_kernels as jax_bk
 from brpc_tpu.tpu import device_lane as jax_dl
+from brpc_tpu_torch.tpu import _build
 from brpc_tpu_torch.tpu import bench_kernels as bk
 from brpc_tpu_torch.tpu import pallas_ops
+
+H100_SMS = 132  # the card chip_smoke.py runs on
 
 DTYPES = {"uint8": (np.uint8, jnp.uint8, torch.uint8),
           "int32": (np.int32, jnp.int32, torch.int32),
@@ -58,6 +71,56 @@ def test_hbm_copy_matches_jax(n, dtype):
     assert got.dtype == x_t.dtype and got.shape == (n,)
     assert got.data_ptr() != x_t.data_ptr()
     assert _bytes(got) == _bytes(want) == _bytes(x_t)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("nbytes", [chip_smoke.COPY_STAGE_BYTES - 16,
+                                    chip_smoke.COPY_STAGE_BYTES + 16],
+                         ids=["stage-16", "stage+16"])
+def test_hbm_copy_at_a_stage_edge_matches_jax(nbytes, dtype):
+    n = nbytes // np.dtype(DTYPES[dtype][0]).itemsize
+    x_j, x_t = _pair((n,), dtype, seed=nbytes)
+    want = jax_bk.hbm_copy(x_j, interpret=True)
+    assert _bytes(bk.hbm_copy(x_t)) == _bytes(want) == _bytes(x_t)
+
+
+@pytest.mark.parametrize("src_off,dst_off", [(0, 0), (1, 1), (8, 0)])
+@pytest.mark.parametrize("n", chip_smoke.copy_edge_lengths(H100_SMS))
+def test_copy_bytes_across_the_kernels_spans_leaves_the_rest_alone(
+        n, src_off, dst_off):
+    rng = np.random.default_rng(n + src_off)
+    src = torch.from_numpy(rng.integers(0, 256, n + 16, dtype=np.uint8))
+    dst = torch.full((n + 16,), 0xA5, dtype=torch.uint8)
+    bk.copy_bytes(src[src_off:src_off + n], dst[dst_off:dst_off + n])
+    assert torch.equal(dst[dst_off:dst_off + n], src[src_off:src_off + n])
+    assert bool((dst[:dst_off] == 0xA5).all())
+    assert bool((dst[dst_off + n:] == 0xA5).all())
+
+
+def test_copy_kernel_moves_its_body_on_bulk_async_copies():
+    """copy.cu's body goes through cp.async.bulk loads on mbarriers and
+    bulk stores freed by wait_group.read, and chip_smoke.py's edge lengths
+    follow the kernel's own stage size, ring depth and blocks per SM."""
+    def source(name):
+        with open(os.path.join(_build.CSRC, name)) as fh:
+            return fh.read()
+    copy, hopper = source("copy.cu"), source("hopper.cuh")
+    assert '#include "hopper.cuh"' in copy
+    for call in ("bulk_load(", "bulk_store(", "bulk_wait_read<1>()",
+                 "mbar_wait("):
+        assert call in copy
+    for op in ("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes", "cp.async.bulk.global.shared::cta.bulk_group",
+               "cp.async.bulk.wait_group.read"):
+        assert op in hopper
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+)( << 10)?;", copy)
+        return int(m.group(1)) << (10 if m.group(2) else 0)
+    assert (const("kStageBytes"), const("kStages"),
+            const("kBlocksPerSM")) == (chip_smoke.COPY_STAGE_BYTES,
+                                       chip_smoke.COPY_STAGES,
+                                       chip_smoke.COPY_BLOCKS_PER_SM)
 
 
 @pytest.mark.parametrize("shape,dtype", [
@@ -214,3 +277,27 @@ def test_hbm_copy_past_one_block_port_whole_jax_tail_unwritten():
     np.testing.assert_array_equal(got, x)
     np.testing.assert_array_equal(want[:1 << 20], x[:1 << 20])
     assert not np.array_equal(want[1 << 20:], x[1 << 20:])
+
+
+def test_copy_designs_patch_the_kernels_own_source():
+    """brpc_tpu_torch/bench/copy_designs.py times variants of copy.cu made
+    by patching it: each patch must find what it replaces, so the designs
+    it reports are the kernel with one decision changed."""
+    from brpc_tpu_torch.bench import copy_designs as cd
+    with open(os.path.join(_build.CSRC, "copy.cu")) as fh:
+        base = fh.read()
+    srcs = cd.designs(None)
+    assert srcs["this"] == base and "parent" not in srcs
+    assert cd.CONTIGUOUS_OFF in srcs["contiguous"]
+    assert cd.ROUND_ROBIN_OFF not in srcs["contiguous"]
+    assert srcs["contiguous"].replace(cd.CONTIGUOUS, cd.ROUND_ROBIN).replace(
+        cd.CONTIGUOUS_OFF, cd.ROUND_ROBIN_OFF) == base
+    for stages, kib, per_sm in cd.CONSTANTS:
+        src = srcs[f"s{stages}_k{kib}_b{per_sm}"]
+        assert f"kStages = {stages};" in src
+        assert f"kStageBytes = {kib} << 10;" in src
+        assert f"kBlocksPerSM = {per_sm};" in src
+    with pytest.raises(ValueError, match="round-robin"):
+        cd.contiguous("no deal here")
+    with pytest.raises(ValueError, match="kStages"):
+        cd.with_constants("", 4, 16, 2)

@@ -14,7 +14,9 @@ the JAX kernels at the new kernels' tile edges, the build's kept
 Tolerance of the bf16 parity: both sides take bf16 inputs and compute in
 fp32, rounding P to bf16 before P V and o to bf16 at the end; the sums run
 in another order, so a bf16 output may land one rounding step (2^-8 of
-|o| <= ~4) apart: atol 2e-2 on o, 1e-4 on the fp32 lse.
+|o| <= ~4) apart: atol 2e-2 on o, 1e-4 on the fp32 lse. The same holds
+for dq (dS rounded to bf16 before dS k on both sides, dq rounded at the
+end): atol 2e-2 x max(1, max |dq|), chip_smoke.py's TOL for bf16.
 """
 
 import os
@@ -120,6 +122,23 @@ def test_dkv_sends_offsets_head_dim_and_dtype(recorder, no_plain, d, dtype):
     assert torch_ops.launches.snapshot()["flash_bwd_dkv"] == 1
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", list(DTYPES), ids=["fp32", "bf16"])
+def test_dq_sends_offsets_head_dim_and_dtype(recorder, no_plain, d, dtype):
+    n, s = 2, 1000
+    q, k, v, do = (_randn((n, s, d), dtype, i) for i in range(4))
+    lse, delta = torch.zeros(n, s, 1), torch.zeros(n, s, 1)
+    dq = torch_ops._flash_bwd_dq_cuda(q, k, v, lse, do, delta, 0, s // 2,
+                                      True)
+    assert dq.dtype == dtype and dq.shape == q.shape
+    (symbol, args), = recorder
+    assert symbol == "brpc_flash_bwd_dq"
+    assert args[:7] == tuple(t.data_ptr() for t in (q, k, v, do, lse, delta,
+                                                    dq))
+    assert args[7:] == (n, s, s, d, DTYPES[dtype], 0, s // 2, 1)
+    assert torch_ops.launches.snapshot()["flash_bwd_dq"] == 1
+
+
 def _strided(d, dtype):
     """A [2, 64, d] view whose rows lie d + 4 elements apart."""
     return _randn((2, 64, d + 4), dtype)[..., :d]
@@ -148,7 +167,7 @@ def test_check_tma_refuses_rows_past_32_bit_coordinates(monkeypatch):
                                                     dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("entry", ["fwd", "carry", "dkv"])
+@pytest.mark.parametrize("entry", ["fwd", "carry", "dq", "dkv"])
 def test_bf16_request_tma_cannot_take_raises_before_any_launch(
         recorder, no_plain, monkeypatch, entry):
     # contiguity is refused first; past it, the TMA check must refuse too
@@ -163,6 +182,9 @@ def test_bf16_request_tma_cannot_take_raises_before_any_launch(
             m, l = torch.zeros(2, 64, 1), torch.zeros(2, 64, 1)
             torch_ops._flash_carry_cuda(q, k, v, m, l, torch.zeros(2, 64, 64),
                                         0, 0, True)
+        elif entry == "dq":
+            lse = torch.zeros(2, 64, 1)
+            torch_ops._flash_bwd_dq_cuda(q, k, v, lse, do, lse, 0, 0, True)
         else:
             lse = torch.zeros(2, 64, 1)
             torch_ops._flash_bwd_dkv_cuda(q, k, v, lse, do, lse, 0, 0, True)
@@ -188,6 +210,8 @@ def test_unsupported_head_dim_raises_before_any_launch(recorder, no_plain,
         torch_ops._flash_fwd_cuda(q, q, q, True)
     lse = torch.zeros(2, 64, 1)
     with pytest.raises(ValueError, match="head dim"):
+        torch_ops._flash_bwd_dq_cuda(q, q, q, lse, q, lse, 0, 0, True)
+    with pytest.raises(ValueError, match="head dim"):
         torch_ops._flash_bwd_dkv_cuda(q, q, q, lse, q, lse, 0, 0, True)
     assert recorder == []
 
@@ -199,10 +223,11 @@ def test_fp32_requests_never_take_the_tma_check(recorder, monkeypatch):
     q = _randn((2, 64, 32), torch.float32)
     lse = torch.zeros(2, 64, 1)
     torch_ops._flash_fwd_cuda(q, q, q, True)
+    torch_ops._flash_bwd_dq_cuda(q, q, q, lse, q, lse, 0, 0, True)
     torch_ops._flash_bwd_dkv_cuda(q, q, q, lse, q, lse, 0, 0, True)
     torch_ops._flash_carry_cuda(q, q, q, lse, lse, torch.zeros_like(q), 0, 0,
                                 True)
-    assert len(recorder) == 3
+    assert len(recorder) == 4
 
 
 def test_bf16_cpu_path_never_counts_a_launch(monkeypatch):
@@ -232,6 +257,29 @@ def test_bf16_forward_matches_jax_at_tile_edges(d, s):
                                np.asarray(want_o, dtype=np.float32),
                                atol=2e-2, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("s", [64, 100])
+def test_bf16_dq_matches_jax_at_tile_edges(d, s):
+    """dq of the bf16 backward at one key tile of 64 and a ragged one (S =
+    100: a ragged 64-key tile and fewer query rows than a block), causal,
+    with lse and delta from the plain forward."""
+    q, k, v, do = (_randn((2, s, d), torch.bfloat16, i) for i in range(4))
+    o, lse = torch_ops.flash_fwd_reference(q, k, v, True)
+    delta = torch_ops._flash_delta(o, do)
+    want = jax_ops._flash_bwd_bhsd(
+        *(jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+          for t in (q, k, v)), jnp.asarray(lse.numpy()),
+        jnp.asarray(do.float().numpy(), dtype=jnp.bfloat16),
+        jnp.asarray(delta.numpy()), 0, 0, True, s, s, True)[0]
+    dq = torch_ops._flash_bwd_bhsd(q, k, v, lse, do, delta, 0, 0, True, s,
+                                   s)[0]
+    want = np.asarray(want, dtype=np.float32)
+    assert dq.dtype == torch.bfloat16
+    np.testing.assert_allclose(dq.float().numpy(), want,
+                               atol=2e-2 * max(1.0, np.abs(want).max()),
                                rtol=0)
 
 
@@ -282,17 +330,22 @@ def _source(name):
 
 
 def test_bf16_attention_has_no_fma_kernel_instantiation():
-    """bf16 forward and dK/dV reach only the tensor-core kernels: the FMA
-    kernels are instantiated for fp32 alone, and the building blocks are
-    wgmma on mbarrier-fed TMA tiles."""
+    """bf16 forward, dQ and dK/dV reach only the tensor-core kernels: the
+    FMA kernels are instantiated for fp32 alone, and the building blocks
+    are wgmma on mbarrier-fed TMA tiles."""
     fwd, bwd = _source("flash_fwd.cu"), _source("flash_bwd.cu")
     assert "flash_fwd_kernel<D, float, kCarry>" in fwd
+    assert "flash_dq_kernel<D, float>" in bwd
     assert "flash_dkv_kernel<D, float>" in bwd
-    for src, fma in ((fwd, "flash_fwd_kernel<"), (bwd, "flash_dkv_kernel<")):
+    for src, fma in ((fwd, "flash_fwd_kernel<"), (bwd, "flash_dq_kernel<"),
+                     (bwd, "flash_dkv_kernel<")):
         for line in src.splitlines():
             if fma in line and "<<<" in line:
                 assert "float" in line, line
+    assert "__nv_bfloat16>" not in "".join(
+        line for line in bwd.splitlines() if "flash_dq_kernel<" in line)
     assert "fwd_wgmma_kernel<D, kCarry>" in fwd
+    assert "dq_wgmma_kernel<D>" in bwd
     assert "dkv_wgmma_kernel<D>" in bwd
     hopper = _source("hopper.cuh")
     for op in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",

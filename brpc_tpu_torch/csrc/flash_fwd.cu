@@ -34,12 +34,46 @@
 // pass (a key block wholly in its future) writes its state back bit for
 // bit, and its rescale is never exp(0).
 //
-// Two kernels, chosen by dtype behind one C interface:
+// Three kernels behind one C interface, chosen by dtype, head dim and form:
 //
-// fp32 (and head dim 16, the serving path): `flash_fwd_kernel`, FMA on the
-// CUDA cores. grid = (q-tiles, N). A block owns kThreads / (D / 8) query
-// rows of one head, each row held by D / 8 lanes of a warp (common.cuh).
-// It walks key tiles of 32 rows staged through shared memory as fp32 and
+// fp32 at head dim 16, plain form (the serving prefill, `_flash_kernel` of
+// brpc_tpu/tpu/pallas_ops.py:174 behind `flash_attention`):
+// `fwd_f32_mma_kernel`, on the tf32 tensor cores in 3xTF32 (hopper.cuh),
+// so it keeps fp32 accuracy (one tf32 pass would keep three digits).
+// Its bound at the largest prefill, (S, H, D) = (1024, 4, 16) causal: 134
+// MFLOP of fp32 operations (4 D per live (q, k) pair), 0.00201 ms at 67
+// TFLOP/s, against 1 MiB of q, k, v and o, 0.31 us at 3.35 TB/s. What
+// held the FMA kernel below 5% of it was a serial chain and an empty
+// card: 64 blocks of 4 warps on 132 SMs, each row walking every live key
+// in order, a shuffle sum and an exp per key, and the heaviest block all
+// 1024 keys. Here a block is one 16-row query tile (one m16 tile) of one
+// head, and its 8 warps split the key range: warp w takes the 16-key
+// tiles w, w + 8, ..., so the longest chain at S = 1024 is 128 keys, and
+// the grid (N, Sq / 16) holds 256 blocks, the heaviest causal tiles
+// launched first. Each warp brings its own k and v tiles into a
+// two-stage ring in shared memory with cp.async (80-byte rows, so the
+// fragment reads are free of bank conflicts), the next tile in flight
+// while it computes on this one, with no block barrier in the loop.
+// S = q k^T and O += P v are m16n8k8 tf32 products (12 + 12 a tile), q
+// split into hi and lo once; the online softmax runs in base 2 on the
+// score fragments (a row's max is two quad shuffles), masked only on
+// tiles that cross the block's first row or the end, and P's fragments
+// are the A operand of P v as they lie (v's rows read in the matching
+// order). At the end the warps' (m, l, acc) merge through shared memory
+// that the rings held (40 KB in all, under the default 48 KB). The
+// split x = hi + lo is two integer operations and a subtraction
+// (hopper.cuh): cvt.rna.tf32.f32 compiles to a guarded sequence that,
+// done 96 times a tile, outweighed the products. The constants were
+// chosen on the card among 2 / 4 / 8 warps, 16 / 32 / 64 keys and 2 / 3
+// stages (bench/flash_serving_designs.py, PERF.md). lse is written when
+// asked for, so every fp32 call of the plain form at D = 16 takes this
+// kernel.
+//
+// fp32 otherwise (head dim 32, 64 and 128, the fp32 parity lanes, and the
+// carry form at every head dim): `flash_fwd_kernel`, FMA on the CUDA
+// cores. grid = (q-tiles, N). A block owns kThreads / (D / 8) query rows
+// of one head, each row held by D / 8 lanes of a warp (common.cuh). It
+// walks key tiles of 32 rows staged through shared memory as fp32 and
 // stops at the block's last live key when causal; m, l and the output
 // accumulator stay in registers. Every product is an fp32 FMA, so the fp32
 // parity lanes compute in full fp32 (no TF32).
@@ -62,15 +96,13 @@
 // rescales by exactly 1, so the carry form gives back the state of a row
 // that saw no key bit for bit.
 //
-// What bounds it on this card: at the flagship training shape (N = 64,
+// What bounds the bf16 kernel: at the flagship training shape (N = 64,
 // S = 1024, D = 128, causal, bf16) it does about 17.2 GFLOP (4 D per live
 // (q, k) pair) and must move about 67 MB: 0.017 ms at 989 TFLOP/s of bf16
 // tensor-core math against 0.020 ms at 3.35 TB/s, so its bound is bytes.
 // A full ring hop of the carry form at (32, 512, 128) bf16 moves about
 // 29.6 MB (q, k, v and the fp32 state in and out): 0.0088 ms at 3.35
-// TB/s, against 0.0043 ms of bf16 operations. At the serving path's shapes
-// (S <= 1024, H = 4, D = 16, fp32) a call moves about 1 MB and is bound by
-// the launch and the latency of its serial key loop.
+// TB/s, against 0.0043 ms of bf16 operations.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -185,6 +217,263 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     store_row<D>(o + n * ost.n + qrow * ost.row, lane, acc, inv);
     if (lse != nullptr && lane == 0) {
       lse[srow] = l == 0.f ? kNegInf : m + logf(l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// fp32 at head dim 16, plain form (the serving prefill): tf32 tensor
+// cores in 3xTF32, key stripes per warp
+// ---------------------------------------------------------------------
+constexpr int kSD = 16;           // head dim
+constexpr int kSRows = 16;        // query rows per block: one m16 tile
+constexpr int kSWarps = 8;        // key stripes per block, one per warp
+constexpr int kSKeys = 16;        // keys per tile: kSKeys / 8 n8 tiles
+constexpr int kSPitch = kSD + 4;  // floats per staged row: 80 bytes, so
+                                  // fragment reads hit 32 distinct banks
+constexpr int kSStages = 2;       // tiles of each warp in flight
+constexpr int kSThreads = 32 * kSWarps;
+constexpr int kSN = kSKeys / 8;   // n8 tiles of S, k8 steps of P v
+constexpr int kSChains = kSN > 1 ? kSN / 2 : 1;  // P v accumulators
+static_assert(kSKeys % 8 == 0 && kSN % kSChains == 0, "key tile");
+
+union SmemF32 {  // dynamic shared memory of fwd_f32_mma_kernel
+  float tiles[kSWarps][kSStages][2][kSKeys][kSPitch];  // each warp's ring
+  struct {  // after the key loop: the warps' states, merged at the end
+    float m[kSWarps][kSRows], l[kSWarps][kSRows];
+    float acc[kSWarps][kSRows][kSD];
+  } part;
+};
+
+__global__ void __launch_bounds__(kSThreads)
+fwd_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, int sq, int sk, Strides qs,
+                   Strides kst, Strides vst, Strides ost, int causal,
+                   float scale, float scale_log2) {
+  using namespace hopper;
+  extern __shared__ __align__(16) uint8_t smem_f32[];
+  SmemF32& sm = *reinterpret_cast<SmemF32*>(smem_f32);
+
+  const int n = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kSRows;  // heaviest first
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row and column group
+  const float* kn = k + n * kst.n;
+  const float* vn = v + n * vst.n;
+
+  // causal: key c is live for some row of the block iff c < q0 + kSRows.
+  // The warp takes key tiles warp, warp + kSWarps, ...
+  const int k_end = causal ? min(sk, q0 + kSRows) : sk;
+  const int n_tiles = (k_end + kSKeys - 1) / kSKeys;
+  const int mine =
+      n_tiles > warp ? (n_tiles - warp + kSWarps - 1) / kSWarps : 0;
+  float (*ring)[2][kSKeys][kSPitch] = sm.tiles[warp];
+
+  // the warp's j-th tile into stage j % kSStages; keys past sk are zeros
+  auto load = [&](int j) {
+    const int k0 = (warp + j * kSWarps) * kSKeys;
+    float (*dk)[kSPitch] = ring[j % kSStages][0];
+    float (*dv)[kSPitch] = ring[j % kSStages][1];
+#pragma unroll
+    for (int i = 0; i < kSKeys / 8; ++i) {  // 8 rows of 4 chunks a pass
+      const int r = 8 * i + lane / 4;
+      const int c = 4 * (lane % 4);
+      const bool live = k0 + r < sk;
+      const int64_t key = live ? k0 + r : 0;
+      cp_async_16(&dk[r][c], kn + key * kst.row + c, live);
+      cp_async_16(&dv[r][c], vn + key * vst.row + c, live);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kSStages; ++j) {
+    if (j < mine) load(j);
+    cp_async_commit();
+  }
+
+  // q's A fragments for the two k8 steps over D, split once (their loads
+  // overlap the tiles' in flight): register i holds row g + 8 (i % 2),
+  // dim 8 kk + t + 4 (i / 2)
+  uint32_t qh[2][4], ql[2][4];
+  const float* qn = q + n * qs.n;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + g + 8 * (i & 1);
+      const float x = row < sq ? qn[row * qs.row + 8 * kk + t + 4 * (i >> 1)]
+                               : 0.f;
+      split_tf32(x, qh[kk][i], ql[kk][i]);
+    }
+  }
+
+  // running state of rows g and g + 8: m in natural-log units, l this
+  // thread's share of the row sum, acc the unnormalised output as
+  // kSChains chains (k8 steps of P v, dealt round-robin) of two n8 tiles
+  // over D
+  float acc[kSChains][2][4];
+#pragma unroll
+  for (int p = 0; p < kSChains; ++p) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[p][nt][i] = 0.f;
+    }
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < mine; ++j) {
+    cp_async_wait<kSStages - 1>();  // this warp's tile j has landed
+    __syncwarp();
+    const int k0 = (warp + j * kSWarps) * kSKeys;
+    const float (*ks)[kSPitch] = ring[j % kSStages][0];
+    const float (*vs)[kSPitch] = ring[j % kSStages][1];
+
+    // S = q k^T: n8 tile nt holds keys k0 + 8 nt + 2t + (i % 2) of rows
+    // g + 8 (i / 2)
+    float s[kSN][4];
+#pragma unroll
+    for (int nt = 0; nt < kSN; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t bh[2], bl[2];
+        split_tf32(ks[8 * nt + g][8 * kk + t], bh[0], bl[0]);
+        split_tf32(ks[8 * nt + g][8 * kk + t + 4], bh[1], bl[1]);
+        mma_3xtf32(s[nt], qh[kk], ql[kk], bh, bl);
+      }
+    }
+
+    // the mask, only on a tile past the end or past the block's first row
+    if (k0 + kSKeys > sk || (causal && k0 + kSKeys - 1 > q0)) {
+#pragma unroll
+      for (int nt = 0; nt < kSN; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kc = k0 + 8 * nt + 2 * t + (i & 1);
+          const int row = q0 + g + 8 * (i >> 1);
+          if (kc >= sk || (causal && row < kc)) s[nt][i] = -INFINITY;
+        }
+      }
+    }
+
+    // online softmax in base 2, as fwd_wgmma_kernel: a row whose max does
+    // not move rescales by exactly 1
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kSN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+    }
+    float mb[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h] * scale);
+      mb[h] = m_new == -INFINITY ? 0.f : m_new * kLog2e;
+      alpha[h] = m_new == m[h] ? 1.f  // 0 below on the first live tile
+                               : exp2_ftz(__fmul_rn(m[h], kLog2e) - mb[h]);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int p = 0; p < kSChains; ++p) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[p][nt][i] *= alpha[i >> 1];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kSN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // masked scores are -inf: exactly 0
+        s[nt][i] = exp2_ftz(fmaf(s[nt][i], scale_log2, -mb[i >> 1]));
+        l[i >> 1] += s[nt][i];
+      }
+    }
+
+    // O += P v over the tile's k8 steps. Step kk is S's n8 tile kk: its
+    // reduction index runs over keys in the order 2t, 2t + 1 (the
+    // fragment's t, t + 4), so {c0, c2, c1, c3} is the A fragment and v's
+    // rows are read in that order
+#pragma unroll
+    for (int kk = 0; kk < kSN; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[kk][0], ph[0], pl[0]);
+      split_tf32(s[kk][2], ph[1], pl[1]);
+      split_tf32(s[kk][1], ph[2], pl[2]);
+      split_tf32(s[kk][3], ph[3], pl[3]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t bh[2], bl[2];
+        split_tf32(vs[8 * kk + 2 * t][8 * nt + g], bh[0], bl[0]);
+        split_tf32(vs[8 * kk + 2 * t + 1][8 * nt + g], bh[1], bl[1]);
+        mma_3xtf32(acc[kk % kSChains][nt], ph, pl, bh, bl);
+      }
+    }
+
+    __syncwarp();  // every lane is done with this stage
+    if (j + kSStages < mine) load(j + kSStages);
+    cp_async_commit();
+  }
+
+  // merge the warps' states: m = max m_w, l = sum l_w e^(m_w - m), acc
+  // likewise; a warp that saw no live key (m_w = -inf) weighs 0. The
+  // states take the tiles' memory once every warp is done with its ring
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (t == 0) {
+      sm.part.m[warp][g + 8 * h] = m[h];
+      sm.part.l[warp][g + 8 * h] = l[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float2 x = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int p = 0; p < kSChains; ++p) {
+        x.x += acc[p][nt][2 * h];
+        x.y += acc[p][nt][2 * h + 1];
+      }
+      float* dst = &sm.part.acc[warp][g + 8 * h][8 * nt + 2 * t];
+      *reinterpret_cast<float2*>(dst) = x;
+    }
+  }
+  __syncthreads();
+
+  // the block's 16 x 16 outputs, two columns a thread
+  for (int idx = threadIdx.x; idx < kSRows * kSD / 2; idx += kSThreads) {
+    const int r = idx / (kSD / 2);
+    const int c = 2 * (idx % (kSD / 2));
+    float mmax = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kSWarps; ++w) mmax = fmaxf(mmax, sm.part.m[w][r]);
+    float lsum = 0.f, o0 = 0.f, o1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSWarps; ++w) {
+      const float mw = sm.part.m[w][r];
+      const float wt =
+          mw == -INFINITY ? 0.f : exp2f(__fmul_rn(mw - mmax, kLog2e));
+      const float2 a =
+          *reinterpret_cast<const float2*>(&sm.part.acc[w][r][c]);
+      lsum = fmaf(sm.part.l[w][r], wt, lsum);
+      o0 = fmaf(a.x, wt, o0);
+      o1 = fmaf(a.y, wt, o1);
+    }
+    const int row = q0 + r;
+    if (row >= sq) continue;
+    const float inv = lsum == 0.f ? 0.f : 1.f / lsum;
+    *reinterpret_cast<float2*>(o + n * ost.n + row * ost.row + c) =
+        make_float2(o0 * inv, o1 * inv);
+    if (lse != nullptr && c == 0) {
+      lse[static_cast<int64_t>(n) * sq + row] =
+          lsum == 0.f ? kNegInf : mmax + logf(lsum);
     }
   }
 }
@@ -424,6 +713,24 @@ void launch_fma(const Args& a) {
       a.causal, a.q_start, a.k_start, scale);
 }
 
+int launch_f32_mma(const Args& a) {
+  constexpr int kBytes = static_cast<int>(sizeof(SmemF32));
+  if (kBytes > 48 * 1024) {  // opt in above the default 48 KB
+    const cudaError_t rc = cudaFuncSetAttribute(
+        fwd_f32_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const dim3 grid(a.n, (a.sq + kSRows - 1) / kSRows);
+  const float scale = 1.0f / sqrtf(static_cast<float>(kSD));
+  fwd_f32_mma_kernel<<<grid, kSThreads, kBytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o),
+      static_cast<float*>(a.lse), a.sq, a.sk, a.qs, a.ks, a.vs, a.os,
+      a.causal, scale, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool kCarry>
 int launch_wgmma(const Args& a) {
   CUtensorMap tq, tk, tv;
@@ -448,13 +755,18 @@ int launch_wgmma(const Args& a) {
       scale * kLog2e));
 }
 
-// fp32 takes the FMA kernel at every head dim, bf16 the tensor-core kernel
-// at 32, 64 and 128; anything else is refused without a launch
+// fp32 at head dim 16 takes the tf32 tensor-core kernel in its plain form
+// (the serving prefill) and the FMA kernel in its carry form; fp32 at 32,
+// 64 and 128 the FMA kernel; bf16 the wgmma kernel at 32, 64 and 128;
+// anything else is refused without a launch
 template <bool kCarry>
 int dispatch(int dtype, int head_dim, const Args& a) {
   if (dtype == kFloat32) {
     switch (head_dim) {
-      case 16: launch_fma<16, kCarry>(a); break;
+      case 16:
+        if constexpr (!kCarry) return launch_f32_mma(a);
+        launch_fma<16, true>(a);
+        break;
       case 32: launch_fma<32, kCarry>(a); break;
       case 64: launch_fma<64, kCarry>(a); break;
       case 128: launch_fma<128, kCarry>(a); break;

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels
 // (flash_fwd.cu, flash_bwd.cu) and the copy (copy.cu): mbarriers, TMA
 // tensor maps and loads, bulk copies, wgmma shared-memory descriptors, the
-// m64nNk16 bf16 products and the fragment layout of their accumulators.
+// m64nNk16 bf16 products and the fragment layout of their accumulators;
+// and for the fp32 serving forward, the m16n8k8 tf32 product in its 3xTF32
+// form and cp.async.
 //
 // Shared-memory tiles. A TMA load with a 128-byte swizzle writes a box of
 // kAtom = 64 bf16 columns (one 128-byte row each) into rows of 128 bytes,
@@ -374,6 +376,89 @@ struct Wgmma<128> {
           "r"(accumulate));
   }
 };
+
+// ---------------------------------------------------------------------
+// fp32 on the tensor cores (the serving forward, flash_fwd.cu): the
+// warp-level m16n8k8 tf32 product in its 3xTF32 form, and cp.async.
+//
+// A tf32 operand keeps 10 mantissa bits of an fp32 value, about three
+// decimal digits: one pass would not hold fp32 parity. So each operand is
+// split, x = hi + lo with hi = tf32(x) and lo = x - hi, and
+// a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, each term an exact product
+// summed in fp32. The product reads a tf32 operand's top 19 bits, so lo
+// enters truncated to tf32; that and the dropped a_lo b_lo are ~2^-21 of
+// |a b|.
+//
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A (16 x 8, row) a0 =
+// A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4]; B (8 x
+// 8, col) b0 = B[t][g], b1 = B[t + 4][g]; C (16 x 8) c0 = C[g][2t], c1 =
+// C[g][2t + 1], c2 = C[g + 8][2t], c3 = C[g + 8][2t + 1]. A C fragment is
+// not an A fragment (C holds columns 2t, 2t + 1; A holds t, t + 4), but the
+// reduction index of a product may be permuted as long as both operands
+// follow the same order: reading B's rows 2t and 2t + 1 where the fragment
+// says t and t + 4 makes {c0, c2, c1, c3} the A fragment, with no shuffle.
+// ---------------------------------------------------------------------
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds a finite x (to nearest,
+// ties away from zero): two integer operations, where the cvt compiles to
+// a sequence guarded for infinities and NaN
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo: hi = tf32(x), lo = x - hi (exact in fp32); x finite
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 2^x, flushing results below 2^-126 to 0 (-inf gives 0): one MUFU.EX2,
+// without exp2f's rescaling of subnormal results
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += a b, one m16n8k8 tf32 product with fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the two small terms first, then the large one
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
+// 16 bytes from global to shared memory, asynchronously; `live` false
+// reads nothing and writes zeros (src must still be a valid address)
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
 // ---------------------------------------------------------------------
 // Host side: TMA tensor maps. cuTensorMapEncodeTiled is a driver call; it

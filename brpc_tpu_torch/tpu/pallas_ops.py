@@ -16,7 +16,8 @@ built with nvcc and called through ctypes (``tpu/_build.py``).
   its main path went through the kernels.
 
 Serving prefill uses :func:`flash_attention`, whose kernel is the
-forward of ``csrc/flash_fwd.cu`` without lse. Training uses
+forward of ``csrc/flash_fwd.cu`` without lse (at the serving head dim 16,
+``fwd_f32_mma_kernel`` on the tf32 tensor cores in 3xTF32). Training uses
 :func:`flash_attention_mha`, an autograd function whose forward is the
 same kernel and whose backward is the dQ and dK/dV kernels of
 ``csrc/flash_bwd.cu``, and :func:`rmsnorm`, whose forward is
@@ -115,14 +116,19 @@ def _raise_on(rc: int, source: str, what: str) -> None:
 def _on_cpu(name: str, *tensors) -> bool:
     """True when every tensor lies on the CPU (the plain version runs),
     False when all lie on one CUDA device (the kernel runs); raises on
-    anything else."""
+    anything else. The two answers are read from flags and device indices,
+    without building a device object per tensor (a launch's host cost)."""
+    first = tensors[0]
+    if first.is_cuda:
+        dev = first.get_device()
+        if all(t.is_cuda and t.get_device() == dev for t in tensors):
+            return False
+    elif all(t.is_cpu for t in tensors):
+        return True
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
-    return dev.type == "cpu"
+    raise ValueError(f"{name} runs on cuda or cpu, not {devs.pop()}")
 
 
 def _check_kernel_inputs(name: str, dtype, **tensors) -> None:
@@ -141,14 +147,20 @@ def _check_kernel_inputs(name: str, dtype, **tensors) -> None:
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s CUDA device (no
+    Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _call(fn, t, *args):
     """``fn(*args, stream)`` on ``t``'s device and current stream: one
-    launch through a C entry point; returns its error code."""
-    with torch.cuda.device(t.device):
-        return fn(*args, _stream(t))
+    launch through a C entry point; returns its error code. The device is
+    switched only when ``t`` is not on the current one."""
+    dev = t.get_device()
+    if dev == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
 
 
 # What a TMA tensor map takes (csrc/hopper.cuh), checked before a bf16
@@ -226,28 +238,51 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
     return _flash_cuda(q, k, v, causal)
 
 
+# csrc/flash_fwd.cu's brpc_flash_fwd: q, k, v, o, lse; n, sq, sk, head dim,
+# dtype, causal; the (N, row) strides of q, k, v and o; the stream
+_FWD_ARGTYPES = [_ptr] * 5 + [_i32] * 6 + [_i64] * 8 + [_ptr]
+_serving_fn = None  # brpc_flash_fwd, bound at flash_attention's first launch
+
+
 def _flash_cuda(q, k, v, causal: bool):
+    """One launch of csrc/flash_fwd.cu for flash_attention: fp32 (S, H, D)
+    views read through their strides, o only; at head dim 16 the kernel is
+    ``fwd_f32_mma_kernel``. Every check runs before the launch; per call it
+    reads each tensor's strides and pointer once, and binds nothing."""
+    global _serving_fn
     heads = q.dim() == 3
-    q3, k3, v3 = (t if heads else t.unsqueeze(1) for t in (q, k, v))
+    q3, k3, v3 = (q, k, v) if heads else (q.unsqueeze(1), k.unsqueeze(1),
+                                          v.unsqueeze(1))
     sq, h, d = q3.shape
     sk = k3.shape[0]
-    for name, t in (("q", q3), ("k", k3), ("v", v3)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention kernel takes float32, "
-                            f"{name} is {t.dtype}")
-        if t.stride(2) != 1:
-            raise ValueError(f"{name}'s last dim must be contiguous")
-        if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
-            raise ValueError(f"{name}'s rows must be 16-byte aligned")
     if k3.shape != (sk, h, d) or v3.shape != (sk, h, d):
         raise ValueError(f"k/v shapes {tuple(k3.shape)}, {tuple(v3.shape)} "
                          f"do not match q {tuple(q3.shape)}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
-    o = torch.empty((sq, h, d), dtype=torch.float32, device=q3.device)
-    # heads are the kernel's N axis: (S, H, D) read through its strides
-    _fwd_launch(q3, k3, v3, o, None, h, sq, sk, causal,
-                [(t.stride(1), t.stride(0)) for t in (q3, k3, v3, o)])
+    ptrs, strides = [], []
+    for name, t in (("q", q3), ("k", k3), ("v", v3)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"flash_attention kernel takes float32, "
+                            f"{name} is {t.dtype}")
+        row, head, last = t.stride()
+        if last != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+        ptr = t.data_ptr()
+        if ptr % 16 or row % 4 or head % 4:
+            raise ValueError(f"{name}'s rows must be 16-byte aligned")
+        ptrs.append(ptr)
+        strides += (head, row)
+    o = q3.new_empty((sq, h, d))
+    fn = _serving_fn
+    if fn is None:
+        fn = _serving_fn = _bind("flash_fwd", "brpc_flash_fwd",
+                                 _FWD_ARGTYPES)
+    # heads are the kernel's N axis; o is contiguous: (d, h * d)
+    rc = _call(fn, q3, *ptrs, o.data_ptr(), None, h, sq, sk, d, 0,
+               int(causal), *strides, d, h * d)
+    if rc:
+        _raise_on(rc, "flash_fwd", "flash_attention")
     launches.add("flash_attention")
     return o if heads else o.squeeze(1)
 
@@ -255,8 +290,7 @@ def _flash_cuda(q, k, v, causal: bool):
 def _fwd_launch(q, k, v, o, lse, n, sq, sk, causal, strides):
     """One launch of csrc/flash_fwd.cu; ``strides`` holds the (N, row)
     element strides of q, k, v and o; ``lse`` None writes o only."""
-    fn = _bind("flash_fwd", "brpc_flash_fwd",
-               [_ptr] * 5 + [_i32] * 6 + [_i64] * 8 + [_ptr])
+    fn = _bind("flash_fwd", "brpc_flash_fwd", _FWD_ARGTYPES)
     rc = _call(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                None if lse is None else lse.data_ptr(), n, sq, sk,
                q.shape[-1], _DTYPES[q.dtype], int(causal),

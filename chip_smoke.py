@@ -6,12 +6,15 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
 (nvcc, sm_90a, one process per source, all at once). Then five paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
-  (strided (S, H, D) fp32, no lse), against its plain PyTorch version
-  at the shapes that path gives it, then drives the
+  (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
+  ``fwd_f32_mma_kernel``), against its plain PyTorch version at every
+  prefill bucket the serving run launches, then drives the
   serving engine at the full width of ``examples/llm_server`` through
   ``submit(..., done=)`` and checks that the path really launched the
   kernel and that its tokens equal a run with plain attention; a last,
-  profiled run of the same requests shows where the time goes.
+  profiled run of the same requests shows where the time goes, names the
+  serving kernel (and no FMA kernel at head dim 16) and sums its device
+  time over the run's launches.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm kernel against their plain versions in fp32 and bf16 (in bf16
   all three attention kernels are the tensor-core kernels, held also at
@@ -82,13 +85,21 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 L2_BYTES = 50 * 2 ** 20
 
-# kernel vs plain: fp32 on both sides, only the summation order differs
+# kernel vs plain: fp32 on both sides (the serving kernel's products in
+# 3xTF32, ~2^-21 of each product dropped), the summation order differs
 FLASH_TOL = 1e-4
-FLASH_SHAPES = [((s, 4, 16), causal) for s in (16, 128, 384, 1024)
+# every prefill bucket the serving run below launches (PROMPT_LENS through
+# prefill_bucket: 16, 32, 128, 384, 768, 1024) and a ragged S <= 128
+SERVING_BUCKETS = (16, 32, 100, 128, 384, 768, 1024)
+FLASH_SHAPES = [((s, 4, 16), causal) for s in SERVING_BUCKETS
                 for causal in (True, False)] + [
     ((256, 64), True), ((256, 64), False),
     ((256, 2, 32), True), ((256, 128), True)]  # the other head dims
 MAIN_SHAPE = ((1024, 4, 16), True)  # the largest prefill the path runs
+# the serving kernel (fp32, head dim 16, csrc/flash_fwd.cu) and the FMA
+# kernel's instantiation it replaced there, by symbol
+SERVING_KERNEL = "fwd_f32_mma_kernel"
+SERVING_FMA = "flash_fwd_kernel<16"
 
 # the llm_server example's widths (examples/llm_server/server.py:44-55)
 PROMPT_LENS = [5, 16, 17, 100, 128, 300, 700, 960]
@@ -104,10 +115,9 @@ WGMMA_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel")
 FMA_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 
 
-def ptxas_report(logs):
-    """-Xptxas -v of each tensor-core kernel instantiation, from the build
-    logs: {symbol: {registers, spill_stores, spill_loads, stack}}; raises
-    if any spills, or if none is found."""
+def ptxas_rows(logs, kernels):
+    """-Xptxas -v of each instantiation of the named kernels, from nvcc's
+    output: {symbol: {registers, spill_stores, spill_loads, stack}}."""
     out, cur = {}, None
     for log in logs.values():
         for line in log.splitlines():
@@ -116,7 +126,7 @@ def ptxas_report(logs):
             if m:
                 cur = m.group(1)
                 continue
-            if cur is None or not any(k in cur for k in WGMMA_KERNELS):
+            if cur is None or not any(k in cur for k in kernels):
                 continue
             row = out.setdefault(cur, {})
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -127,8 +137,17 @@ def ptxas_report(logs):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 row["registers"] = int(m.group(1))
-    if not out:
-        raise AssertionError("no -Xptxas -v report of the tensor-core kernels")
+    return out
+
+
+def ptxas_report(logs):
+    """-Xptxas -v of each tensor-core kernel instantiation (the bf16 wgmma
+    kernels and, where built, the serving kernel), from the build logs:
+    {symbol: {registers, spill_stores, spill_loads, stack}}; raises if any
+    spills, or if no wgmma kernel is found."""
+    out = ptxas_rows(logs, WGMMA_KERNELS + (SERVING_KERNEL,))
+    if not any(SERVING_KERNEL not in k for k in out):
+        raise AssertionError("no -Xptxas -v report of the wgmma kernels")
     for name, row in out.items():
         if row.get("spill_stores", 1) or row.get("spill_loads", 1):
             raise AssertionError(f"{name} spills: {row}")
@@ -179,6 +198,24 @@ def graph_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def prefill_bucket(s):
+    """The length a prompt of s tokens is padded to for its prefill
+    (brpc_tpu_torch/serving/model.py, TinyTransformer.prefill)."""
+    bucket = max(16, 1 << (s - 1).bit_length())
+    return -(-s // 128) * 128 if bucket > 128 else bucket
+
+
+def flash_inputs(gen, shape, dev):
+    """q, k, v of one flash_attention call: at head dim 16, (S, H, 16)
+    views of one fused (S, 3 H 16) QKV product, as the serving model
+    passes them; otherwise contiguous."""
+    if len(shape) == 3 and shape[-1] == 16:
+        s, h, d = shape
+        qkv = torch.randn((s, 3 * h * d), generator=gen).to(dev)
+        return tuple(x.view(s, h, d) for x in qkv.split(h * d, dim=-1))
+    return tuple(torch.randn(shape, generator=gen).to(dev) for _ in range(3))
+
+
 def check_flash(dev):
     """Phase 3: the kernel against attention_reference on the card."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -186,8 +223,7 @@ def check_flash(dev):
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = {}
     for shape, causal in FLASH_SHAPES:
-        q, k, v = (torch.randn(shape, generator=gen).to(dev)
-                   for _ in range(3))
+        q, k, v = flash_inputs(gen, shape, dev)
         out = pallas_ops.flash_attention(q, k, v, causal=causal)
         ref = pallas_ops.attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -414,15 +450,38 @@ def profile_engine(dev):
     engine.model.close()
     engine.kv.close()
     kernels, busy, top = device_time(prof)
+    flash_us, flash_calls = serving_kernel(prof)
     stats = {
         "wall_us": wall_us, "steps": steps,
         "device_kernels": kernels,
         "kernels_per_step": kernels / steps if steps else None,
         "device_busy_us": busy,
         "device_busy_share": busy / wall_us if kernels else None,
+        "flash_kernel": SERVING_KERNEL, "flash_device_us": flash_us,
+        "flash_calls": flash_calls,
         "top_device_us": top,
     }
     print(json.dumps({"profile": stats}), flush=True)
+    return stats
+
+
+def serving_kernel(prof):
+    """(device µs, calls) of the serving kernel in a profiled serving run.
+    Raises if the run did not launch it, or launched the FMA kernel at head
+    dim 16."""
+    from torch.autograd import DeviceType
+
+    ran = {e.key: (e.self_device_time_total, e.count)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and (SERVING_KERNEL in e.key or SERVING_FMA in e.key)}
+    fma = [k for k in ran if SERVING_FMA in k]
+    if fma or not ran:
+        raise AssertionError(f"serving profile: {SERVING_KERNEL} "
+                             f"{'ran' if ran else 'missing'}, FMA kernels "
+                             f"at head dim 16 {fma}")
+    return (sum(us for us, _ in ran.values()),
+            sum(c for _, c in ran.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -1691,6 +1750,24 @@ def time_copies(dev):
     return rows
 
 
+def serving_flash_time(flash, n_layers, profile):
+    """The serving run's flash device time over its launches (one per
+    layer per prefill): each prompt's bucket timed alone (CUDA-graph
+    replay, check_flash), and the profiled run's own sum of the kernel."""
+    buckets = [prefill_bucket(p) for p in PROMPT_LENS]
+    ms = n_layers * sum(flash[((b, 4, 16), True)]["kernel_graph_ms"]
+                        for b in buckets)
+    if profile["flash_calls"] != n_layers * len(PROMPT_LENS):
+        raise AssertionError(f"the profiled serving run launched "
+                             f"{SERVING_KERNEL} {profile['flash_calls']} "
+                             f"times, want {n_layers} x {len(PROMPT_LENS)}")
+    out = {"launches": n_layers * len(buckets), "buckets": buckets,
+           "device_ms_from_buckets": ms,
+           "device_ms_profiled": profile["flash_device_us"] / 1e3}
+    print(json.dumps({"serving_flash": out}), flush=True)
+    return out
+
+
 def slice4_rows(times, lane, probe_launches, op_rate_launches, ceiling):
     """The kernels line's entries of the copy kernel: #10 at 64 MiB
     (launches: DeviceStore.copy on the device lane), #11 at the probe's
@@ -1828,7 +1905,10 @@ def main():
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f}s")
     for name, out in built.items():
         log(f"--- nvcc {name}.cu\n{out.strip()}")
-    print(json.dumps({"ptxas": ptxas_report(built)}), flush=True)
+    ptxas = ptxas_report(built)
+    if not any(SERVING_KERNEL in k for k in ptxas):
+        raise AssertionError(f"no -Xptxas -v report of {SERVING_KERNEL}")
+    print(json.dumps({"ptxas": ptxas}), flush=True)
 
     flash = check_flash(dev)
     check_against_cpu(dev)
@@ -1844,7 +1924,8 @@ def main():
             raise AssertionError(f"prompt {plen}: flash tokens {a.tokens} "
                                  f"!= plain tokens {p.tokens}")
 
-    profile_engine(dev)
+    profile = profile_engine(dev)
+    serving = serving_flash_time(flash, n_layers, profile)
 
     fwd = check_flash_fwd(dev)
     bwd = check_flash_bwd(dev)
@@ -1866,6 +1947,7 @@ def main():
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/flash_fwd.cu",
+        "symbol": SERVING_KERNEL,
         "replaces": "brpc_tpu/tpu/pallas_ops.py:174",
         "shape": main_row["shape"], "causal": main_row["causal"],
         "launches": launches,
@@ -1876,6 +1958,8 @@ def main():
         "graph_ms": main_row["kernel_graph_ms"],
         "plain_graph_ms": main_row["plain_graph_ms"],
         "library_graph_ms": main_row["library_graph_ms"],
+        "serving_run_device_ms": serving["device_ms_from_buckets"],
+        "serving_run_profiled_ms": serving["device_ms_profiled"],
     }] + kernel_rows(fwd, bwd, rms, counts) + slice3_rows(
         xent, qgrid, carry, counts, ring_counts) + slice4_rows(
         copy_times, lane, probe_launches, op_rate_launches, ceiling)

@@ -11,7 +11,14 @@ TPU kernel on a ported path is a CUDA kernel written by hand for Hopper
   the flagship LM's single-device training step (``tpu.train``).
 - :mod:`brpc_tpu_torch.serving` — the LLM serving engine's prefill and
   decode path: paged KV cache, toy transformer, continuous-batching
-  engine.
+  engine, and ``serving.service.LlmServingService`` on the RPC front.
+- :mod:`brpc_tpu_torch.rpc` — the RPC front (``Server``, ``Channel``,
+  ``Stub``, ``Controller``, streams over trpc_std) with its host
+  utilities (``butil``, ``fiber``, ``flags``, ``metrics``, ``trace``,
+  ``fault``, ``profiling``, ``policy``), copied from the JAX package onto
+  its pure-Python branches; wire messages are tables of the port's own
+  message runtime (``proto._message``), so nothing needs protobuf.
+- :mod:`brpc_tpu_torch.graft_entry` — the flagship's graft entry point, ``entry()``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 and raise when there is no card.

@@ -1,8 +1,9 @@
-"""Generated protobuf modules (protoc --python_out from the .proto sources).
+"""Wire messages of the port.
 
-``device_lane_pb2`` is a verbatim copy of ``brpc_tpu/proto``'s: the same
-serialized descriptor, so both copies can be loaded in one process and
-their messages serialize to the same bytes. Nothing in the port imports
-it at module load; ``tpu.device_lane.DeviceDataService`` imports it when
-a service is built.
+``rpc_meta_pb2``, ``serving_pb2``, ``echo_pb2`` and ``device_lane_pb2``
+are tables of the port's own proto3 message runtime
+(:mod:`brpc_tpu_torch.proto._message`, no protobuf); each class names the
+lines of the ``.proto`` file beside it that it comes from, and writes the
+bytes protobuf writes. Each module's ``DESCRIPTOR.serialized_pb`` is the
+file descriptor protoc writes for that file.
 """

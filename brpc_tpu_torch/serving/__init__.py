@@ -8,7 +8,12 @@
 - :mod:`brpc_tpu_torch.serving.weights` — carries weights to and from
   the JAX model.
 - :mod:`brpc_tpu_torch.serving.engine` — the iteration-level scheduler
-  (continuous batching); its ``submit(..., done=...)`` is the entry point.
+  (continuous batching); its ``submit(..., done=...)`` is the entry point
+  below the RPC front.
+- :mod:`brpc_tpu_torch.serving.service` — ``LlmServingService``
+  (``Generate`` with per-token streams, ``Stats``) for a
+  ``brpc_tpu_torch.rpc.Server``; imported on its own, so the engine's
+  users load no RPC code.
 """
 
 from brpc_tpu_torch.serving.kv_cache import (KVCacheConfig, KVCacheFull,

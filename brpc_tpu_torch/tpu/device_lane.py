@@ -14,10 +14,9 @@ moves on the device.
   checksum), ``fence`` and ``stats``. Every copy is the hand-written
   kernel of ``csrc/copy.cu`` (:mod:`brpc_tpu_torch.tpu.bench_kernels`).
 - :class:`DeviceDataService`: Put / Copy / Pump / Get / Free / Stats over
-  a store, speaking the messages of ``proto/device_lane.proto``;
-  :func:`_tpusock_call` is its in-process entry. protobuf is imported
-  only when a service is built, so the store and the serving engine
-  import without it.
+  a store, speaking the messages of ``proto/device_lane.proto`` (tables
+  of the port's message runtime; no protobuf); :func:`_tpusock_call` is
+  its in-process entry.
 - :func:`resolve_device`: the one place that picks the device. ``None``
   means the card; without one it raises, it never carries on on the CPU.
 """
@@ -358,12 +357,12 @@ class DeviceDataService:
     The method table is built from the service descriptor, as the JAX
     package's ``Service`` base builds it (``brpc_tpu/rpc/server.py``);
     each method takes ``(cntl, request, done)`` and returns its response.
-    The port has no ``Server`` yet, so nothing registers the service."""
+    Nothing registers it on the port's ``Server`` yet (ROADMAP Queue 1
+    item 2(b))."""
 
     def __init__(self, store: Optional[DeviceStore] = None):
-        from google.protobuf import message_factory
-
         from brpc_tpu_torch.proto import device_lane_pb2
+        from brpc_tpu_torch.proto._message import get_message_class
 
         self._pb = device_lane_pb2
         self.DESCRIPTOR = device_lane_pb2.DESCRIPTOR.services_by_name[
@@ -372,8 +371,8 @@ class DeviceDataService:
         self._methods = {
             m.name: MethodEntry(
                 m.name, getattr(self, m.name),
-                message_factory.GetMessageClass(m.input_type),
-                message_factory.GetMessageClass(m.output_type))
+                get_message_class(m.input_type),
+                get_message_class(m.output_type))
             for m in self.DESCRIPTOR.methods}
 
     def find_method(self, name: str) -> Optional[MethodEntry]:

@@ -595,9 +595,16 @@ def rmsnorm_reference(x, w, eps: float = EPS):
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+# csrc/rmsnorm.cu's brpc_rmsnorm: x, w, out; rows, d, dtype, eps; the stream
+_RMSNORM_ARGTYPES = [_ptr, _ptr, _ptr, _i64, _i32, _i32, ctypes.c_float,
+                     _ptr]
+
+
 def _rmsnorm_fwd_call(x, w, eps: float = EPS):
     """Fused RMSNorm over the last dim. x: [..., D], w: [D]. A CPU tensor
-    runs :func:`rmsnorm_reference`; a CUDA tensor launches the kernel."""
+    runs :func:`rmsnorm_reference`; a CUDA tensor launches the kernel
+    (the C function bound once by :func:`_bind`, launched through
+    :func:`_call`)."""
     d = x.shape[-1]
     if w.shape != (d,):
         raise ValueError(f"rmsnorm: w {tuple(w.shape)} does not match x "
@@ -608,13 +615,11 @@ def _rmsnorm_fwd_call(x, w, eps: float = EPS):
     _check_kernel_inputs("rmsnorm", x.dtype, x=x2, w=w)
     out = torch.empty_like(x2)
     if x2.shape[0] and d:
-        fn = _bind("rmsnorm", "brpc_rmsnorm",
-                   [_ptr, _ptr, _ptr, _i64, _i32, _i32, ctypes.c_float,
-                    _ptr])
-        with torch.cuda.device(x.device):
-            rc = fn(x2.data_ptr(), w.data_ptr(), out.data_ptr(),
-                    x2.shape[0], d, _DTYPES[x.dtype], eps, _stream(x2))
-        _raise_on(rc, "rmsnorm", "rmsnorm")
+        fn = _bind("rmsnorm", "brpc_rmsnorm", _RMSNORM_ARGTYPES)
+        rc = _call(fn, x2, x2.data_ptr(), w.data_ptr(), out.data_ptr(),
+                   x2.shape[0], d, _DTYPES[x.dtype], eps)
+        if rc:
+            _raise_on(rc, "rmsnorm", "rmsnorm")
         launches.add("rmsnorm")
     return out.reshape(x.shape)
 
@@ -767,7 +772,15 @@ def _xent_forward_rows(logits, targets, block_rows: int = 256):
     return _xent_cuda(logits, targets)
 
 
+# csrc/xent.cu's brpc_xent: logits, targets, nll; n, v, dtype, target bits;
+# the stream
+_XENT_ARGTYPES = [_ptr, _ptr, _ptr, _i64, _i32, _i32, _i32, _ptr]
+
+
 def _xent_cuda(logits, targets):
+    """One launch of csrc/xent.cu: the C function bound once by
+    :func:`_bind`, launched through :func:`_call`; every check runs before
+    the launch."""
     n, v = logits.shape
     _check_kernel_inputs("softmax_xent", logits.dtype, logits=logits)
     if targets.dtype not in (torch.int32, torch.int64):
@@ -778,13 +791,12 @@ def _xent_cuda(logits, targets):
     targets = targets.contiguous()
     nll = torch.empty(n, dtype=torch.float32, device=logits.device)
     if n:
-        fn = _bind("xent", "brpc_xent",
-                   [_ptr, _ptr, _ptr, _i64, _i32, _i32, _i32, _ptr])
-        with torch.cuda.device(logits.device):
-            rc = fn(logits.data_ptr(), targets.data_ptr(), nll.data_ptr(), n,
-                    v, _DTYPES[logits.dtype], targets.element_size() * 8,
-                    _stream(logits))
-        _raise_on(rc, "xent", "softmax_xent")
+        fn = _bind("xent", "brpc_xent", _XENT_ARGTYPES)
+        rc = _call(fn, logits, logits.data_ptr(), targets.data_ptr(),
+                   nll.data_ptr(), n, v, _DTYPES[logits.dtype],
+                   targets.element_size() * 8)
+        if rc:
+            _raise_on(rc, "xent", "softmax_xent")
         launches.add("softmax_xent")
     return nll
 

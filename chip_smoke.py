@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then five paths:
+(nvcc, sm_90a, one process per source, all at once). Then six paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -15,6 +15,13 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   profiled run of the same requests shows where the time goes, names the
   serving kernel (and no FMA kernel at head dim 16) and sums its device
   time over the run's launches.
+- Serving through the RPC front, as a user calls it: the port's
+  ``Server`` with ``LlmServingService`` over a ``cuda`` engine, the same
+  requests as concurrent streamed ``Generate`` calls through the port's
+  ``Channel``; their tokens must equal the engine-direct run's, their
+  TokenDelta frames must join to each response, and the run must launch
+  the serving kernel once per layer and prefill; no protobuf and no JAX
+  may be loaded.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm kernel against their plain versions in fp32 and bf16 (in bf16
   all three attention kernels are the tensor-core kernels, held also at
@@ -28,7 +35,9 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   the expected number of times; one more, profiled step shows where the
   time goes and names its attention kernels (no FMA kernel for the bf16
   forward, dQ or dK/dV). Then holds the fused cross-entropy kernel
-  against its plain version row by row.
+  against its plain version row by row, and runs the flagship's
+  ``graft_entry.entry()`` once in bf16 (its forward only: 4/0/0
+  forward/dQ/dK-dV launches).
 - The q-grid forward: held against the plain forward at
   ``tools/qgrid_sweep.py``'s shape, then driven through that sweep's
   block configurations.
@@ -73,9 +82,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from brpc_tpu_torch import graft_entry  # noqa: E402
+from brpc_tpu_torch import rpc  # noqa: E402
+from brpc_tpu_torch.examples.llm_server import client  # noqa: E402
+from brpc_tpu_torch.proto import serving_pb2  # noqa: E402
 from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,  # noqa: E402
                                     ModelConfig, PagedKVCache,
                                     ServingEngine, TinyTransformer)
+from brpc_tpu_torch.serving.service import LlmServingService  # noqa: E402
 from brpc_tpu_torch.tpu import (_build, bench_kernels,  # noqa: E402
                                  device_lane, pallas_ops, ring, train)
 
@@ -382,7 +396,132 @@ def run_engine(dev, attn):
         "steps": snap["steps"], "flash_launches": launches,
     }
     print(json.dumps({"engine": stats}), flush=True)
-    return results, launches, engine.model.config.n_layers
+    return results, launches, engine.model.config.n_layers, stats
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q))
+
+
+def serve_rpc(stub, requests, stream=True):
+    """(prompt_len, max_new) requests as concurrent Generates through
+    ``stub``, one thread each; with ``stream`` each opens a stream for
+    its TokenDelta frames (``client.generate``). Returns (the
+    ``client.Generation`` of each request in order, {tokens/s from the
+    first call to the last response, TTFT p50 / max from call to first
+    frame (to the response without a stream), RPC latency p50 / max})."""
+    out = [None] * len(requests)
+
+    def run(i, plen, max_new):
+        req = serving_pb2.GenerateRequest(prompt_len=plen,
+                                          max_new_tokens=max_new)
+        if stream:
+            out[i] = client.generate(stub, req, timeout_ms=600000)
+            return
+        g = out[i] = client.Generation()
+        g.t_call = time.monotonic()
+        g.response = stub.Generate(req)
+        g.t_first = g.t_done = time.monotonic()
+
+    threads = [threading.Thread(target=run, args=(i, p, m))
+               for i, (p, m) in enumerate(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    for (plen, max_new), g in zip(requests, out):
+        if g is None or g.response is None:
+            raise AssertionError(f"Generate({plen}, {max_new}) failed: "
+                                 f"{g and (g.error_code, g.error_text)}")
+    tokens = sum(len(g.response.tokens) for g in out)
+    wall = max(g.t_done for g in out) - min(g.t_call for g in out)
+    ttft = [(g.t_first - g.t_call) * 1e6 for g in out]
+    lat = [(g.t_done - g.t_call) * 1e6 for g in out]
+    return out, {
+        "requests": len(out), "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_us_p50": pct(ttft, 50), "ttft_us_max": max(ttft),
+        "rpc_latency_us_p50": pct(lat, 50), "rpc_latency_us_max": max(lat)}
+
+
+def run_rpc(dev, direct, direct_stats):
+    """Phase 4b: the serving path through the RPC front. A warm-up
+    Generate runs first, uncounted; the flash launch count is reset just
+    before the requests go out and read right after the last response and
+    frame are in. Tokens/s runs from the first call to the last response;
+    TTFT is the client's, call to first frame."""
+    engine = build_engine(dev, "auto")
+    server = rpc.Server().add_service(LlmServingService(engine)) \
+        .start("127.0.0.1:0")
+    try:
+        stub = rpc.Stub(rpc.Channel().init(str(server.listen_endpoint())),
+                        client.DESC)
+        serve_rpc(stub, [(16, 2)])  # warm-up
+        n0 = len(engine.step_samples)
+        pallas_ops.launches.reset()
+        out, stats = serve_rpc(stub, list(zip(PROMPT_LENS, MAX_NEW)))
+        engine.kv.store.fence()
+        launches = pallas_ops.launches["flash_attention"]
+        steps = engine.step_samples[n0:]
+    finally:
+        server.stop()
+        server.join(timeout=5)
+        engine.stop()
+    engine.kv.assert_idle("after the RPC run")
+    engine.model.close()
+    engine.kv.close()
+    for plen, max_new, g, d in zip(PROMPT_LENS, MAX_NEW, out, direct):
+        toks = list(g.response.tokens)
+        if toks != d.tokens:
+            raise AssertionError(f"prompt {plen}: RPC tokens {toks} != "
+                                 f"engine-direct tokens {d.tokens}")
+        if g.frame_tokens != toks or g.frames != max_new:
+            raise AssertionError(f"prompt {plen}: {g.frames} frames "
+                                 f"{g.frame_tokens} do not join to {toks}")
+    stats.update(step_us_p50=pct(steps, 50), steps=len(steps),
+                 flash_launches=launches, engine_direct={
+                     k: direct_stats[k] for k in (
+                         "tokens_per_s", "ttft_us_p50", "ttft_us_max",
+                         "wall_s", "step_us_p50", "steps")})
+    print(json.dumps({"rpc": stats}), flush=True)
+    return launches
+
+
+def no_protobuf_or_jax(where):
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                 ("jax", "jaxlib", "brpc_tpu")
+                 or m.startswith("google.protobuf"))
+    if bad:
+        raise AssertionError(f"{where}: loaded {bad}")
+
+
+def run_graft_entry(dev):
+    """The flagship's graft entry(): one bf16 forward on the card. The
+    counts are reset just before the call and read just after; a forward
+    launches the flash forward once per layer and no backward kernel."""
+    fn, args = graft_entry.entry()
+    if args[0].embed.device != dev or args[0].embed.dtype != torch.bfloat16:
+        raise AssertionError(f"entry() on {args[0].embed.device} "
+                             f"{args[0].embed.dtype}, want {dev} bf16")
+    fn(*args)
+    torch.cuda.synchronize()
+    pallas_ops.launches.reset()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    counts = pallas_ops.launches.snapshot()
+    layers = args[0].config.n_layers
+    expect_launches(counts, {"flash_fwd": layers}, "graft_entry forward")
+    shape = (graft_entry.BATCH, graft_entry.SEQ, args[0].config.vocab)
+    if tuple(logits.shape) != shape or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"graft_entry logits {tuple(logits.shape)}, "
+                             f"want {shape}, finite")
+    ms = time_ms(lambda: fn(*args), 10)
+    print(json.dumps({"graft_entry": {
+        "launches": {k: counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")},
+        "shape": list(shape), "ms": ms}}), flush=True)
+    return counts
 
 
 def device_time(prof):
@@ -1912,17 +2051,23 @@ def main():
 
     flash = check_flash(dev)
     check_against_cpu(dev)
-    auto, launches, n_layers = run_engine(dev, "auto")
+    auto, launches, n_layers, direct_stats = run_engine(dev, "auto")
     prefills = len(PROMPT_LENS)
     if launches != n_layers * prefills:
         raise AssertionError(f"flash_attention launched {launches} times "
                              f"on the main path, want {n_layers} layers x "
                              f"{prefills} prefills")
-    plain, _, _ = run_engine(dev, "reference")
+    plain, _, _, _ = run_engine(dev, "reference")
     for plen, a, p in zip(PROMPT_LENS, auto, plain):
         if a.tokens != p.tokens:
             raise AssertionError(f"prompt {plen}: flash tokens {a.tokens} "
                                  f"!= plain tokens {p.tokens}")
+    rpc_launches = run_rpc(dev, auto, direct_stats)
+    if rpc_launches != n_layers * prefills:
+        raise AssertionError(f"flash_attention launched {rpc_launches} "
+                             f"times on the RPC path, want {n_layers} "
+                             f"layers x {prefills} prefills")
+    no_protobuf_or_jax("after the RPC path")
 
     profile = profile_engine(dev)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -1933,6 +2078,7 @@ def main():
     train_parity(dev)
     counts = run_trainer(dev, smi)
     xent = check_xent(dev)
+    run_graft_entry(dev)
     qgrid = check_qgrid(dev)
     carry = check_carry(dev)
     ring_counts = run_ring(dev)
@@ -1950,7 +2096,7 @@ def main():
         "symbol": SERVING_KERNEL,
         "replaces": "brpc_tpu/tpu/pallas_ops.py:174",
         "shape": main_row["shape"], "causal": main_row["causal"],
-        "launches": launches,
+        "launches": launches, "launches_rpc": rpc_launches,
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1963,6 +2109,7 @@ def main():
     }] + kernel_rows(fwd, bwd, rms, counts) + slice3_rows(
         xent, qgrid, carry, counts, ring_counts) + slice4_rows(
         copy_times, lane, probe_launches, op_rate_launches, ceiling)
+    no_protobuf_or_jax("at the end")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

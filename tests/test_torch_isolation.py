@@ -1,7 +1,8 @@
 """The port stands alone: brpc_tpu_torch and chip_smoke.py import neither
-JAX nor anything of the JAX package (brpc_tpu or brpc_tpu.*). The store,
-the copy kernels and chip_smoke.py load no protobuf either: the card's
-machine has none, and only DeviceDataService imports it, lazily."""
+JAX nor anything of the JAX package (brpc_tpu or brpc_tpu.*), nor
+protobuf: the card's machine has none, and every wire message of the port
+(the RPC front's and DeviceDataService's) is a table of its own message
+runtime."""
 
 import ast
 import os
@@ -50,6 +51,14 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_protobuf_import(path):
+    bad = [(line, mod) for line, mod in _imports(path)
+           if mod == "google" or mod.startswith("google.protobuf")]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
 def test_forbidden_matches_exact_module_names():
     assert _forbidden("brpc_tpu") and _forbidden("brpc_tpu.serving.model")
     assert _forbidden("jax.numpy")
@@ -80,3 +89,67 @@ def test_the_data_plane_and_chip_smoke_load_no_protobuf():
          "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
          "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
          "assert not bad, bad\n")
+
+
+def test_rpc_front_answers_a_generate_with_no_protobuf_or_jax():
+    """The RPC front runs on the port's own message runtime: a Server with
+    LlmServingService answers one streamed Generate on the CPU, and the
+    process has loaded neither protobuf nor JAX."""
+    _run(
+        "import sys, threading\n"
+        "import brpc_tpu_torch.rpc as rpc\n"
+        "import brpc_tpu_torch.serving.service as service\n"
+        "from brpc_tpu_torch.proto import serving_pb2\n"
+        "from brpc_tpu_torch.rpc.stream import StreamOptions, stream_create\n"
+        "from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,"
+        " ModelConfig, PagedKVCache, ServingEngine, TinyTransformer)\n"
+        "cfg = ModelConfig(vocab=64, d_model=16, n_heads=2, n_layers=1)\n"
+        "kv = PagedKVCache(KVCacheConfig(16, 16), cfg.n_layers, cfg.kv_dim,"
+        " device='cpu')\n"
+        "eng = ServingEngine(TinyTransformer(cfg, kv), kv,"
+        " EngineConfig(idle_wait_s=0.005)).start()\n"
+        "srv = rpc.Server().add_service(service.LlmServingService(eng))"
+        ".start('127.0.0.1:0')\n"
+        "ch = rpc.Channel().init(str(srv.listen_endpoint()))\n"
+        "stub = rpc.Stub(ch, serving_pb2.DESCRIPTOR.services_by_name"
+        "['LlmService'])\n"
+        "frames, last = [], threading.Event()\n"
+        "def on_received(sid, msgs):\n"
+        "    for m in msgs:\n"
+        "        d = serving_pb2.TokenDelta.FromString(m)\n"
+        "        frames.extend(d.tokens)\n"
+        "        if d.done: last.set()\n"
+        "cntl = rpc.Controller()\n"
+        "cntl.stream_id = stream_create(StreamOptions("
+        "on_received=on_received))\n"
+        "resp = stub.Generate(serving_pb2.GenerateRequest(prompt_len=20,"
+        " max_new_tokens=8), controller=cntl)\n"
+        "assert last.wait(10) and frames == list(resp.tokens), resp\n"
+        "assert len(resp.tokens) == 8 and resp.finish_reason == 'length'\n"
+        "srv.stop(); srv.join(); eng.stop()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n")
+
+
+def test_device_data_service_answers_with_no_protobuf():
+    """DeviceDataService's messages are tables of the port's runtime: a
+    Put, a Copy and a Stats through its in-process entry load neither
+    protobuf nor JAX."""
+    _run(
+        "import sys\n"
+        "from brpc_tpu_torch.proto import device_lane_pb2 as pb\n"
+        "from brpc_tpu_torch.tpu import device_lane as dl\n"
+        "code, resp, _ = dl._tpusock_call('cpu', None, pb.DeviceHandle()"
+        ".SerializeToString(), bytes(range(64)), 'Put')\n"
+        "h = pb.DeviceHandle.FromString(resp)\n"
+        "assert code == 0 and h.nbytes == 64, (code, h)\n"
+        "code, resp, _ = dl._tpusock_call('cpu', None, pb.DeviceHandle("
+        "handle=h.handle).SerializeToString(), b'', 'Copy')\n"
+        "assert code == 0 and pb.DeviceHandle.FromString(resp).nbytes == 64\n"
+        "code, resp, _ = dl._tpusock_call('cpu', None, pb.DeviceStatsRequest("
+        "fence=True).SerializeToString(), b'', 'Stats')\n"
+        "assert pb.DeviceStats.FromString(resp).handles == 2, resp\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n")

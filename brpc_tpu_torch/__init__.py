@@ -7,8 +7,11 @@ TPU kernel on a ported path is a CUDA kernel written by hand for Hopper
 (``csrc/``), built with nvcc at first use.
 
 - :mod:`brpc_tpu_torch.tpu` — the device store and its data plane
-  (``tpu.device_lane``, copies by ``tpu.bench_kernels``), the kernels and
-  the flagship LM's single-device training step (``tpu.train``).
+  (``tpu.device_lane``, copies by ``tpu.bench_kernels``) with its
+  ``tpu://`` lane (``tpu.tpusocket`` in process, ``tpu.transport``
+  across processes, ``tpu.device_stream``, ``tpu.mesh`` naming), the
+  kernels and the flagship LM's single-device training step
+  (``tpu.train``).
 - :mod:`brpc_tpu_torch.serving` — the LLM serving engine's prefill and
   decode path: paged KV cache, toy transformer, continuous-batching
   engine, and ``serving.service.LlmServingService`` on the RPC front.
@@ -20,6 +23,7 @@ TPU kernel on a ported path is a CUDA kernel written by hand for Hopper
   message runtime (``proto._message``), so nothing needs protobuf.
 - :mod:`brpc_tpu_torch.graft_entry` — the flagship's graft entry point, ``entry()``.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
-and raise when there is no card.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(for ``tpu://`` ordinals, ``tpu.mesh.use_cpu()``), and raise when there
+is no card.
 """

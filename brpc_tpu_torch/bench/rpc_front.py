@@ -52,6 +52,9 @@ from brpc_tpu_torch.serving.service import LlmServingService  # noqa: E402
 SHAPES = list(zip(cs.PROMPT_LENS, cs.MAX_NEW))
 CONCURRENCY = 8  # the engine's max_batch (chip_smoke.build_engine)
 RETRY_S = 0.001
+# every call's deadline: a non-streamed Generate answers only when its
+# whole request is done, which a loaded host can stretch past a second
+CALL_TIMEOUT_MS = 600000
 KINDS = ("direct", "rpc", "rpc_no_stream", "rpc_switch_0.5ms",
          "rpc_no_profiler", "rpc_client_process")
 METRICS = ("tokens_per_s", "ttft_us_p50", "ttft_us_p99", "latency_us_p50",
@@ -124,6 +127,12 @@ def direct_one(engine):
     return one
 
 
+def channel(target):
+    """The bench's Channel: CALL_TIMEOUT_MS for every call it carries."""
+    return rpc.Channel(rpc.ChannelOptions(
+        timeout_ms=CALL_TIMEOUT_MS)).init(target)
+
+
 def rpc_one(stub, stream=True):
     def one(i):
         plen, max_new = SHAPES[i % len(SHAPES)]
@@ -142,7 +151,7 @@ def rpc_one(stub, stream=True):
             t1 = time.monotonic()
             return toks, t0, t1, t1, refusals
         while True:
-            g = client.generate(stub, req, timeout_ms=600000)
+            g = client.generate(stub, req, timeout_ms=CALL_TIMEOUT_MS)
             if g.error_code != errors.EOVERCROWDED:
                 break
             refusals += 1
@@ -190,7 +199,7 @@ def engine_window(engine, frames, run):
 def client_process(target, n):
     """``--client HOST:PORT``: one streamed window from this process, its
     JSON row and tokens on stdout."""
-    stub = rpc.Stub(rpc.Channel().init(target), client.DESC)
+    stub = rpc.Stub(channel(target), client.DESC)
     client.generate(stub, serving_pb2.GenerateRequest(
         prompt_len=16, max_new_tokens=2))  # connect and warm up
     toks, row = closed_loop(n, rpc_one(stub))
@@ -277,7 +286,7 @@ def main(argv):
     frames = FrameTimer(engine)
     server = rpc.Server().add_service(LlmServingService(engine)) \
         .start("127.0.0.1:0")
-    stub = rpc.Stub(rpc.Channel().init(str(server.listen_endpoint())),
+    stub = rpc.Stub(channel(str(server.listen_endpoint())),
                     client.DESC)
     rows, want, bad = [], {}, 0
     try:

@@ -147,6 +147,9 @@ def _non_negative(v) -> bool:
     return v >= 0
 
 
+circuit_breaker_enabled = define(
+    "circuit_breaker_enabled", True,
+    "isolate error-rate outlier nodes", reloadable=True)
 max_body_size = define(
     "max_body_size", 1 << 31,
     "largest accepted wire message", validator=_positive)
@@ -188,6 +191,30 @@ stream_body_min_bytes = define(
     "a pending-body cursor once their header is cracked, so transport "
     "flow-control credits return mid-message", reloadable=True,
     validator=_positive)
+tpu_tunnel_auto_heal = define(
+    "tpu_tunnel_auto_heal", True,
+    "re-establish a failed tpu:// tunnel in the background (fresh HELLO "
+    "handshake under a new window generation) instead of waiting for the "
+    "next caller to re-dial", reloadable=True)
+tpu_reconnect_backoff_ms = define(
+    "tpu_reconnect_backoff_ms", 50,
+    "initial delay between tpu:// re-handshake attempts; doubles per "
+    "failure up to tpu_reconnect_backoff_max_ms", validator=_positive)
+tpu_reconnect_backoff_max_ms = define(
+    "tpu_reconnect_backoff_max_ms", 2000,
+    "ceiling for the tpu:// reconnect exponential backoff",
+    validator=_positive)
+tpu_reconnect_window_s = define(
+    "tpu_reconnect_window_s", 10.0,
+    "total time budget a background tunnel heal keeps retrying before "
+    "giving up (the next RPC or health probe re-dials on demand)",
+    validator=_positive)
+tpu_doorbell_coalesce_us = define(
+    "tpu_doorbell_coalesce_us", 200,
+    "coalesce FT_ACK credit returns and small response frames produced "
+    "inside one poll-batch round into a single ctrl-socket doorbell, "
+    "bounded by this many microseconds of added hold latency "
+    "(0 = legacy per-message writes)", validator=_non_negative)
 rtc_enable = define(
     "rtc_enable", True,
     "run-to-completion dispatch: execute cheap, small-payload methods "

@@ -4,10 +4,11 @@ Counterpart of the reference's ``src/brpc/policy`` + the registration moment
 ``GlobalInitializeOrDie`` (global.cpp:370-626): ``ensure_registered()`` is
 idempotent and wires the ported protocols into the registry.
 
-The port registers trpc_std and trpc_stream only, and has no C++ core to
+The port registers trpc_std, trpc_stream and the TPUC control protocol
+of the ``tpu://`` tunnel (``tpu/transport.py``), and has no C++ core to
 install (crc32c runs in Python, as the reference's fallback does). HTTP,
-h2, gRPC, redis, mongo, rtmp, thrift, memcache, nshead and the TPUC
-control protocol (``tpu/transport.py``) wait in ROADMAP Queue 1 item 2(b).
+h2, gRPC, redis, mongo, rtmp, thrift, memcache and nshead wait in ROADMAP
+Queue 1 item 2(b).
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ def ensure_registered() -> None:
         from brpc_tpu_torch.rpc.protocol import register_protocol
         from brpc_tpu_torch.policy.trpc_std import TrpcStdProtocol
         from brpc_tpu_torch.policy.trpc_stream import TrpcStreamProtocol
+        from brpc_tpu_torch.tpu.transport import TpuCtrlProtocol
 
         register_protocol(TrpcStdProtocol())
         register_protocol(TrpcStreamProtocol())
+        # early: TPUC magic must never reach text-probing protocols
+        register_protocol(TpuCtrlProtocol())
         _done = True

@@ -1,15 +1,19 @@
 """Channel — the client stub (reference channel.cpp:293,379,433).
 
-``init`` accepts a single endpoint ("host:port", "unix:...").
+``init`` accepts a single endpoint ("host:port", "unix:...",
+"tpu://host/n", "tpu://host:port/n").
 ``call_method`` drives the full client call stack of SURVEY §3.1: controller
 setup -> call-id creation -> timers -> serialize -> issue (select, pack,
 wait-free write) -> sync join or async done.
 
 The port's copy of the JAX package's ``rpc/channel.py`` on its pure-Python
 branch: every call takes the full Controller pipeline (the reference's
-``native_transport`` fast lane needs its C++ core). What is not ported yet
-raises and names its ROADMAP item (Queue 1 item 2(b)): ``tpu://`` targets,
-naming services with load balancers, and ``native_transport``.
+``native_transport`` fast lane needs its C++ core). A ``tpu://host/n``
+target runs the call in process on card n (``tpu/tpusocket.py``); a
+``tpu://host:port/n`` target dials the cross-process tunnel
+(``tpu/transport.py``). What is not ported yet raises and names its
+ROADMAP item (Queue 1 item 2(b)): naming services with load balancers, and
+``native_transport``.
 """
 
 from __future__ import annotations
@@ -101,10 +105,6 @@ class Channel:
                 "native_transport: the C++ core is not ported (ROADMAP "
                 "Queue 1 item 2(b))")
         self._remote = EndPoint.parse(target)
-        if self._remote.is_tpu():
-            raise NotImplementedError(
-                f"{target}: tpu:// channels (tpu/tpusocket.py) are not "
-                f"ported (ROADMAP Queue 1 item 2(b))")
         self._socket_map = global_socket_map()
         self._init_done = True
         return self
@@ -151,6 +151,19 @@ class Channel:
         if cntl is not None and getattr(cntl, "stream_id", 0):
             ctype = "single"
         timeout_ms = int(self.options.connect_timeout_ms)
+        if ep.is_tpu():
+            from brpc_tpu_torch.tpu.tpusocket import get_tpu_socket
+
+            # deadline-aware dial: a healing tunnel may retry-with-backoff
+            # inside connect — bound that by the call's remaining budget so
+            # a short-timeout RPC fails fast instead of riding the full
+            # connect_timeout worth of re-handshake attempts
+            connect_s = timeout_ms / 1000.0
+            call_ms = getattr(cntl, "timeout_ms", 0) if cntl is not None \
+                else 0
+            if call_ms and call_ms > 0:
+                connect_s = min(connect_s, call_ms / 1000.0)
+            return get_tpu_socket(ep, connect_timeout=connect_s)
         # the frame protocols share one connection per endpoint (the
         # reference keys connection-scoped protocols apart; none is ported)
         signature = ""

@@ -108,6 +108,12 @@ class InputMessenger:
         # "parse"; inline (run-to-completion) dispatch re-stamps its own
         # phases and restores back here
         prev_ph = _prof.set_phase("parse")
+        # transports that defer flow-control credits (the tpu tunnel's
+        # borrowed registered blocks) bracket the cut loop so every credit
+        # released while this batch parses coalesces into one ACK frame
+        batch_hook = getattr(sock, "cut_batch_hook", None)
+        if batch_hook is not None:
+            batch_hook.cut_batch_begin()
         try:
             while True:
                 # streaming parse: a protocol that cracked a header but saw
@@ -122,6 +128,14 @@ class InputMessenger:
                     if not cursor.done:
                         break  # mid-body: wait for the next read burst
                     sock.pending_body = None
+                    if batch_hook is not None:
+                        # end-of-body wakeup: the body's final borrowed
+                        # blocks released at feed time — flush their
+                        # credits now (not at batch end) so a peer sender
+                        # parked on the window wakes immediately
+                        eob = getattr(batch_hook, "cut_body_complete", None)
+                        if eob is not None:
+                            eob()
                     msg = cursor.finish()
                     if msg is None:
                         continue  # protocol consumed the body internally
@@ -153,6 +167,8 @@ class InputMessenger:
                         runtime.start_background(
                             _rtc.observe_queued, msg, server)
         finally:
+            if batch_hook is not None:
+                batch_hook.cut_batch_end()
             _prof.set_phase(prev_ph)
         return count
 

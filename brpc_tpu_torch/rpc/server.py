@@ -6,10 +6,13 @@ per-connection sockets, :250,336). Server-side request processing lives in
 server_processing.py.
 
 The port's copy of the JAX package's ``rpc/server.py`` on its pure-Python
-branch: the Python acceptor serves every connection. What is not ported
-yet raises at ``start`` and names its ROADMAP item (Queue 1 item 2(b)):
-the native dataplane (the C++ core), ``tpu://`` listeners and the sharded
-dispatch plane. The builtin Health and view services are not added.
+branch: the Python acceptor serves every connection. A
+``tpu://host:port/n`` listener fronts card n: its TCP port is the tunnel's
+bootstrap, and a connection that says HELLO becomes a tunnel endpoint
+(``tpu/transport.py``). What is not ported yet raises at ``start`` and
+names its ROADMAP item (Queue 1 item 2(b)): the native dataplane (the C++
+core) and the sharded dispatch plane. The builtin Health and view
+services are not added.
 """
 
 from __future__ import annotations
@@ -206,6 +209,8 @@ class Server:
         self._concurrency_lock = threading.Lock()
         self.requests_processed = Adder()
         self._idle_sweep_timer = None
+        self._tpu_ordinal = -1          # device this server fronts (tpu://)
+        self._tpu_endpoints: Set[object] = set()
         self._method_cache = {}         # (service, method) -> MethodEntry
         self._ssl_ctx = None            # built lazily from options.ssl
         self._master_service = None     # catch-all generic service
@@ -289,10 +294,14 @@ class Server:
             self._ssl_ctx = build_server_context(self.options.ssl)
         ep = EndPoint.parse(address)
         if ep.is_tpu():
-            raise NotImplementedError(
-                f"{address}: tpu:// listeners (tpu/transport.py) are not "
-                f"ported (ROADMAP Queue 1 item 2(b))")
-        fam, addr = ep.sockaddr()
+            # tpu://host:port/ordinal — the TCP port is the tunnel bootstrap
+            # (the RDMA handshake listener); accepted connections upgrade to
+            # TpuEndpoints when the TPUC HELLO arrives (tpu/transport.py)
+            self._tpu_ordinal = ep.device_ordinal
+            fam, addr = EndPoint.from_ip_port(ep.host or "0.0.0.0",
+                                              ep.port).sockaddr()
+        else:
+            fam, addr = ep.sockaddr()
         lsock = _socket.socket(fam, _socket.SOCK_STREAM)
         lsock.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
         lsock.bind(addr)
@@ -300,7 +309,11 @@ class Server:
         lsock.setblocking(False)
         self._listen_sock = lsock
         host, port = lsock.getsockname()[:2]
-        self._listen_ep = EndPoint.from_ip_port(host, port)
+        if ep.is_tpu():
+            self._listen_ep = EndPoint.from_tpu(host, ep.device_ordinal,
+                                                port=port)
+        else:
+            self._listen_ep = EndPoint.from_ip_port(host, port)
         self._running = True
         self._logoff = False
         self._dispatcher.add_consumer(
@@ -339,6 +352,10 @@ class Server:
             time.sleep(0.01)
         with self._conn_lock:
             conns = list(self._connections)
+            eps = list(self._tpu_endpoints)
+            self._tpu_endpoints.clear()
+        for e in eps:
+            e.close()   # BYE + pool teardown; also fails the bootstrap conn
         for c in conns:
             c.close()
         if self.tail_retainer is not None:
@@ -449,6 +466,13 @@ class Server:
     def _on_connection_closed(self, sock: Socket) -> None:
         with self._conn_lock:
             self._connections.discard(sock)
+            ep = getattr(sock, "_tpu_endpoint", None)
+            if ep is not None:
+                self._tpu_endpoints.discard(ep)
+
+    def _register_tpu_endpoint(self, ep) -> None:
+        with self._conn_lock:
+            self._tpu_endpoints.add(ep)
 
     def connection_count(self) -> int:
         with self._conn_lock:

@@ -13,10 +13,15 @@ moves on the device.
   copies queued in one call), ``pump`` (the echo loop with a dependent
   checksum), ``fence`` and ``stats``. Every copy is the hand-written
   kernel of ``csrc/copy.cu`` (:mod:`brpc_tpu_torch.tpu.bench_kernels`).
-- :class:`DeviceDataService`: Put / Copy / Pump / Get / Free / Stats over
-  a store, speaking the messages of ``proto/device_lane.proto`` (tables
-  of the port's message runtime; no protobuf); :func:`_tpusock_call` is
-  its in-process entry.
+- :class:`DeviceDataService`: a ``Service`` of the port's RPC server
+  (any transport: TCP, the ``tpu://`` tunnel) with Put / Copy / Pump /
+  Get / Free / Stats over a store, speaking the messages of
+  ``proto/device_lane.proto`` (tables of the port's message runtime; no
+  protobuf). The same methods are registered as device methods of the
+  in-process ``tpu://host/n`` lane (tpu/tpusocket.py), whose calls go
+  through :func:`_tpusock_call` into the same service.
+- The ``g_device_*`` Adders: bytes resident and moved, fused launches and
+  ops, host syncs, across every store of the process.
 - :func:`resolve_device`: the one place that picks the device. ``None``
   means the card; without one it raises, it never carries on on the CPU.
 """
@@ -27,13 +32,22 @@ import collections
 import contextlib
 import logging
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from brpc_tpu_torch import errors
+from brpc_tpu_torch.metrics.reducer import Adder
+from brpc_tpu_torch.proto import device_lane_pb2
+from brpc_tpu_torch.rpc.server import Service
 from brpc_tpu_torch.tpu import bench_kernels
+
+g_device_resident_bytes = Adder("g_device_resident_bytes")
+g_device_moved_bytes = Adder("g_device_moved_bytes")
+g_device_fused_launches = Adder("g_device_fused_launches")
+g_device_fused_ops = Adder("g_device_fused_ops")
+g_device_host_syncs = Adder("g_device_host_syncs")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,10 +83,13 @@ class DispatchCounter:
         with self._lock:
             self.launches += 1
             self.ops += n_ops
+        g_device_fused_launches.put(1)
+        g_device_fused_ops.put(n_ops)
 
     def note_host_sync(self) -> None:
         with self._lock:
             self.host_syncs += 1
+        g_device_host_syncs.put(1)
 
     def snapshot(self) -> Tuple[int, int, int]:
         with self._lock:
@@ -141,11 +158,15 @@ class DeviceStore:
             self._arrays[h] = arr
             self._resident_bytes += n
             self._moved_bytes += moved
+        g_device_resident_bytes.put(n)
+        if moved:
+            g_device_moved_bytes.put(moved)
         return h
 
     def _add_moved(self, n: int) -> None:
         with self._lock:
             self._moved_bytes += n
+        g_device_moved_bytes.put(n)
 
     # ------------------------------------------------------------ data plane
     def put(self, data: bytes) -> Tuple[int, int]:
@@ -245,7 +266,10 @@ class DeviceStore:
             if old is None:
                 return False
             self._arrays[handle] = arr
-            self._resident_bytes += _nbytes(arr) - _nbytes(old)
+            delta = _nbytes(arr) - _nbytes(old)
+            self._resident_bytes += delta
+        if delta:
+            g_device_resident_bytes.put(delta)
         return True
 
     def free(self, handle: int) -> bool:
@@ -253,7 +277,10 @@ class DeviceStore:
             arr = self._arrays.pop(handle, None)
             if arr is not None:
                 self._resident_bytes -= _nbytes(arr)
-        return arr is not None
+        if arr is None:
+            return False
+        g_device_resident_bytes.put(-_nbytes(arr))
+        return True
 
     # ------------------------------------------------- transient dispatcher
     def _enqueue(self, arrs) -> None:
@@ -343,44 +370,21 @@ def global_store(device=None) -> DeviceStore:
         return store
 
 
-class MethodEntry(NamedTuple):
-    name: str
-    fn: object
-    request_class: type
-    response_class: type
+class DeviceDataService(Service):
+    """Device-resident payload service over the port's RPC stack (full
+    policy path; any transport): payload bytes ride attachments exactly
+    once (Put / Get); Copy and Pump move data on the device."""
 
-
-class DeviceDataService:
-    """Device-resident payload service: payload bytes ride attachments
-    exactly once (Put / Get); Copy and Pump move data on the device.
-
-    The method table is built from the service descriptor, as the JAX
-    package's ``Service`` base builds it (``brpc_tpu/rpc/server.py``);
-    each method takes ``(cntl, request, done)`` and returns its response.
-    Nothing registers it on the port's ``Server`` yet (ROADMAP Queue 1
-    item 2(b))."""
+    DESCRIPTOR = device_lane_pb2.DESCRIPTOR.services_by_name[
+        "DeviceDataService"]
 
     def __init__(self, store: Optional[DeviceStore] = None):
-        from brpc_tpu_torch.proto import device_lane_pb2
-        from brpc_tpu_torch.proto._message import get_message_class
-
-        self._pb = device_lane_pb2
-        self.DESCRIPTOR = device_lane_pb2.DESCRIPTOR.services_by_name[
-            "DeviceDataService"]
+        super().__init__()
         self.store = store if store is not None else global_store()
-        self._methods = {
-            m.name: MethodEntry(
-                m.name, getattr(self, m.name),
-                get_message_class(m.input_type),
-                get_message_class(m.output_type))
-            for m in self.DESCRIPTOR.methods}
-
-    def find_method(self, name: str) -> Optional[MethodEntry]:
-        return self._methods.get(name)
 
     def Put(self, cntl, request, done):
         handle, n = self.store.put(cntl.request_attachment)
-        return self._pb.DeviceHandle(handle=handle, nbytes=n)
+        return device_lane_pb2.DeviceHandle(handle=handle, nbytes=n)
 
     def Copy(self, cntl, request, done):
         # request.nbytes == -1: one transient copy (bounded ring, handle
@@ -393,37 +397,37 @@ class DeviceDataService:
         if out is None:
             cntl.set_failed(errors.ENOMETHOD,
                             f"no device handle {request.handle}")
-            return self._pb.DeviceHandle()
+            return device_lane_pb2.DeviceHandle()
         h, n = out
-        return self._pb.DeviceHandle(handle=h, nbytes=n)
+        return device_lane_pb2.DeviceHandle(handle=h, nbytes=n)
 
     def Pump(self, cntl, request, done):
         out = self.store.pump(request.handle, request.rounds)
         if out is None:
             cntl.set_failed(errors.ENOMETHOD,
                             f"no pumpable device handle {request.handle}")
-            return self._pb.PumpResult()
+            return device_lane_pb2.PumpResult()
         checksum, moved = out
-        return self._pb.PumpResult(checksum=checksum, moved_bytes=moved)
+        return device_lane_pb2.PumpResult(checksum=checksum, moved_bytes=moved)
 
     def Get(self, cntl, request, done):
         data = self.store.get(request.handle)
         if data is None:
             cntl.set_failed(errors.ENOMETHOD,
                             f"no device handle {request.handle}")
-            return self._pb.DeviceHandle()
+            return device_lane_pb2.DeviceHandle()
         cntl.response_attachment = data
-        return self._pb.DeviceHandle(handle=request.handle, nbytes=len(data))
+        return device_lane_pb2.DeviceHandle(handle=request.handle, nbytes=len(data))
 
     def Free(self, cntl, request, done):
         ok = self.store.free(request.handle)
-        return self._pb.DeviceHandle(handle=request.handle if ok else 0)
+        return device_lane_pb2.DeviceHandle(handle=request.handle if ok else 0)
 
     def Stats(self, cntl, request, done):
         if request.fence:
             self.store.fence()
         count, resident, moved = self.store.stats()
-        return self._pb.DeviceStats(handles=count, resident_bytes=resident,
+        return device_lane_pb2.DeviceStats(handles=count, resident_bytes=resident,
                                     moved_bytes=moved)
 
 
@@ -462,3 +466,16 @@ def _tpusock_call(device, meta, payload: bytes, attachment: bytes,
     if cntl.error is not None:
         return cntl.error[0], b"", b""
     return 0, resp.SerializeToString(), cntl.response_attachment
+
+
+def _register_tpusocket_methods() -> None:
+    from brpc_tpu_torch.tpu.tpusocket import register_device_method
+
+    for m in ("Put", "Copy", "Pump", "Get", "Free", "Stats"):
+        register_device_method(
+            "DeviceDataService", m,
+            lambda device, meta, p, a, _m=m: _tpusock_call(device, meta,
+                                                           p, a, _m))
+
+
+_register_tpusocket_methods()

@@ -69,7 +69,11 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, brpc_tpu_torch.serving, brpc_tpu_torch.tpu.pallas_ops,"
             " brpc_tpu_torch.tpu._build, brpc_tpu_torch.serving.weights,"
             " brpc_tpu_torch.tpu.train, brpc_tpu_torch.tpu.ring,"
-            " brpc_tpu_torch.tpu.bench_kernels, brpc_tpu_torch.tpu.device_lane\n"
+            " brpc_tpu_torch.tpu.bench_kernels, brpc_tpu_torch.tpu.device_lane,"
+            " brpc_tpu_torch.tpu.tpusocket, brpc_tpu_torch.tpu.transport,"
+            " brpc_tpu_torch.tpu.device_stream, brpc_tpu_torch.tpu.mesh,"
+            " brpc_tpu_torch.rpc.circuit_breaker,"
+            " brpc_tpu_torch.analysis.runtime_check\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'brpc_tpu'))\n"
             "assert not bad, bad\n")
@@ -153,3 +157,49 @@ def test_device_data_service_answers_with_no_protobuf():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n")
+
+
+def test_the_tpu_lane_answers_over_the_tunnel_with_no_protobuf_or_jax():
+    """The tpu:// lane stands alone: a child process of the port serves
+    EchoService and DeviceDataService on tpu://127.0.0.1:0/0, this one
+    calls both through the cross-process tunnel (a 1 MiB echo in the
+    shared-memory blocks, a Put and a Get), and also echoes in process
+    through tpu://localhost/0; neither process loads protobuf or JAX."""
+    _run(
+        "import subprocess, sys\n"
+        "import brpc_tpu_torch.rpc as rpc\n"
+        "from brpc_tpu_torch.proto import device_lane_pb2 as dpb, echo_pb2\n"
+        "from brpc_tpu_torch.tpu import mesh, transport\n"
+        "mesh.use_cpu()\n"
+        "child = subprocess.Popen([sys.executable,"
+        " 'brpc_tpu_torch/bench/tpu_lane.py', '--serve', '--cpu'],"
+        " stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)\n"
+        "ep = child.stdout.readline().split()[1]\n"
+        "assert ep.startswith('tpu://127.0.0.1:'), ep\n"
+        "ch = rpc.Channel(rpc.ChannelOptions(timeout_ms=30000)).init(ep)\n"
+        "echo = rpc.Stub(ch, echo_pb2.DESCRIPTOR.services_by_name"
+        "['EchoService'])\n"
+        "data = bytes(range(256)) * 4096\n"
+        "b0 = transport.g_tunnel_borrowed_bytes.get_value()\n"
+        "assert echo.Echo(echo_pb2.EchoRequest(message='m',"
+        " payload=data)).payload == data\n"
+        "assert transport.g_tunnel_borrowed_bytes.get_value() - b0 >="
+        " len(data)\n"
+        "dsvc = rpc.Stub(ch, dpb.DESCRIPTOR.services_by_name"
+        "['DeviceDataService'])\n"
+        "c = rpc.Controller(); c.request_attachment = data[:5000]\n"
+        "h = dsvc.Put(dpb.DeviceHandle(), controller=c).handle\n"
+        "g = rpc.Controller()\n"
+        "dsvc.Get(dpb.DeviceHandle(handle=h), controller=g)\n"
+        "assert g.response_attachment == data[:5000]\n"
+        "local = rpc.Stub(rpc.Channel().init('tpu://localhost/0'),"
+        " echo_pb2.DESCRIPTOR.services_by_name['EchoService'])\n"
+        "assert local.Echo(echo_pb2.EchoRequest(payload=data[:99]))"
+        ".payload == data[:99]\n"
+        "out, _ = child.communicate(timeout=60)\n"
+        "assert child.returncode == 0, out\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n"
+        "served = [x for x in out.splitlines() if x.startswith('SERVED ')]\n"
+        "assert '\"foreign_modules\": []' in served[0], served\n")

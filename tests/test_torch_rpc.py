@@ -210,14 +210,10 @@ def test_typed_stub_round_trip_on_the_port():
 
 def test_what_is_not_ported_refuses():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_rpc.Channel().init("tpu://127.0.0.1:1/0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_rpc.Channel().init("list://127.0.0.1:1", "rr")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_rpc.Channel(port_rpc.ChannelOptions(
             native_transport=True)).init("127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_rpc.Server().start("tpu://127.0.0.1:0/0")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_rpc.Server(port_rpc.ServerOptions(
             native_dataplane=True)).start("127.0.0.1:0")
@@ -228,17 +224,15 @@ def test_what_is_not_ported_refuses():
     finally:
         port_flags.set_flag("tpu_shard_workers", "0")
     from brpc_tpu_torch.rpc.protocol import list_protocols
-    assert [p.name for p in list_protocols()] == ["trpc_std", "trpc_stream"]
+    assert [p.name for p in list_protocols()] == ["trpc_std", "trpc_stream",
+                                                  "tpu_ctrl"]
 
 
 # Flags the reference defines for features this slice does not port: the
 # port leaves them undefined, so setting one fails instead of passing
 # silently.
 _UNPORTED_FLAGS = (
-    "health_check_interval_s", "circuit_breaker_enabled",
-    "tpu_tunnel_auto_heal", "tpu_reconnect_backoff_ms",
-    "tpu_reconnect_backoff_max_ms", "tpu_reconnect_window_s",
-    "tpu_doorbell_coalesce_us", "tpu_shard_rebalance_pct",
+    "health_check_interval_s", "tpu_shard_rebalance_pct",
     "tpu_shard_respawn_backoff_ms", "tpu_shard_respawn_max",
     "tpu_shard_ring_mb", "tpu_shard_forward_max", "shard_vars_interval_s",
     "serving_shard_skew_ratio", "serving_prefix_cache_enabled",
@@ -256,6 +250,39 @@ def test_flags_of_unported_features_are_refused(name):
     assert port_flags.find(name) is None
     with pytest.raises(port_flags.FlagError, match="unknown flag"):
         port_flags.set_flag(name, "1")
+
+
+# The tunnel's flags (tpu/transport.py, rpc/circuit_breaker.py) came with
+# the tpu:// lane: defined with the reference's defaults, reloadability
+# and validators.
+_TUNNEL_FLAGS = (
+    "circuit_breaker_enabled", "tpu_tunnel_auto_heal",
+    "tpu_reconnect_backoff_ms", "tpu_reconnect_backoff_max_ms",
+    "tpu_reconnect_window_s", "tpu_doorbell_coalesce_us")
+
+
+@pytest.mark.parametrize("name", _TUNNEL_FLAGS)
+def test_flags_of_the_tunnel_match_the_reference(name):
+    import brpc_tpu.flags as jax_flags
+
+    j, p = jax_flags.find(name), port_flags.find(name)
+    assert p is not None
+    assert (p.default, p.reloadable, type(p.default)) == \
+        (j.default, j.reloadable, type(j.default))
+    for bad in ("0", "-1"):
+        jax_ok = port_ok = True
+        try:
+            jax_flags.set_flag(name, bad)
+        except jax_flags.FlagError:
+            jax_ok = False
+        try:
+            port_flags.set_flag(name, bad)
+        except port_flags.FlagError:
+            port_ok = False
+        assert jax_ok == port_ok, (name, bad)
+    jax_flags.set_flag(name, str(j.default))
+    port_flags.set_flag(name, str(p.default))
+    assert port_flags.get(name) == jax_flags.get(name) == j.default
 
 
 def test_default_watch_rules_read_exported_variables():

@@ -238,3 +238,30 @@ tpu_shard_workers = define(
     "the sharded dispatch plane is not ported, so Server.start refuses "
     "any value above 0 (ROADMAP Queue 1 item 2(b))",
     validator=_non_negative)
+serving_prefix_cache_enabled = define(
+    "serving_prefix_cache_enabled", True,
+    "radix prefix cache over the paged KV pools: admission forks the "
+    "longest cached block-aligned prefix chain (refcount++, zero "
+    "copies) and prefills only the suffix; completion commits full "
+    "blocks back into the tree (reloadable: the engine reads the flag "
+    "per admission)", validator=lambda v: v in (True, False, 0, 1))
+serving_prefix_evict_watermark = define(
+    "serving_prefix_evict_watermark", 0.80,
+    "prefix-cache trim target: tree commits evict LRU refcount-1 "
+    "chains until pool occupancy is back under this ratio, keeping the "
+    "slack up to the admission watermark as decode headroom "
+    "(reloadable: read at every trim)",
+    validator=lambda v: 0.0 < float(v) <= 1.0)
+serving_prefix_thrash_rate = define(
+    "serving_prefix_thrash_rate", 20.0,
+    "serving_prefix_thrash watch rule fires when prefix-cache eviction "
+    "sustains above this many blocks/s: the tree is churning instead "
+    "of caching (reloadable: the rule reads the flag at every tick)",
+    validator=_positive)
+serving_spec_accept_rate_min = define(
+    "serving_spec_accept_rate_min", 0.2,
+    "serving_spec_collapse watch rule fires when the speculative-decode "
+    "accept rate (accepted/drafted over recent steps) sustains below "
+    "this bound: drafts are being rejected wholesale and the verify "
+    "rows are wasted compute (reloadable: the rule reads the flag at "
+    "every tick)", validator=lambda v: 0.0 < float(v) <= 1.0)

@@ -14,8 +14,9 @@ can't flap a rule. Transitions bump ``g_watch_transitions``, update the
 ``/watch`` builtin, and emit a short structured span (service ``watch``) so
 firings land in the span DB, ``/rpcz`` and OTLP export.
 
-``install_default_rules()`` pre-wires the canonical failure signal over the
-variables the port exports: the server's deadline-expiry rate.
+``install_default_rules()`` pre-wires the canonical failure signals over the
+variables the port exports: the server's deadline-expiry rate, the prefix
+cache's eviction rate and the speculative lane's accept rate.
 """
 
 from __future__ import annotations
@@ -257,15 +258,37 @@ def ensure_watch_hooked(series: Optional[SeriesRegistry] = None) -> WatchRegistr
 
 
 def install_default_rules() -> None:
-    """Pre-wire the canonical plane-health rule (idempotent)."""
+    """Pre-wire the canonical plane-health rules (idempotent)."""
     global _defaults_installed
     with _install_lock:
-        if _defaults_installed:
-            return
-        _defaults_installed = True
-    # the one canonical rule over a variable the port exports; the
-    # reference's tunnel, shard, KV and serving-feature rules come back
-    # with the slices that port their variables
-    _global_watch.add(WatchRule(
+        # the flag goes up only once every rule is in, so a second caller
+        # never returns to a half-filled registry
+        if not _defaults_installed:
+            _add_default_rules()
+            _defaults_installed = True
+
+
+def _add_default_rules() -> None:
+    # the rules over variables the port exports; the reference's tunnel,
+    # shard, KV, migration and QoS rules come back when their variables
+    # are ported
+    from brpc_tpu_torch import flags as _flags
+    w = _global_watch
+    w.add(WatchRule(
         "deadline_expiry_rate", "g_server_deadline_expired", KIND_RATE,
         ">", 0.5, window_s=10, for_ticks=2, clear_ticks=5))
+    # prefix cache: sustained eviction means the radix tree is thrashing,
+    # the working set of prefixes outruns the pool's cache headroom.
+    # Bound: the reloadable serving_prefix_thrash_rate flag (blocks/s)
+    w.add(WatchRule(
+        "serving_prefix_thrash", "g_serving_prefix_evicted_blocks",
+        KIND_RATE, ">", 20, window_s=10, for_ticks=2, clear_ticks=5,
+        value_fn=lambda: _flags.get("serving_prefix_thrash_rate")))
+    # speculative decoding: the accept-rate gauge sliding below the bound
+    # means prompt-lookup drafts stopped matching the model's output, a
+    # fleet-wide collapse the per-sequence AdaptiveK guard can only mask.
+    # Bound: the reloadable serving_spec_accept_rate_min flag
+    w.add(WatchRule(
+        "serving_spec_collapse", "g_serving_spec_accept_rate",
+        KIND_THRESHOLD, "<", 0.2, window_s=10, for_ticks=2, clear_ticks=5,
+        value_fn=lambda: _flags.get("serving_spec_accept_rate_min")))

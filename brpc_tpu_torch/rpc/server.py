@@ -271,6 +271,10 @@ class Server:
             install_default_rules,
         )
 
+        # the deadline rule reads a counter of the request path, which is
+        # otherwise imported only when the first request arrives
+        from brpc_tpu_torch.rpc import server_processing  # noqa: F401
+
         ensure_series_installed()
         ensure_watch_hooked()
         install_default_rules()

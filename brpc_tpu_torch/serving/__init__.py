@@ -7,9 +7,19 @@
   handle, flash-attention prefill, one decode step per engine step.
 - :mod:`brpc_tpu_torch.serving.weights` — carries weights to and from
   the JAX model.
+- :mod:`brpc_tpu_torch.serving.prefix_cache` — radix tree over token
+  prefixes mapping to refcounted KV block chains: admission forks the
+  longest cached prefix (no copy), completion commits blocks back
+  (insert-or-share), eviction is watermark-aware LRU over refcount-1
+  chains.
+- :mod:`brpc_tpu_torch.serving.speculative` — the speculative-decoding
+  draft lane: host-side prompt-lookup drafting feeding the model's one
+  ``verify_step`` launch per step; greedy acceptance keeps the tokens
+  those of plain decode while committing up to k+1 a step.
 - :mod:`brpc_tpu_torch.serving.engine` — the iteration-level scheduler
-  (continuous batching); its ``submit(..., done=...)`` is the entry point
-  below the RPC front.
+  (continuous batching, the prefix cache on by default, ``spec_k``
+  speculative decoding); its ``submit(..., done=...)`` is the entry
+  point below the RPC front.
 - :mod:`brpc_tpu_torch.serving.service` — ``LlmServingService``
   (``Generate`` with per-token streams, ``Stats``) for a
   ``brpc_tpu_torch.rpc.Server``; imported on its own, so the engine's
@@ -20,10 +30,18 @@ from brpc_tpu_torch.serving.kv_cache import (KVCacheConfig, KVCacheFull,
                                              PagedKVCache)
 from brpc_tpu_torch.serving.model import ModelConfig, TinyTransformer
 from brpc_tpu_torch.serving.engine import (EngineConfig, GenerateResult,
-                                           ServingEngine)
+                                           ServingEngine, active_engines)
+from brpc_tpu_torch.serving.prefix_cache import (PrefixCache,
+                                                 build_prefix_cache,
+                                                 prefix_route_key)
+from brpc_tpu_torch.serving.speculative import (AdaptiveK,
+                                                accept_longest_prefix,
+                                                draft_tokens)
 
 __all__ = [
     "KVCacheConfig", "KVCacheFull", "PagedKVCache",
     "ModelConfig", "TinyTransformer",
-    "EngineConfig", "GenerateResult", "ServingEngine",
+    "EngineConfig", "GenerateResult", "ServingEngine", "active_engines",
+    "PrefixCache", "build_prefix_cache", "prefix_route_key",
+    "AdaptiveK", "accept_longest_prefix", "draft_tokens",
 ]

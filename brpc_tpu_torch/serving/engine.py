@@ -31,8 +31,21 @@ EFAILEDSOCKET. Spans get ``prefill_us`` / ``decode_us`` phases, the
 profiler the ``prefill`` / ``decode`` phases, ``/vars`` the
 ``g_serving_*`` counters and recorders, and the fault points
 ``serving.decode.stall`` and ``serving.kv.exhaust`` are armed as in the
-JAX engine. QoS, speculative decoding, the prefix cache and migration are
-not ported yet.
+JAX engine.
+
+The reference's defaults: a radix prefix cache (``serving/
+prefix_cache.py``) is built over the pool whenever the model has
+``prefill_suffix`` and gates every admission on the
+``serving_prefix_cache_enabled`` flag. A prompt whose block-aligned
+prefix is cached forks that chain (no copy) and prefills only the
+suffix, in one decode-shaped launch; a finished sequence commits its
+full blocks into the tree; ``prefix_cache=False`` turns the cache off.
+``EngineConfig(spec_k=k)`` turns each decode step into k drafted tokens
+per sequence (``serving/speculative.py``, host-side prompt lookup) and
+one ``verify_step`` launch, committing the longest accepted prefix plus
+one bonus token; greedy acceptance keeps the tokens those of
+``spec_k=0``. Still to port: QoS (ROADMAP Queue 1 item 5) and KV
+migration (item 6).
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ from brpc_tpu_torch.metrics.reducer import Adder
 from brpc_tpu_torch.metrics.status import PassiveStatus
 from brpc_tpu_torch.profiling import registry as _prof
 from brpc_tpu_torch.proto import serving_pb2
+from brpc_tpu_torch.serving import speculative as _spec
 from brpc_tpu_torch.serving.kv_cache import KVCacheFull, PagedKVCache
 from brpc_tpu_torch.tpu.device_lane import step_dispatch
 
@@ -105,9 +119,12 @@ class EngineConfig:
     def __init__(self, max_batch: int = 8, token_budget: int = 512,
                  max_queue: int = 64, max_new_tokens_cap: int = 512,
                  scheduling: str = SCHED_CONTINUOUS,
-                 idle_wait_s: float = 0.05):
+                 idle_wait_s: float = 0.05, spec_k: int = 0,
+                 spec_ngram: int = 3, spec_collapse_after: int = 4):
         if scheduling not in (SCHED_CONTINUOUS, SCHED_STATIC):
             raise ValueError(f"unknown scheduling {scheduling!r}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         self.max_batch = max_batch
         # per-step budget over prefill tokens + one decode token per
         # running sequence (the Orca iteration-level knob)
@@ -116,6 +133,13 @@ class EngineConfig:
         self.max_new_tokens_cap = max_new_tokens_cap
         self.scheduling = scheduling
         self.idle_wait_s = idle_wait_s
+        # speculative decoding: spec_k > 0 turns each decode step into
+        # draft-k + one verify launch; per sequence the AdaptiveK
+        # controller shrinks k on rejection and collapses to plain decode
+        # after spec_collapse_after consecutive zero-accept steps
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self.spec_collapse_after = spec_collapse_after
 
 
 @dataclasses.dataclass
@@ -158,6 +182,11 @@ class Sequence:
         self.stream_id = stream_id
         self.state = STATE_WAITING
         self.out_tokens: List[int] = []
+        # tokens covered by a forked prefix-cache chain (block-aligned);
+        # prefill runs only the suffix past this point
+        self.prefix_len = 0
+        # the per-sequence AdaptiveK, made at its first speculative step
+        self.spec = None
         self.t_submit = time.monotonic()
         self.t_first_token = 0.0
         self.t_last_token = 0.0
@@ -174,10 +203,22 @@ class Sequence:
 
 class ServingEngine:
     def __init__(self, model, kv: Optional[PagedKVCache] = None,
-                 config: Optional[EngineConfig] = None):
+                 config: Optional[EngineConfig] = None, prefix_cache=None):
         self.model = model
         self.kv = kv if kv is not None else model.kv
         self.config = config or EngineConfig()
+        # radix prefix cache: None builds one over the pool (each
+        # admission still reads the serving_prefix_cache_enabled flag),
+        # False turns it off (cold lanes, comparison runs)
+        if prefix_cache is None and hasattr(model, "prefill_suffix"):
+            from brpc_tpu_torch.serving.prefix_cache import \
+                build_prefix_cache
+            prefix_cache = build_prefix_cache(self.kv)
+        self.prefix = prefix_cache or None
+        # per-engine speculative counters (the module's g_serving_spec_*
+        # variables sum the process)
+        self.spec_stats = (_spec.SpecStats()
+                           if self.config.spec_k > 0 else None)
         self._cv = threading.Condition()
         self._waiting: Deque[Sequence] = collections.deque()
         self._running: List[Sequence] = []
@@ -222,6 +263,9 @@ class ServingEngine:
             self._running = []
         for seq in pending:
             self._finish(seq, abort_code, "engine stopped")
+        if self.prefix is not None:
+            # release every tree hold so assert_idle sees the pool whole
+            self.prefix.clear()
         with _engines_lock:
             if self in _engines:
                 _engines.remove(self)
@@ -271,14 +315,26 @@ class ServingEngine:
             # watermark backpressure counts queued-but-unadmitted prefill
             # tokens too, else a burst overcommits the pool before the
             # step loop catches up
-            queued = sum(s.context_len() for s in self._waiting)
-            if not self.kv.can_admit(queued + len(prompt)):
-                self.kv.note_rejected()
-                self.rejected += 1
-                g_serving_rejected.put(1)
-                return errors.EOVERCROWDED, None
             seq = Sequence(prompt, max_new_tokens, stop_token, done, cntl,
                            stream_id)
+            queued = sum(s.context_len() for s in self._waiting)
+            need = queued + len(prompt)
+            if self.prefix is not None:
+                # a cached prefix's blocks already count in the pool's
+                # occupancy: only the suffix is new demand
+                need = queued + max(1, len(prompt)
+                                    - self.prefix.match_len(prompt))
+            if not self.kv.can_admit(need, route_key=seq.seq_id):
+                # before refusing, ask the tree to give back LRU
+                # refcount-1 chains; the watermark itself is unchanged
+                if not (self.prefix is not None
+                        and self.prefix.evict_for_admission(
+                            need, route_key=seq.seq_id)
+                        and self.kv.can_admit(need, route_key=seq.seq_id)):
+                    self.kv.note_rejected()
+                    self.rejected += 1
+                    g_serving_rejected.put(1)
+                    return errors.EOVERCROWDED, None
             self._waiting.append(seq)
             self._cv.notify()
         return 0, seq
@@ -326,9 +382,12 @@ class ServingEngine:
         if cfg.scheduling == SCHED_STATIC and self._running:
             return []
         admitted: List[Sequence] = []
-        budget = cfg.token_budget - len(self._running)
+        # a speculating sequence can commit up to 1 + k tokens a step, so
+        # it reserves that many budget slots, not one
+        budget = cfg.token_budget - sum(self._decode_cost(s)
+                                        for s in self._running)
         while (self._waiting and len(self._running) < cfg.max_batch
-               and budget >= len(self._waiting[0].prompt)):
+               and budget >= self._prefill_cost(self._waiting[0])):
             seq = self._waiting[0]
             deadline = (getattr(seq.cntl, "deadline_mono", 0.0)
                         if seq.cntl else 0.0)
@@ -341,18 +400,60 @@ class ServingEngine:
             try:
                 self._alloc_for(seq)
             except KVCacheFull:
-                break  # keep FIFO order; retry next step
+                # one retry after asking the tree for its LRU refcount-1
+                # chains; still full means out of headroom: keep FIFO
+                # order and retry next step
+                if not (self.prefix is not None
+                        and self.prefix.evict_for_admission(
+                            seq.context_len(), route_key=seq.seq_id)):
+                    break
+                try:
+                    self._alloc_for(seq)
+                except KVCacheFull:
+                    break
             self._waiting.popleft()
-            budget -= len(seq.prompt)
+            budget -= self._prefill_cost(seq)
             seq.state = STATE_RUNNING
             self._running.append(seq)
             admitted.append(seq)
             g_serving_admitted.put(1)
         return admitted
 
+    def _decode_cost(self, seq: Sequence) -> int:
+        """Step-budget cost of one decode step for ``seq``: the most
+        tokens it can commit (1 + its current draft length)."""
+        if self.config.spec_k <= 0:
+            return 1
+        k = seq.spec.k if seq.spec is not None else self.config.spec_k
+        return 1 + k
+
+    def _prefill_cost(self, seq: Sequence) -> int:
+        """Step-budget cost of prefilling ``seq``: only the suffix past
+        the cached prefix runs through the model (>= 1: the first token
+        is always sampled here)."""
+        if self.prefix is None:
+            return len(seq.prompt)
+        if seq.prefix_len:  # already forked (allocated, not yet stepped)
+            return max(1, len(seq.prompt) - seq.prefix_len)
+        return max(1, len(seq.prompt) - self.prefix.match_len(seq.prompt))
+
     def _alloc_for(self, seq: Sequence) -> None:
-        """Allocate ``seq``'s block table (cold: no prefix reuse yet)."""
-        self.kv.alloc_sequence(seq.seq_id, seq.context_len())
+        """Allocate ``seq``'s block table, forking the longest cached
+        prefix chain when the tree has one (refcount++, no copy), else
+        cold."""
+        matched = (self.prefix.fork(seq.seq_id, seq.prompt)
+                   if self.prefix is not None else 0)
+        if not matched:
+            self.kv.alloc_sequence(seq.seq_id, seq.context_len())
+            return
+        seq.prefix_len = matched
+        try:
+            # grow the adopted chain to cover the prompt + decode slot
+            self.kv.extend_sequence(seq.seq_id, seq.context_len())
+        except KVCacheFull:
+            self.kv.free_sequence(seq.seq_id)  # unwind the fork
+            seq.prefix_len = 0
+            raise
 
     def _step(self, admitted: List[Sequence]) -> None:
         t0 = time.perf_counter_ns()
@@ -362,10 +463,21 @@ class ServingEngine:
             try:
                 for seq in admitted:
                     tp0 = time.perf_counter_ns()
-                    table = self.kv.block_table(seq.seq_id)
-                    first = self.model.prefill(seq.prompt, table)
-                    g_serving_prefill_tokens.put(len(seq.prompt))
-                    self.prefill_tokens += len(seq.prompt)
+                    if seq.prefix_len:
+                        # forked chain: split the divergence block if it
+                        # is shared, then run only the suffix (one
+                        # decode-shaped launch)
+                        self.kv.ensure_writable(seq.seq_id, seq.prefix_len)
+                        table = self.kv.block_table(seq.seq_id)
+                        first = self.model.prefill_suffix(
+                            seq.prompt, table, seq.prefix_len)
+                        n = len(seq.prompt) - seq.prefix_len
+                    else:
+                        table = self.kv.block_table(seq.seq_id)
+                        first = self.model.prefill(seq.prompt, table)
+                        n = len(seq.prompt)
+                    g_serving_prefill_tokens.put(n)
+                    self.prefill_tokens += n
                     self._append_token(seq, first)
                     span = getattr(seq.cntl, "span", None)
                     if span is not None:
@@ -382,21 +494,31 @@ class ServingEngine:
             try:
                 _fault.maybe_sleep(_fault.hit("serving.decode.stall"))
                 td0 = time.perf_counter_ns()
+                spec_on = (self.config.spec_k > 0
+                           and hasattr(self.model, "verify_step"))
                 tokens = np.array([s.out_tokens[-1] for s in batch],
                                   dtype=np.int32)
                 # the step's input token (last sampled) is written at the
                 # end of the current context, so capacity must cover
                 # context_len() and the write position is context_len()-1
                 positions = np.array([s.pos for s in batch], dtype=np.int32)
-                tables = [self.kv.extend_sequence(s.seq_id, s.context_len())
-                          for s in batch]
+                drafts = (self._draft(batch) if spec_on
+                          else [[] for _ in batch])
+                tables = [self.kv.extend_sequence(
+                    s.seq_id, s.context_len() + len(d))
+                    for s, d in zip(batch, drafts)]
                 # dispatch-count invariant: under an armed ledger the whole
-                # decode batch must cost exactly ONE launch + ONE host sync
+                # decode batch, all k+1 verify rows per sequence included,
+                # must cost exactly ONE launch + ONE host sync
                 audit = (getattr(self.model, "FUSED_STEP", False)
                          and self.kv._check)
                 if audit:
                     d_before = step_dispatch.snapshot()
-                nxt = self.model.decode_step(tokens, positions, tables)
+                if spec_on:
+                    outs = self.model.verify_step(tokens, positions, tables,
+                                                  drafts)
+                else:
+                    nxt = self.model.decode_step(tokens, positions, tables)
                 if audit:
                     launches, _, syncs = step_dispatch.delta(
                         d_before, step_dispatch.snapshot())
@@ -406,15 +528,23 @@ class ServingEngine:
                             f"{syncs} host syncs for {len(batch)} seqs; "
                             f"the step contract is exactly (1, 1)")
                 decode_us = (time.perf_counter_ns() - td0) / 1000.0
-                for s, tok in zip(batch, nxt):
-                    self._append_token(s, int(tok))
+                if spec_on:
+                    self._commit_speculative(batch, drafts, outs)
+                else:
+                    for s, tok in zip(batch, nxt):
+                        self._append_token(s, int(tok))
                 for s in batch:
                     span = getattr(s.cntl, "span", None)
                     if span is not None:
                         span.add_phase("decode_us", decode_us / len(batch))
             except KVCacheFull:
                 # mid-decode exhaustion: shed the youngest sequence; the
-                # admission watermark should make this rare, never fatal
+                # admission watermark should make this rare, never fatal.
+                # Speculative headroom blocks taken before the failure go
+                # back first, so the shed is no bigger than without drafts
+                if self.config.spec_k > 0:
+                    for s in batch:
+                        self.kv.truncate_sequence(s.seq_id, s.context_len())
                 self._finish(batch[-1], errors.EOVERCROWDED,
                              "kv pool exhausted mid-decode")
                 self._running.remove(batch[-1])
@@ -429,8 +559,78 @@ class ServingEngine:
         if len(self.step_samples) < 65536:
             self.step_samples.append(self.last_step_us)
 
+    def _draft(self, batch: List[Sequence]) -> List[List[int]]:
+        """The draft lane: host-side prompt lookup over each sequence's
+        committed history, no device work before the one verify launch.
+        k is capped at remaining - 1 (a full accept plus the bonus lands
+        exactly on max_new_tokens), so the chain never outgrows the KV
+        bound admission allowed."""
+        cfg = self.config
+        vocab = getattr(self.model.config, "vocab", 0)
+        drafts = []
+        for s in batch:
+            if s.spec is None:
+                s.spec = _spec.AdaptiveK(cfg.spec_k, cfg.spec_collapse_after)
+            k = min(s.spec.k, max(0, s.max_new_tokens
+                                  - len(s.out_tokens) - 1))
+            drafts.append(_spec.draft_tokens(
+                list(s.prompt) + s.out_tokens, k, cfg.spec_ngram, vocab)
+                if k > 0 else [])
+        return drafts
+
+    def _commit_speculative(self, batch: List[Sequence],
+                            drafts: List[List[int]],
+                            outs: List[np.ndarray]) -> None:
+        """Greedy acceptance and KV rollback for one verify step. Per
+        sequence: commit the longest draft prefix agreeing with the
+        verifier's argmax plus the one bonus token (cut short at stop or
+        max_new), stream ONE TokenDelta carrying the accepted count, drop
+        rejected tail blocks (``truncate_sequence``; the rejected K/V left
+        inside kept blocks sits past the committed context, and the next
+        step's rows rewrite each such position before any row attends to
+        it), and feed the AdaptiveK controller."""
+        step_drafted = step_accepted = 0
+        st = self.spec_stats
+        for s, d, m in zip(batch, drafts, outs):
+            a, committed = _spec.accept_longest_prefix(d, m)
+            ncommit = 0
+            for tok in committed:
+                self._append_token(s, tok, stream=False)
+                ncommit += 1
+                if s.state == STATE_DONE:
+                    break
+            accepted_sent = min(ncommit, a)
+            self._stream_delta(s, committed[:ncommit],
+                               s.state == STATE_DONE,
+                               accepted=accepted_sent)
+            self.kv.truncate_sequence(s.seq_id, s.context_len())
+            was_collapsed = s.spec.collapsed
+            s.spec.update(len(d), a)
+            # the +1 bonus is a *speculative* gain only when the step
+            # drafted; an empty-draft step is a plain decode token
+            bonus = (ncommit - accepted_sent) if d else 0
+            step_drafted += len(d)
+            step_accepted += a
+            st.drafted += len(d)
+            st.accepted += a
+            st.rejected += len(d) - a
+            st.bonus += bonus
+            if d:
+                st.spec_steps += 1
+                _spec.g_serving_spec_draft_tokens.put(len(d))
+                if a:
+                    _spec.g_serving_spec_accepted_tokens.put(a)
+                if len(d) - a:
+                    _spec.g_serving_spec_rejected_tokens.put(len(d) - a)
+            if s.spec.collapsed and not was_collapsed:
+                st.collapsed_seqs += 1
+            if bonus:
+                _spec.g_serving_spec_bonus_tokens.put(bonus)
+        _spec.note_step(step_drafted, step_accepted)
+
     # ----------------------------------------------------------- completion
-    def _append_token(self, seq: Sequence, tok: int) -> None:
+    def _append_token(self, seq: Sequence, tok: int,
+                      stream: bool = True) -> None:
         now = time.monotonic()
         if not seq.out_tokens:
             seq.t_first_token = now
@@ -447,19 +647,21 @@ class ServingEngine:
         g_serving_tokens.put(1)
         stopped = bool(seq.stop_token) and tok == seq.stop_token
         finished = stopped or len(seq.out_tokens) >= seq.max_new_tokens
-        self._stream_delta(seq, [tok], finished)
+        if stream:
+            self._stream_delta(seq, [tok], finished)
         if finished:
             seq.finish_reason = "stop_token" if stopped else "length"
             seq.state = STATE_DONE
 
     def _stream_delta(self, seq: Sequence, toks: List[int],
-                      done: bool) -> None:
+                      done: bool, accepted: int = 0) -> None:
         if not seq.stream_id:
             return
         from brpc_tpu_torch.rpc.stream import stream_write
 
         delta = serving_pb2.TokenDelta(seq_id=seq.seq_id, tokens=toks,
-                                       step=len(seq.out_tokens), done=done)
+                                       step=len(seq.out_tokens), done=done,
+                                       accepted=accepted)
         if stream_write(seq.stream_id, delta.SerializeToString()) != 0:
             seq.stream_id = 0  # stream died; finish via the RPC response
 
@@ -479,6 +681,13 @@ class ServingEngine:
         self._running = still
 
     def _finish(self, seq: Sequence, code: int, reason: str) -> None:
+        if code == 0 and self.prefix is not None and seq.out_tokens:
+            # commit the fully written blocks into the radix tree
+            # (insert-or-share) before the table drops; the last sampled
+            # token's K/V was never written, hence the -1 valid length
+            self.prefix.commit(
+                seq.seq_id, list(seq.prompt) + seq.out_tokens,
+                len(seq.prompt) + len(seq.out_tokens) - 1)
         self.kv.free_sequence(seq.seq_id)
         seq.state = STATE_DONE
         if code == 0:
@@ -554,4 +763,9 @@ class ServingEngine:
             "ttft_us_p99": pct(self.ttft_samples, 99),
             "itl_us_p50": pct(self.itl_samples, 50),
             "kv": self.kv.snapshot(),
+            "prefix": (self.prefix.snapshot()
+                       if self.prefix is not None else None),
+            "spec": (dict(self.spec_stats.snapshot(),
+                          k_max=self.config.spec_k)
+                     if self.spec_stats is not None else None),
         }

@@ -16,13 +16,21 @@ the slack above is decode headroom for sequences already running.
 Physical block 0 is a scratch block: padded lanes of prefill and decode
 scatter there, so it is never handed out and never counted in capacity.
 
-With ``BRPC_TPU_CHECK=1`` in the environment (or ``_check = True``),
-every alloc/extend/truncate/free re-audits the invariants, and
-:meth:`PagedKVCache.assert_idle` proves at teardown that every block came
-back.
+Sequences may share blocks: ``fork_sequence`` shares a table,
+``adopt_sequence`` registers a table that IS a live chain (a prefix-cache
+hit), and ``retain_block`` / ``release_block`` are the radix tree's
+holds, audited apart from table holds. A write into a shared block goes
+copy-on-write first (``cow_block`` / ``ensure_writable``): a fresh block,
+one device page copy across every layer of both pools, and the table
+entry swapped, so a shared page is never mutated.
 
-Forking, copy-on-write, prefix-cache holds and migration export are not
-ported yet; nothing on the engine's path calls them.
+With ``BRPC_TPU_CHECK=1`` in the environment (or ``_check = True``),
+every alloc/extend/truncate/free/hold re-audits the invariants, and
+:meth:`PagedKVCache.assert_idle` proves at teardown that every block came
+back and that no tree hold lingers.
+
+Migration export (quiesce / export / adopt from a peer) is not ported
+yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -76,7 +84,13 @@ class PagedKVCache:
         self._ref: Dict[int, int] = {}
         self._tables: Dict[int, List[int]] = {}
         self._seq_len: Dict[int, int] = {}
+        # blocks held by the prefix cache's radix tree (no table): each
+        # hold contributes to _ref, audited as cache-held, not table-held
+        self._cache_ref: Dict[int, int] = {}
+        # the page copy cow_block runs; None is the pools' own copy
+        self._cow_copy_fn = None
         self.admission_rejects = 0
+        self.cow_splits = 0
         self._check = os.environ.get("BRPC_TPU_CHECK", "") == "1"
 
     # ------------------------------------------------------------- geometry
@@ -102,14 +116,20 @@ class PagedKVCache:
         with self._lock:
             return len(self._free)
 
+    def used_ratio(self) -> float:
+        return self.used_blocks / float(self.config.num_blocks)
+
     def blocks_for(self, ntokens: int) -> int:
         bs = self.config.block_size
         return max(1, (ntokens + bs - 1) // bs)
 
     # ------------------------------------------------------------ admission
-    def can_admit(self, ntokens: int) -> bool:
+    def can_admit(self, ntokens: int, route_key: Optional[int] = None,
+                  shard: Optional[int] = None) -> bool:
         """Watermark admission: the pool after this sequence's prefill
-        blocks must stay at or under ``watermark`` of capacity."""
+        blocks must stay at or under ``watermark`` of capacity.
+        (``route_key`` and ``shard`` are the sharded cache's; a single
+        pool has nowhere else to route.)"""
         need = self.blocks_for(ntokens)
         limit = int(self.config.watermark * self.config.num_blocks)
         with self._lock:
@@ -184,6 +204,123 @@ class PagedKVCache:
                                         new_len)
             self._audit_locked()
         return freed
+
+    def fork_sequence(self, src_seq: int, dst_seq: int) -> List[int]:
+        """Share ``src``'s blocks with a new sequence (refcount++); a
+        write into a shared block must go through :meth:`cow_block`."""
+        with self._lock:
+            table = self._tables.get(src_seq)
+            if table is None:
+                raise KeyError(f"unknown sequence {src_seq}")
+            if dst_seq in self._tables:
+                raise ValueError(f"sequence {dst_seq} already has a table")
+            for b in table:
+                self._ref[b] += 1
+            self._tables[dst_seq] = list(table)
+            self._seq_len[dst_seq] = self._seq_len[src_seq]
+            self._audit_locked()
+            return list(table)
+
+    def adopt_sequence(self, seq_id: int, blocks: List[int],
+                       ntokens: int) -> List[int]:
+        """Register a new sequence whose table IS an existing block chain
+        (a prefix-cache hit): refcount++ on every chain block, zero
+        allocations, zero copies. The chain must be live and must cover
+        ``ntokens``."""
+        bs = self.config.block_size
+        if ntokens > len(blocks) * bs:
+            raise ValueError(f"chain of {len(blocks)} blocks cannot cover "
+                             f"{ntokens} tokens (block_size {bs})")
+        with self._lock:
+            if seq_id in self._tables:
+                raise ValueError(f"sequence {seq_id} already has a table")
+            for b in blocks:
+                if b not in self._ref:
+                    raise KeyError(f"block {b} is not live")
+            for b in blocks:
+                self._ref[b] += 1
+            self._tables[seq_id] = list(blocks)
+            self._seq_len[seq_id] = ntokens
+            self._audit_locked()
+        return list(blocks)
+
+    def retain_block(self, block: int) -> None:
+        """Take a prefix-cache hold on a live block (radix-tree commit):
+        the block survives free_sequence until release_block drops the
+        hold."""
+        with self._lock:
+            if block not in self._ref:
+                raise KeyError(f"block {block} is not live")
+            self._ref[block] += 1
+            self._cache_ref[block] = self._cache_ref.get(block, 0) + 1
+            self._audit_locked()
+
+    def release_block(self, block: int) -> int:
+        """Drop a prefix-cache hold (eviction, tree clear); the block
+        returns to the free list at refcount zero. Returns blocks freed
+        (0 or 1)."""
+        with self._lock:
+            held = self._cache_ref.get(block, 0)
+            if held < 1:
+                raise KeyError(f"block {block} has no cache hold")
+            if held == 1:
+                del self._cache_ref[block]
+            else:
+                self._cache_ref[block] = held - 1
+            freed = self._drop_block_locked(block)
+            self._audit_locked()
+        return freed
+
+    def block_ref(self, block: int) -> int:
+        with self._lock:
+            return self._ref.get(block, 0)
+
+    def cache_held_blocks(self) -> int:
+        """Distinct blocks currently pinned by prefix-cache holds."""
+        with self._lock:
+            return len(self._cache_ref)
+
+    # -------------------------------------------------------- copy-on-write
+    def cow_block(self, seq_id: int, block_index: int) -> int:
+        """Copy-on-write split: make ``table[block_index]`` exclusively
+        ``seq_id``'s before a write lands in it. An exclusive block
+        (refcount 1) passes through; a shared one gets a fresh block, a
+        device page copy and the table entry swapped."""
+        with self._lock:
+            table = self._tables.get(seq_id)
+            if table is None:
+                raise KeyError(f"unknown sequence {seq_id}")
+            if not 0 <= block_index < len(table):
+                raise IndexError(f"block index {block_index} outside "
+                                 f"table of {len(table)}")
+            src = table[block_index]
+            if self._ref.get(src, 0) == 1:
+                return src  # exclusive already: no split needed
+            dst = self._take_block_locked()
+        # the page copy runs OUTSIDE the ledger lock (it launches); the
+        # source stays referenced by this sequence until the swap below
+        (self._cow_copy_fn or self._cow_copy_block_device)(dst, src)
+        with self._lock:
+            table[block_index] = dst
+            self._drop_block_locked(src)
+            self.cow_splits += 1
+            self._audit_locked()
+        return dst
+
+    def ensure_writable(self, seq_id: int, pos: int) -> int:
+        """The engine's copy-on-write front door: split the block the
+        write at token position ``pos`` lands in, if it is shared.
+        Returns the (possibly fresh) physical block id."""
+        return self.cow_block(seq_id, pos // self.config.block_size)
+
+    def _cow_copy_block_device(self, dst: int, src: int) -> None:
+        """One ``copy_`` of the block's ``block_size`` slots across every
+        layer, for K and for V, on the pools' device."""
+        bs = self.config.block_size
+        d0, s0 = dst * bs, src * bs
+        for pool in (self.k_pool, self.v_pool):
+            pool[:, d0:d0 + bs].copy_(pool[:, s0:s0 + bs])
+        self.update_pools(self.k_pool, self.v_pool)
 
     def free_sequence(self, seq_id: int) -> int:
         """Drop a sequence's table; blocks return to the free list when
@@ -265,6 +402,8 @@ class PagedKVCache:
         for table in self._tables.values():
             for b in table:
                 held[b] = held.get(b, 0) + 1
+        for b, n in self._cache_ref.items():
+            held[b] = held.get(b, 0) + n
         if held != self._ref:
             problems.append(
                 f"refcounts {self._ref} disagree with tables {held}")
@@ -282,13 +421,18 @@ class PagedKVCache:
 
     def assert_idle(self, context: str = "") -> None:
         """Teardown wholeness check: every block must be back on the free
-        list with no refs held."""
+        list with no refs held, tree holds included (the engine's stop()
+        clears its tree first)."""
         with self._lock:
             problems = self._invariant_problems_locked()
             if self._tables:
                 problems.append(
                     f"{len(self._tables)} sequence table(s) still live: "
                     f"{sorted(self._tables)}")
+            if self._cache_ref:
+                problems.append(
+                    f"{len(self._cache_ref)} block hold(s) still owned by "
+                    f"the prefix cache: {sorted(self._cache_ref)}")
             if len(self._free) != self.config.num_blocks:
                 problems.append(
                     f"{self.config.num_blocks - len(self._free)} "
@@ -313,5 +457,7 @@ class PagedKVCache:
                 "watermark": self.config.watermark,
                 "used_ratio": used / float(self.config.num_blocks),
                 "sequences": len(self._tables),
+                "blocks_cached": len(self._cache_ref),
+                "cow_splits": self.cow_splits,
                 "admission_rejects": self.admission_rejects,
             }

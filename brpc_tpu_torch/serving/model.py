@@ -15,6 +15,11 @@ The port of ``brpc_tpu/serving/model.py``:
   kernel (``tpu/pallas_ops.flash_attention``) on the card, all heads in
   one launch, and the plain version on the CPU.
 
+- **Suffix prefill and speculative verify**: ``prefill_suffix`` (a
+  prefix-cache hit) and ``verify_step`` (k drafted tokens per sequence)
+  run many rows of one block table through the decode program in one
+  launch; every row's K/V is written before any row gathers.
+
 Prefill and decode keep the JAX model's shape buckets (prefill: a power
 of two >= 16, then a multiple of 128; decode: a power-of-two batch and
 block count) and its ``step_dispatch`` launch and host-sync notes, so
@@ -231,8 +236,8 @@ class TinyTransformer(nn.Module):
             raise NotImplementedError(
                 f"prompt of {s} tokens needs ring attention (ring_threshold "
                 f"{cfg.ring_threshold}) over the process's device mesh, "
-                f"which the torch port lacks until its mesh slice "
-                f"(ROADMAP.md, slice 9)")
+                f"which the torch port lacks until the mesh is ported "
+                f"(ROADMAP.md Queue 1 item 7)")
         self.kv.assert_writable(table, 0, s)
         bucket = max(16, _next_pow2(s))
         if bucket > 128:
@@ -246,6 +251,22 @@ class TinyTransformer(nn.Module):
         first = int(nxt.item())
         step_dispatch.note_host_sync()
         return first
+
+    def prefill_suffix(self, tokens: np.ndarray, table: Sequence[int],
+                       start: int) -> int:
+        """Prefill only ``tokens[start:]`` against a table whose first
+        ``start`` positions already hold committed K/V (a forked prefix
+        chain). Runs through the decode program, one row per suffix
+        token, each gathering the full paged context: a cache hit costs
+        one decode-shaped launch, and the sampled token is row
+        ``s - 1``'s argmax."""
+        s = len(tokens)
+        if not 0 < start < s:
+            raise ValueError(f"suffix start {start} outside (0, {s})")
+        suffix = np.asarray(tokens[start:], dtype=np.int64)
+        positions = np.arange(start, s, dtype=np.int64)
+        out = self.decode_step(suffix, positions, [table] * (s - start))
+        return int(out[-1])
 
     # -------------------------------------------------------------- decode
     def decode_step(self, tokens: np.ndarray, positions: np.ndarray,
@@ -277,6 +298,34 @@ class TinyTransformer(nn.Module):
         out = nxt[:B].to(torch.int32).cpu().numpy()
         step_dispatch.note_host_sync()
         return out
+
+    def verify_step(self, last_tokens: Sequence[int],
+                    positions: Sequence[int], tables: List[Sequence[int]],
+                    drafts: List[Sequence[int]]) -> List[np.ndarray]:
+        """Speculative verify: ONE decode launch scoring every sequence's
+        last committed token plus its drafted tokens, k_i + 1 rows per
+        sequence flattened into the decode program (``prefill_suffix``,
+        batched). Every row's K/V is written before any row gathers, and
+        the causal mask keeps row j at positions <= its own, so row j
+        attends over rows 0..j-1's writes of the same launch: each row's
+        argmax is what k_i + 1 sequential decode steps would give. One
+        launch and one host sync for any k. Returns one array of k_i + 1
+        argmax tokens per sequence (the verifier's next token at the last
+        committed position and after each draft)."""
+        flat_tokens: List[int] = []
+        flat_pos: List[int] = []
+        flat_tables: List[Sequence[int]] = []
+        counts: List[int] = []
+        for t0, p0, table, d in zip(last_tokens, positions, tables, drafts):
+            row_toks = [int(t0)] + [int(x) for x in d]
+            flat_tokens += row_toks
+            flat_pos += range(int(p0), int(p0) + len(row_toks))
+            flat_tables += [table] * len(row_toks)
+            counts.append(len(row_toks))
+        out = self.decode_step(np.asarray(flat_tokens, dtype=np.int64),
+                               np.asarray(flat_pos, dtype=np.int64),
+                               flat_tables)
+        return np.split(out, np.cumsum(counts)[:-1])
 
     # ------------------------------------------------------------- helpers
     def close(self) -> None:

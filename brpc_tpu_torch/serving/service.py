@@ -6,9 +6,19 @@ without calling ``done`` and the engine completes the RPC from its step
 loop when generation finishes (or is rejected/aborted). A request that
 arrives with stream settings (the client created a stream and set
 ``cntl.stream_id``) is accepted before admission; TokenDelta frames then
-flow per step, one token each, so the client's first token arrives while
-the RPC is still in flight. Frame concatenation equals the final
-response's token list.
+flow per step, so the client's first token arrives while the RPC is still
+in flight. On a speculative engine (``EngineConfig(spec_k=)``) one step
+can commit up to k+1 tokens, so a frame carries a token *list* plus
+``accepted``: how many of those tokens were drafted and accepted by the
+verifier (the +1 bonus token excluded); other frames carry one token with
+``accepted == 0``. Frame concatenation equals the final response's token
+list either way.
+
+With the radix prefix cache on (the engine's default), admission matches
+the prompt (``prompt_tokens``, or the deterministic ``synth_prompt``
+expansion of ``prompt_len``) against cached block chains: a repeated
+prefix forks its chain and only the suffix is prefilled, the tokens
+those of a cold run.
 
 Requests carrying stream settings take the server's full dispatch path,
 which is also what stamps ``cntl.deadline_mono`` for the engine's

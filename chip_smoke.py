@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then seven paths:
+(nvcc, sm_90a, one process per source, all at once). Then eight paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -22,6 +22,17 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   TokenDelta frames must join to each response, and the run must launch
   the serving kernel once per layer and prefill; no protobuf and no JAX
   may be loaded.
+- Serving at the reference's defaults (the two serving paths above
+  build their engines with the prefix cache off, so each prefill
+  launches the kernel): the radix prefix cache against a cold engine on
+  the serving corpus's schedule twice and on the requests above,
+  together and one at a time (warm tokens equal cold, list for list; the
+  kernel launched once per layer and miss, never for a hit); speculative
+  decoding (``spec_k=4`` against ``spec_k=0`` on the reference's
+  repetitive and base schedules: tokens equal, fewer steps, one launch
+  and one host sync per prefill and step); both again as streamed
+  ``Generate`` calls, the frames' accepted counts summing to the
+  engine's; the copy-on-write page copy on the card.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm kernel against their plain versions in fp32 and bf16 (in bf16
   all three attention kernels are the tensor-core kernels, held also at
@@ -77,6 +88,7 @@ the line before it lists every kernel with its launches on the main path,
 error, time, plain and library times and its bound.
 """
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -103,6 +115,7 @@ from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,  # noqa: E402
 from brpc_tpu_torch.serving.service import LlmServingService  # noqa: E402
 from brpc_tpu_torch.tpu import (_build, bench_kernels,  # noqa: E402
                                  device_lane, pallas_ops, ring, train)
+from brpc_tpu_torch.tpu.device_lane import step_dispatch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and FLOP/s of
 # the inputs' type: fp32 outside the tensor cores, bf16 on them
@@ -132,6 +145,19 @@ MAX_NEW = [8, 12, 16, 20, 24, 28, 32, 32]
 # the example's token_budget (512) never admits a prompt longer than the
 # budget, in the JAX engine as in the port; 1024 admits every prompt here
 TOKEN_BUDGET = 1024
+
+# the prefix-cache and speculative phase's traffic. The serving corpus's
+# schedule (tools/record_serving_corpus.py:33-34): synth prompts keyed by
+# length, so every prompt is a prefix of every longer one, the
+# shared-system-prompt traffic the radix tree exists for
+CORPUS_SCHEDULE = [(16, 4), (32, 8), (16, 6)] * 4
+# tests/test_serving_spec.py:80-85: the base schedule of synth prompts and
+# the repetitive one of motif prompts (prompt lookup's traffic)
+SPEC_BASE = [(16, 4), (32, 8), (16, 6), (16, 4), (32, 8), (16, 6)]
+SPEC_MOTIFS = [[7, 12, 19, 3, 12, 19], [41, 41, 9, 33, 41, 41, 9],
+               [50, 5, 60, 5, 50, 5, 60]]
+SPEC_REP = [(18, 16, 0), (21, 24, 1), (16, 16, 2), (18, 24, 0)]
+SPEC_K = 4
 
 
 # the tensor-core kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu (bf16)
@@ -328,7 +354,12 @@ def check_against_cpu(dev):
           flush=True)
 
 
-def build_engine(dev, attn):
+def build_engine(dev, attn, prefix_cache=False, spec_k=0):
+    """The llm_server example's engine at full width. The prefix cache is
+    off unless ``prefix_cache=None`` (the engine's default) is passed:
+    the serving phases before the prefix-cache phase count one flash
+    launch per layer and prefill, and their numbers stay comparable with
+    the runs before the cache was ported."""
     cfg = ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=2,
                       max_context=1024, seed=0, attn=attn)
     kv = PagedKVCache(KVCacheConfig(block_size=16, num_blocks=256,
@@ -337,13 +368,18 @@ def build_engine(dev, attn):
     kv._check = True  # audit the ledger and the (1, 1) step contract
     model = TinyTransformer(cfg, kv)
     engine = ServingEngine(model, kv, EngineConfig(
-        max_batch=8, token_budget=TOKEN_BUDGET, idle_wait_s=0.001))
+        max_batch=8, token_budget=TOKEN_BUDGET, idle_wait_s=0.001,
+        spec_k=spec_k), prefix_cache=prefix_cache)
     return engine.start()
 
 
-def serve(engine, requests, timeout=600.0):
-    """Submit (prompt_len, max_new) requests together; wait for every
-    ``done``. Returns (results in request order, wall seconds)."""
+def serve(engine, requests, timeout=600.0, seqs=None, atomic=False):
+    """Submit (prompt_len or prompt, max_new) requests together; wait for
+    every ``done``. Returns (results in request order, wall seconds).
+    ``seqs``, a list, receives each request's engine sequence; with
+    ``atomic`` the requests are submitted under the engine's lock, so the
+    step loop admits them as one queue (step counts comparable between
+    engines)."""
     results = {}
     lock = threading.Lock()
     ev = threading.Event()
@@ -357,21 +393,25 @@ def serve(engine, requests, timeout=600.0):
         return done
 
     t0 = time.perf_counter()
-    for i, (plen, max_new) in enumerate(requests):
-        code, _ = engine.submit(engine.model.synth_prompt(plen), max_new,
-                                done=done_for(i))
-        if code != 0:
-            raise AssertionError(f"submit({plen}, {max_new}) refused: "
-                                 f"{code}")
+    with engine._cv if atomic else contextlib.nullcontext():
+        for i, (plen, max_new) in enumerate(requests):
+            prompt = (engine.model.synth_prompt(plen)
+                      if isinstance(plen, int) else plen)
+            code, seq = engine.submit(prompt, max_new, done=done_for(i))
+            if code != 0:
+                raise AssertionError(f"submit({len(prompt)}, {max_new}) "
+                                     f"refused: {code}")
+            if seqs is not None:
+                seqs.append(seq)
     if not ev.wait(timeout):
         raise AssertionError(f"only {len(results)}/{len(requests)} "
                              f"requests completed in {timeout}s")
     wall = time.perf_counter() - t0
     out = [results[i] for i in range(len(requests))]
-    for (plen, max_new), res in zip(requests, out):
+    for i, ((_, max_new), res) in enumerate(zip(requests, out)):
         if (res.error_code, res.finish_reason, len(res.tokens)) != \
                 (0, "length", max_new):
-            raise AssertionError(f"request ({plen}, {max_new}) ended "
+            raise AssertionError(f"request {i} (max_new {max_new}) ended "
                                  f"{res}")
         if not all(0 <= t < engine.model.config.vocab for t in res.tokens):
             raise AssertionError(f"token out of vocab in {res.tokens}")
@@ -496,6 +536,394 @@ def run_rpc(dev, direct, direct_stats):
                          "wall_s", "step_us_p50", "steps")})
     print(json.dumps({"rpc": stats}), flush=True)
     return launches
+
+
+def motif_prompt(plen, motif):
+    m = SPEC_MOTIFS[motif % len(SPEC_MOTIFS)]
+    return np.asarray((m * (plen // len(m) + 1))[:plen], dtype=np.int32)
+
+
+def spec_requests():
+    """(tag, [(prompt_len or prompt, max_new)]) of the speculative lane."""
+    return [("repetitive", [(motif_prompt(p, m), n)
+                            for p, n, m in SPEC_REP]),
+            ("base", list(SPEC_BASE))]
+
+
+def check_cow_copy(dev):
+    """The copy-on-write page copy on the card's pools (the llm_server
+    engine's: 2 layers, 256 blocks of 16, kv_dim 64): a split block's
+    slots in every layer of K and V equal the source's bit for bit, and
+    nothing else moves."""
+    kv = PagedKVCache(KVCacheConfig(block_size=16, num_blocks=256), 2, 64,
+                      device=dev)
+    kv._check = True
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for pool in (kv.k_pool, kv.v_pool):
+        pool.copy_(torch.randn(pool.shape, generator=gen, device=dev))
+    before = (kv.k_pool.cpu(), kv.v_pool.cpu())
+    t = kv.alloc_sequence(1, 40)
+    kv.fork_sequence(1, 2)
+    new = kv.ensure_writable(2, 20)  # block index 1 is shared: splits
+    torch.cuda.synchronize()
+    bs = 16
+    src, dst = t[1] * bs, new * bs
+    for got, want in zip((kv.k_pool.cpu(), kv.v_pool.cpu()), before):
+        expect = want.clone()
+        expect[:, dst:dst + bs] = want[:, src:src + bs]
+        if new == t[1] or not torch.equal(got, expect):
+            raise AssertionError(f"cow page copy {t[1]} -> {new} differs")
+    splits = kv.snapshot()["cow_splits"]
+    kv.free_sequence(1)
+    kv.free_sequence(2)
+    kv.assert_idle("after the cow check")
+    kv.close()
+    return {"src_block": t[1], "dst_block": new, "splits": splits}
+
+
+def prefix_window(engine, requests, serial=False):
+    """One counted window of ``requests`` on ``engine`` (submitted
+    together, or one at a time with ``serial``): flash launches reset
+    just before the first submit and read after the last done, prefill
+    tokens and prefix counters as deltas. Returns the window's row."""
+    p0 = engine.prefill_tokens
+    pfx0 = engine.prefix.snapshot() if engine.prefix is not None else None
+    seqs, results, wall = [], [], 0.0
+    pallas_ops.launches.reset()
+    for batch in ([[r] for r in requests] if serial else [requests]):
+        res, w = serve(engine, batch, seqs=seqs)
+        results += res
+        wall += w
+    engine.kv.store.fence()
+    launches = pallas_ops.launches["flash_attention"]
+    row = {"results": results, "seqs": seqs,
+           "hits": [s.prefix_len > 0 for s in seqs],
+           "wall_s": wall, "flash_launches": launches,
+           "prefill_tokens": engine.prefill_tokens - p0}
+    if pfx0 is not None:
+        pfx1 = engine.prefix.snapshot()
+        row.update({k: pfx1[k] - pfx0[k] for k in (
+            "hit_seqs", "miss_seqs", "hit_blocks", "hit_tokens",
+            "inserted_blocks", "evicted_blocks")})
+    return row
+
+
+def run_prefix_lane(dev, n_layers):
+    """Phase 4c(a): the prefix cache at the reference's defaults against
+    a cold engine (``prefix_cache=False``), the corpus schedule twice and
+    then PROMPT_LENS together and PROMPT_LENS again one request at a time
+    (a repeated prompt with no queue: the warm engine matches all but its
+    last block), on one engine each. A warm-up request runs first,
+    uncounted (and the warm engine's tree is cleared after it). Warm
+    tokens must equal cold, list for list; the warm run must hit; every
+    miss (and no hit) launches flash once per layer; the pool is idle
+    after stop()."""
+    lanes = {}
+    for lane, cache in (("cold", False), ("warm", None)):
+        engine = build_engine(dev, "auto", prefix_cache=cache)
+        try:
+            serve(engine, [(16, 2)])
+            if engine.prefix is not None:
+                engine.prefix.clear()
+            rows = {tag: prefix_window(engine, reqs, serial) for
+                    tag, reqs, serial in (
+                        ("corpus", CORPUS_SCHEDULE * 2, False),
+                        ("prompt_lens", list(zip(PROMPT_LENS, MAX_NEW)),
+                         False),
+                        ("repeat", list(zip(PROMPT_LENS, MAX_NEW)), True),
+                        ("repeat_again", list(zip(PROMPT_LENS, MAX_NEW)),
+                         True))}
+            kv_snap = engine.kv.snapshot()
+        finally:
+            engine.stop()
+        engine.kv.assert_idle(f"after stop ({lane} prefix lane)")
+        engine.model.close()
+        engine.kv.close()
+        lanes[lane] = (rows, kv_snap)
+    (cold, _), (warm, warm_kv) = lanes["cold"], lanes["warm"]
+    out = {"windows": {}}
+    for tag in cold:
+        c, w = cold[tag], warm[tag]
+        for i, (a, b) in enumerate(zip(c["results"], w["results"])):
+            if a.tokens != b.tokens:
+                raise AssertionError(f"{tag} request {i}: warm tokens "
+                                     f"{b.tokens} != cold {a.tokens}")
+        n = len(c["results"])
+        if c["flash_launches"] != n_layers * n:
+            raise AssertionError(f"{tag}: cold lane launched flash "
+                                 f"{c['flash_launches']} times, want "
+                                 f"{n_layers} x {n}")
+        if w["flash_launches"] != n_layers * w["miss_seqs"] or \
+                w["hit_seqs"] + w["miss_seqs"] != n:
+            raise AssertionError(f"{tag}: warm lane launched flash "
+                                 f"{w['flash_launches']} times for "
+                                 f"{w['miss_seqs']} misses and "
+                                 f"{w['hit_seqs']} hits of {n}")
+        if c["prefill_tokens"] - w["prefill_tokens"] != w["hit_tokens"]:
+            raise AssertionError(f"{tag}: prefill tokens cold "
+                                 f"{c['prefill_tokens']} - warm "
+                                 f"{w['prefill_tokens']} != hit tokens "
+                                 f"{w['hit_tokens']}")
+        hit = [r.ttft_us for r, h in zip(w["results"], w["hits"]) if h]
+        miss = [r.ttft_us for r, h in zip(w["results"], w["hits"]) if not h]
+        cold_of_hits = [r.ttft_us for r, h in zip(c["results"], w["hits"])
+                        if h]
+        out["windows"][tag] = {
+            "requests": n,
+            **{k: w[k] for k in ("hit_seqs", "miss_seqs", "hit_blocks",
+                                 "hit_tokens", "inserted_blocks",
+                                 "evicted_blocks", "flash_launches")},
+            "cold_flash_launches": c["flash_launches"],
+            "prefill_tokens_cold": c["prefill_tokens"],
+            "prefill_tokens_warm": w["prefill_tokens"],
+            "prefill_tokens_saved": c["prefill_tokens"]
+            - w["prefill_tokens"],
+            "ttft_us_p50_hit": pct(hit, 50) if hit else None,
+            "ttft_us_p50_miss": pct(miss, 50) if miss else None,
+            "ttft_us_p50_same_requests_cold": (pct(cold_of_hits, 50)
+                                               if hit else None),
+            "ttft_us_p50_cold": pct([r.ttft_us for r in c["results"]], 50),
+            "wall_s_warm": w["wall_s"], "wall_s_cold": c["wall_s"],
+        }
+        if tag.startswith("repeat"):
+            # per prompt: (length, matched tokens, TTFT cold, TTFT warm)
+            out["windows"][tag]["ttft_us_by_prompt"] = [
+                (len(s.prompt), s.prefix_len, a.ttft_us, b.ttft_us)
+                for s, a, b in zip(w["seqs"], c["results"], w["results"])]
+    hits = sum(r["hit_seqs"] for r in out["windows"].values())
+    if not hits:
+        raise AssertionError(f"the warm lane never hit: {out['windows']}")
+    out["hit_seqs"] = hits
+    out["flash_launches"] = sum(r["flash_launches"]
+                                for r in out["windows"].values())
+    out["cow_splits"] = warm_kv["cow_splits"]
+    return out
+
+
+def spec_window(engine, requests):
+    """One counted window of ``requests`` submitted under the engine's
+    lock: its results, steps, launches and host syncs, step p50 and the
+    speculative counters as deltas."""
+    s0, n0, o0 = engine.steps, len(engine.step_samples), \
+        engine._occupancy_sum
+    st0 = (engine.spec_stats.snapshot()
+           if engine.spec_stats is not None else None)
+    d0 = step_dispatch.snapshot()
+    results, wall = serve(engine, requests, atomic=True)
+    launches, _, syncs = step_dispatch.delta(d0, step_dispatch.snapshot())
+    steps = engine.steps - s0
+    # one launch and one host sync per prefill and per decode/verify
+    if not launches == syncs == len(requests) + steps:
+        raise AssertionError(f"{launches} launches / {syncs} syncs for "
+                             f"{len(requests)} prefills and {steps} steps")
+    tokens = sum(len(r.tokens) for r in results)
+    row = {"results": results, "steps": steps, "tokens": tokens,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "tokens_per_step": tokens / steps,
+           # decode tokens per running sequence per step (the first token
+           # of each request comes from its prefill)
+           "tokens_per_seq_step": (tokens - len(requests))
+           / (engine._occupancy_sum - o0),
+           "step_us_p50": pct(engine.step_samples[n0:], 50),
+           "launches": launches}
+    if st0 is not None:
+        st1 = engine.spec_stats.snapshot()
+        d = {k: st1[k] - st0[k] for k in ("drafted", "accepted", "rejected",
+                                          "bonus", "spec_steps",
+                                          "collapsed_seqs")}
+        d["accept_rate"] = (d["accepted"] / d["drafted"]
+                            if d["drafted"] else None)
+        row["spec"] = d
+    return row
+
+
+def run_spec_lane(dev):
+    """Phase 4c(b): ``spec_k=4`` against ``spec_k=0``, both without the
+    prefix cache (as the reference's speculative tests run), on the
+    repetitive and the base schedule. Committed tokens must be equal, the
+    speculative lane must take fewer steps on the repetitive schedule and
+    no more on the base one, and every step kept the (1, 1) contract
+    under the armed ledger (a violation fails the step's sequences)."""
+    lanes = {}
+    for k in (0, SPEC_K):
+        engine = build_engine(dev, "auto", spec_k=k)
+        try:
+            serve(engine, [(16, 2)])
+            lanes[k] = {tag: spec_window(engine, reqs)
+                        for tag, reqs in spec_requests()}
+        finally:
+            engine.stop()
+        engine.kv.assert_idle(f"after stop (spec_k={k})")
+        engine.model.close()
+        engine.kv.close()
+    out = {}
+    for tag, _ in spec_requests():
+        b, sp = lanes[0][tag], lanes[SPEC_K][tag]
+        for i, (x, y) in enumerate(zip(b["results"], sp["results"])):
+            if x.tokens != y.tokens:
+                raise AssertionError(f"{tag} request {i}: spec tokens "
+                                     f"{y.tokens} != plain {x.tokens}")
+        if sp["steps"] > b["steps"] or (tag == "repetitive"
+                                        and sp["steps"] >= b["steps"]):
+            raise AssertionError(f"{tag}: spec lane {sp['steps']} steps, "
+                                 f"plain {b['steps']}")
+        out[tag] = {lane: {k: v for k, v in row.items() if k != "results"}
+                    for lane, row in (("spec_k_0", b),
+                                      (f"spec_k_{SPEC_K}", sp))}
+    accepted = [out[t][f"spec_k_{SPEC_K}"]["spec"]["accepted"] for t in out]
+    if not sum(accepted):
+        raise AssertionError(f"the speculative lane accepted no draft: "
+                             f"{out}")
+    return out, {tag: lanes[SPEC_K][tag]["results"] for tag in out}
+
+
+def run_prefix_spec_rpc(dev, n_layers, direct):
+    """Phase 4c(c): streamed Generates through the port's Server on the
+    default engine (prefix cache on) with ``spec_k=4``: the repetitive
+    schedule as ``prompt_tokens`` and the base one as ``prompt_len``,
+    concurrently, after an uncounted warm-up. Streamed tokens must equal
+    the response's and the speculative lane's direct run's; the frames'
+    accepted counts must sum to the drafts the engine accepted; flash
+    runs once per layer and miss."""
+    engine = build_engine(dev, "auto", prefix_cache=None, spec_k=SPEC_K)
+    server = rpc.Server().add_service(LlmServingService(engine)) \
+        .start("127.0.0.1:0")
+    reqs = [(tag, i, p, n) for tag, rs in spec_requests()
+            for i, (p, n) in enumerate(rs)]
+    try:
+        stub = rpc.Stub(rpc.Channel().init(str(server.listen_endpoint())),
+                        client.DESC)
+        serve_rpc(stub, [(16, 2)])  # warm-up
+        engine.prefix.clear()
+        a0 = engine.spec_stats.accepted
+        pfx0 = engine.prefix.snapshot()
+        pallas_ops.launches.reset()
+        out = [None] * len(reqs)
+        accepted = [0] * len(reqs)
+
+        def call(j, p, n):
+            def on_delta(delta):
+                accepted[j] += delta.accepted
+                if delta.accepted > len(delta.tokens):
+                    raise AssertionError(f"frame claims {delta.accepted} "
+                                         f"accepted of {len(delta.tokens)}")
+            req = (serving_pb2.GenerateRequest(prompt_len=p,
+                                               max_new_tokens=n)
+                   if isinstance(p, int) else serving_pb2.GenerateRequest(
+                       prompt_tokens=[int(t) for t in p], max_new_tokens=n))
+            out[j] = client.generate(stub, req, timeout_ms=600000,
+                                     on_delta=on_delta)
+
+        threads = [threading.Thread(target=call, args=(j, p, n))
+                   for j, (_, _, p, n) in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        engine.kv.store.fence()
+        launches = pallas_ops.launches["flash_attention"]
+        pfx = {k: v - pfx0[k] for k, v in engine.prefix.snapshot().items()
+               if k in ("hit_seqs", "miss_seqs", "hit_tokens")}
+        engine_accepted = engine.spec_stats.accepted - a0
+    finally:
+        server.stop()
+        server.join(timeout=5)
+        engine.stop()
+    engine.kv.assert_idle("after the prefix/spec RPC run")
+    engine.model.close()
+    engine.kv.close()
+    for (tag, i, _, n), g in zip(reqs, out):
+        if g is None or g.response is None:
+            raise AssertionError(f"{tag} request {i} failed: "
+                                 f"{g and (g.error_code, g.error_text)}")
+        toks = list(g.response.tokens)
+        if toks != g.frame_tokens or toks != direct[tag][i].tokens:
+            raise AssertionError(f"{tag} request {i}: RPC tokens {toks}, "
+                                 f"frames {g.frame_tokens}, direct "
+                                 f"{direct[tag][i].tokens}")
+    if sum(accepted) != engine_accepted or not engine_accepted:
+        raise AssertionError(f"frames carry {sum(accepted)} accepted "
+                             f"tokens, the engine accepted "
+                             f"{engine_accepted}")
+    if launches != n_layers * pfx["miss_seqs"]:
+        raise AssertionError(f"RPC lane: flash launched {launches} times "
+                             f"for {pfx['miss_seqs']} misses")
+    ttft = [(g.t_first - g.t_call) * 1e6 for g in out]
+    return {"requests": len(reqs), "frames_accepted": sum(accepted),
+            "engine_accepted": engine_accepted, "flash_launches": launches,
+            **pfx, "ttft_us_p50": pct(ttft, 50),
+            "tokens": sum(len(g.response.tokens) for g in out),
+            "wall_s": max(g.t_done for g in out)
+            - min(g.t_call for g in out)}
+
+
+def time_hit_vs_cold(dev, plens=(100, 960), iters=20):
+    """What a hit's prefill costs against a cold one at the llm_server
+    widths: for each prompt length, a cold ``prefill`` (flash) and a
+    ``prefill_suffix`` over the same prompt's cached chain (all but its
+    last block matched), the same first token from both; per call as the
+    caller pays it (CUDA events around back-to-back calls, each ending in
+    its host sync) and, from one profiled call each, the device kernels
+    launched and their device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brpc_tpu_torch.serving.prefix_cache import PrefixCache
+
+    cfg = ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=2,
+                      max_context=1024, seed=0)
+    kv = PagedKVCache(KVCacheConfig(block_size=16, num_blocks=256),
+                      cfg.n_layers, cfg.kv_dim, device=dev)
+    model = TinyTransformer(cfg, kv)
+    tree = PrefixCache(kv)
+    rows = []
+    for plen in plens:
+        prompt = model.synth_prompt(plen)
+        table = kv.alloc_sequence(1, plen)
+        first = model.prefill(prompt, table)
+        tree.commit(1, list(prompt), plen)
+        kv.free_sequence(1)
+        cold_table = kv.alloc_sequence(2, plen)
+        matched = tree.fork(3, list(prompt))
+        hit_table = kv.extend_sequence(3, plen)
+        calls = {"cold": lambda: model.prefill(prompt, cold_table),
+                 "hit": lambda: model.prefill_suffix(prompt, hit_table,
+                                                     matched)}
+        row = {"prompt": plen, "matched": matched}
+        for name, fn in calls.items():
+            if fn() != first:
+                raise AssertionError(f"{name} prefill of {plen} tokens "
+                                     f"disagrees with the first cold one")
+            row[f"{name}_ms"] = time_ms(fn, iters)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels, busy, _ = device_time(prof)
+            row[f"{name}_kernels"] = kernels
+            row[f"{name}_device_us"] = busy
+        kv.free_sequence(2)
+        kv.free_sequence(3)
+        rows.append(row)
+    tree.clear()
+    kv.assert_idle("after the hit/cold timings")
+    model.close()
+    kv.close()
+    return rows
+
+
+def run_prefix_spec(dev, smi, n_layers):
+    """Phase 4c: the serving engine at the reference's defaults, the
+    radix prefix cache and speculative decoding (lanes a-c above), then
+    the copy-on-write page copy on the card. Prints one ``prefix_spec``
+    line with the card's name and power limit beside the numbers."""
+    prefix = run_prefix_lane(dev, n_layers)
+    spec, direct = run_spec_lane(dev)
+    rpc_row = run_prefix_spec_rpc(dev, n_layers, direct)
+    cow = check_cow_copy(dev)
+    row = {"card": smi, "prefix": prefix, "spec": spec, "rpc": rpc_row,
+           "cow_copy": cow, "hit_vs_cold": time_hit_vs_cold(dev)}
+    print(json.dumps({"prefix_spec": row}), flush=True)
+    return row
 
 
 def no_protobuf_or_jax(where):
@@ -2322,6 +2750,7 @@ def main():
                              f"times on the RPC path, want {n_layers} "
                              f"layers x {prefills} prefills")
     no_protobuf_or_jax("after the RPC path")
+    prefix_spec = run_prefix_spec(dev, smi, n_layers)
 
     profile = profile_engine(dev)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -2352,6 +2781,8 @@ def main():
         "replaces": "brpc_tpu/tpu/pallas_ops.py:174",
         "shape": main_row["shape"], "causal": main_row["causal"],
         "launches": launches, "launches_rpc": rpc_launches,
+        "launches_prefix_spec": prefix_spec["prefix"]["flash_launches"],
+        "launches_prefix_spec_rpc": prefix_spec["rpc"]["flash_launches"],
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

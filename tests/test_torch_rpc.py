@@ -235,10 +235,8 @@ _UNPORTED_FLAGS = (
     "health_check_interval_s", "tpu_shard_rebalance_pct",
     "tpu_shard_respawn_backoff_ms", "tpu_shard_respawn_max",
     "tpu_shard_ring_mb", "tpu_shard_forward_max", "shard_vars_interval_s",
-    "serving_shard_skew_ratio", "serving_prefix_cache_enabled",
-    "serving_prefix_evict_watermark", "serving_prefix_thrash_rate",
-    "serving_migrate_window_mb", "serving_migrate_timeout_ms",
-    "serving_spec_accept_rate_min", "serving_migrate_backlog_max",
+    "serving_shard_skew_ratio", "serving_migrate_window_mb",
+    "serving_migrate_timeout_ms", "serving_migrate_backlog_max",
     "serving_qos_starvation_ms")
 
 
@@ -261,8 +259,24 @@ _TUNNEL_FLAGS = (
     "tpu_reconnect_window_s", "tpu_doorbell_coalesce_us")
 
 
+# The prefix cache's and the speculative lane's flags came with the
+# serving engine's defaults, on the same terms.
+_SERVING_FLAGS = (
+    "serving_prefix_cache_enabled", "serving_prefix_evict_watermark",
+    "serving_prefix_thrash_rate", "serving_spec_accept_rate_min")
+
+
 @pytest.mark.parametrize("name", _TUNNEL_FLAGS)
 def test_flags_of_the_tunnel_match_the_reference(name):
+    _flag_matches_the_reference(name)
+
+
+@pytest.mark.parametrize("name", _SERVING_FLAGS)
+def test_flags_of_the_prefix_cache_and_spec_match_the_reference(name):
+    _flag_matches_the_reference(name)
+
+
+def _flag_matches_the_reference(name):
     import brpc_tpu.flags as jax_flags
 
     j, p = jax_flags.find(name), port_flags.find(name)
@@ -286,15 +300,18 @@ def test_flags_of_the_tunnel_match_the_reference(name):
 
 
 def test_default_watch_rules_read_exported_variables():
-    """Every default watch rule reads a variable the port's server
-    exposes once it has started."""
+    """Every default watch rule reads a variable the port exposes once its
+    server has started and its serving package is loaded."""
+    import brpc_tpu_torch.serving  # noqa: F401  (the serving variables)
     from brpc_tpu_torch.metrics import variable
     from brpc_tpu_torch.metrics.watch import global_watch
 
     srv = port_rpc.Server().start("127.0.0.1:0")
     try:
         rules = global_watch().rules()
-        assert [r.name for r in rules] == ["deadline_expiry_rate"]
+        assert [r.name for r in rules] == ["deadline_expiry_rate",
+                                           "serving_prefix_thrash",
+                                           "serving_spec_collapse"]
         for r in rules:
             assert variable.get_exposed(r.var) is not None, r.var
     finally:

@@ -258,6 +258,18 @@ serving_prefix_thrash_rate = define(
     "sustains above this many blocks/s: the tree is churning instead "
     "of caching (reloadable: the rule reads the flag at every tick)",
     validator=_positive)
+serving_migrate_window_mb = define(
+    "serving_migrate_window_mb", 64,
+    "credit window (MiB of staged device bytes) for the KV-migration "
+    "record stream: the prefill engine stalls exactly when the decode "
+    "engine holds this many unconsumed migrated-block bytes",
+    validator=_positive)
+serving_migrate_timeout_ms = define(
+    "serving_migrate_timeout_ms", 30000,
+    "per-sequence migration deadline: MigrateCommit gives up (and the "
+    "source keeps the chain, falling back to local decode) if the "
+    "destination has not adopted every block within this bound",
+    validator=_positive)
 serving_spec_accept_rate_min = define(
     "serving_spec_accept_rate_min", 0.2,
     "serving_spec_collapse watch rule fires when the speculative-decode "
@@ -265,3 +277,9 @@ serving_spec_accept_rate_min = define(
     "this bound: drafts are being rejected wholesale and the verify "
     "rows are wasted compute (reloadable: the rule reads the flag at "
     "every tick)", validator=lambda v: 0.0 < float(v) <= 1.0)
+serving_migrate_backlog_max = define(
+    "serving_migrate_backlog_max", 8.0,
+    "serving_migrate_backlog watch rule fires when more than this many "
+    "KV migrations are in flight at once: prefill engines ship chains "
+    "faster than decode engines adopt them (reloadable: the rule reads "
+    "the flag at every tick)", validator=_positive)

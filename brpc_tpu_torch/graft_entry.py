@@ -11,7 +11,7 @@ JAX entry's parameters with ``TrainLM.load_params``).
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed, and raises with no
 card. The multi-device ``dryrun_multichip`` waits for the port's mesh
-(ROADMAP Queue 1 item 7).
+(ROADMAP Queue 1 item 7(d)).
 """
 
 from __future__ import annotations

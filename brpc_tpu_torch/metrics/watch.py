@@ -270,8 +270,7 @@ def install_default_rules() -> None:
 
 def _add_default_rules() -> None:
     # the rules over variables the port exports; the reference's tunnel,
-    # shard, KV, migration and QoS rules come back when their variables
-    # are ported
+    # shard, KV and QoS rules come back when their variables are ported
     from brpc_tpu_torch import flags as _flags
     w = _global_watch
     w.add(WatchRule(
@@ -284,6 +283,14 @@ def _add_default_rules() -> None:
         "serving_prefix_thrash", "g_serving_prefix_evicted_blocks",
         KIND_RATE, ">", 20, window_s=10, for_ticks=2, clear_ticks=5,
         value_fn=lambda: _flags.get("serving_prefix_thrash_rate")))
+    # disaggregated serving: migrations stacking up in flight mean the
+    # record lane (or the decode side's adoption) cannot keep pace with
+    # prefill handoffs. Bound: the reloadable serving_migrate_backlog_max
+    # flag
+    w.add(WatchRule(
+        "serving_migrate_backlog", "g_serving_migrate_inflight",
+        KIND_THRESHOLD, ">", 8, window_s=10, for_ticks=2, clear_ticks=5,
+        value_fn=lambda: _flags.get("serving_migrate_backlog_max")))
     # speculative decoding: the accept-rate gauge sliding below the bound
     # means prompt-lookup drafts stopped matching the model's output, a
     # fleet-wide collapse the per-sequence AdaptiveK guard can only mask.

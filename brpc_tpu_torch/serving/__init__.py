@@ -20,8 +20,16 @@
   (continuous batching, the prefix cache on by default, ``spec_k``
   speculative decoding); its ``submit(..., done=...)`` is the entry
   point below the RPC front.
+- :mod:`brpc_tpu_torch.serving.migration` — KV block-chain migration
+  over the record lane: ``KVMigrator`` (source: quiesce, stream,
+  release on the ACK) and ``MigrationReceiver`` (destination: staging
+  chain, pool write, adopt). A prefill-role engine hands each chain to a
+  decode-role engine; a stopping engine drains its live chains to a
+  survivor. Loaded on first use (``KVMigrator`` / ``MigrationReceiver``
+  below), so co-located deployments never load it.
 - :mod:`brpc_tpu_torch.serving.service` — ``LlmServingService``
-  (``Generate`` with per-token streams, ``Stats``) for a
+  (``Generate`` with per-token streams and ``resume_seq_id``,
+  ``MigrateOpen`` / ``MigrateCommit``, ``Stats``) for a
   ``brpc_tpu_torch.rpc.Server``; imported on its own, so the engine's
   users load no RPC code.
 """
@@ -38,10 +46,25 @@ from brpc_tpu_torch.serving.speculative import (AdaptiveK,
                                                 accept_longest_prefix,
                                                 draft_tokens)
 
+
+
+def __getattr__(name):
+    # the migration plane loads on first use: co-located deployments
+    # never pay for the record-lane and fault wiring at import time
+    if name == "KVMigrator":
+        from brpc_tpu_torch.serving.migration import KVMigrator
+        return KVMigrator
+    if name == "MigrationReceiver":
+        from brpc_tpu_torch.serving.migration import MigrationReceiver
+        return MigrationReceiver
+    raise AttributeError(name)
+
+
 __all__ = [
     "KVCacheConfig", "KVCacheFull", "PagedKVCache",
     "ModelConfig", "TinyTransformer",
     "EngineConfig", "GenerateResult", "ServingEngine", "active_engines",
+    "KVMigrator", "MigrationReceiver",
     "PrefixCache", "build_prefix_cache", "prefix_route_key",
     "AdaptiveK", "accept_longest_prefix", "draft_tokens",
 ]

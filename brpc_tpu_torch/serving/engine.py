@@ -44,8 +44,22 @@ full blocks into the tree; ``prefix_cache=False`` turns the cache off.
 per sequence (``serving/speculative.py``, host-side prompt lookup) and
 one ``verify_step`` launch, committing the longest accepted prefix plus
 one bonus token; greedy acceptance keeps the tokens those of
-``spec_k=0``. Still to port: QoS (ROADMAP Queue 1 item 5) and KV
-migration (item 6).
+``spec_k=0``.
+
+Disaggregated serving, as in the reference: ``EngineConfig(role=)``
+places an engine. A ``"prefill"`` engine with a migrator
+(:meth:`ServingEngine.set_migrator`, a ``serving/migration.KVMigrator``)
+hands every chain to its destination right after prefill and completes
+the request with ``finish_reason="handoff"``, the adopted sequence's id
+and ``handoff_shard``; a failed migration leaves the sequence decoding
+here. A migrated-in sequence is parked until a ``submit(...,
+resume_seq_id=)`` attaches a client, which then receives only the tokens
+decoded here. Any engine with a migrator drains its live sequences to
+the destination on ``stop()`` (shard death): each request fails
+retriably with EFAILEDSOCKET, and its retry, the same prompt, attaches
+by prompt match to the migrated sequence with no prefill. ``pool_gate``
+serializes the step's launches against a migration writing the pools.
+Still to port: QoS (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -114,15 +128,22 @@ g_serving_running.prometheus_type = "gauge"
 SCHED_CONTINUOUS = "continuous"
 SCHED_STATIC = "static"
 
+ROLE_PREFILL = "prefill"
+ROLE_DECODE = "decode"
+ROLE_BOTH = "both"
+
 
 class EngineConfig:
     def __init__(self, max_batch: int = 8, token_budget: int = 512,
                  max_queue: int = 64, max_new_tokens_cap: int = 512,
                  scheduling: str = SCHED_CONTINUOUS,
-                 idle_wait_s: float = 0.05, spec_k: int = 0,
-                 spec_ngram: int = 3, spec_collapse_after: int = 4):
+                 idle_wait_s: float = 0.05, role: str = ROLE_BOTH,
+                 spec_k: int = 0, spec_ngram: int = 3,
+                 spec_collapse_after: int = 4):
         if scheduling not in (SCHED_CONTINUOUS, SCHED_STATIC):
             raise ValueError(f"unknown scheduling {scheduling!r}")
+        if role not in (ROLE_PREFILL, ROLE_DECODE, ROLE_BOTH):
+            raise ValueError(f"unknown role {role!r}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         self.max_batch = max_batch
@@ -133,6 +154,12 @@ class EngineConfig:
         self.max_new_tokens_cap = max_new_tokens_cap
         self.scheduling = scheduling
         self.idle_wait_s = idle_wait_s
+        # disaggregated serving: a "prefill" engine runs prefill, then
+        # migrates each chain to its KVMigrator's destination (decoding
+        # locally when that fails); a "decode" engine mostly adopts
+        # migrated sequences but still takes fresh submissions (a role is
+        # placement, not capability)
+        self.role = role
         # speculative decoding: spec_k > 0 turns each decode step into
         # draft-k + one verify launch; per sequence the AdaptiveK
         # controller shrinks k on rejection and collapses to plain decode
@@ -146,7 +173,9 @@ class EngineConfig:
 class GenerateResult:
     """What ``done`` receives: the fields of the JAX engine's
     ``GenerateResponse``, plus the error a failed request ended with
-    (``error_code`` 0 on success)."""
+    (``error_code`` 0 on success). A handoff (``finish_reason
+    "handoff"``) names the adopted sequence in ``seq_id`` and its engine
+    in ``handoff_shard``."""
     tokens: List[int]
     seq_id: int
     prompt_len: int
@@ -155,6 +184,7 @@ class GenerateResult:
     finish_reason: str
     error_code: int = 0
     error_text: str = ""
+    handoff_shard: int = 0
 
 
 STATE_WAITING = "waiting"
@@ -191,6 +221,15 @@ class Sequence:
         self.t_first_token = 0.0
         self.t_last_token = 0.0
         self.finish_reason = ""
+        # disaggregation: a migrated-in sequence is "adopted" and decodes
+        # with no client until a resume or retry attaches one;
+        # handoff_base counts the out_tokens the prefill engine already
+        # returned (a resume attach replies only the suffix)
+        self.adopted = False
+        self.handoff_base = 0
+        self.resume_attach = False
+        self._attached = False
+        self._deferred: Optional[tuple] = None
 
     @property
     def pos(self) -> int:
@@ -233,6 +272,18 @@ class ServingEngine:
         self.ttft_samples: List[float] = []  # us, bounded
         self.itl_samples: List[float] = []   # us, bounded
         self.step_samples: List[float] = []  # us, bounded
+        # disaggregation: the migrator ships chains OUT (set_migrator),
+        # the receiver (installed by LlmServingService) adopts chains IN;
+        # _adopted parks migrated-in sequences until a client attaches,
+        # and _adopted_pending holds them for a max_batch slot
+        self.migrator = None
+        self._migration_rx = None
+        self._adopted: Dict[int, Sequence] = {}
+        self._adopted_pending: Deque[Sequence] = collections.deque()
+        self._recover_index: Dict[tuple, Deque[int]] = {}
+        # serializes pool writes between the step loop's launches and a
+        # migration writing an adopted chain into the pools
+        self.pool_gate = threading.Lock()
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "ServingEngine":
@@ -247,6 +298,14 @@ class ServingEngine:
             _engines.append(self)
         return self
 
+    def set_migrator(self, migrator) -> "ServingEngine":
+        """Install the outbound KV migrator (serving/migration.py). A
+        prefill-role engine hands every prefilled chain to it from the
+        step loop; ANY engine with one drains its live sequences to the
+        destination on stop() instead of aborting them."""
+        self.migrator = migrator
+        return self
+
     def stop(self, abort_code: int = errors.ELOGOFF) -> None:
         with self._cv:
             if not self.running:
@@ -256,13 +315,23 @@ class ServingEngine:
         if self._thread is not None:
             self._thread.join(timeout=10.0)
             self._thread = None
+        # shard-death recovery: with a migrator, live chains move to the
+        # survivor (the step loop has ended, so every sequence is
+        # quiescent) before anything is aborted or the tree is cleared
+        if self.migrator is not None:
+            self._drain_migrate()
         # fail anything still in flight, then the pool is whole again
         with self._cv:
-            pending = list(self._waiting) + list(self._running)
+            pending = (list(self._waiting) + list(self._running)
+                       + list(self._adopted_pending))
             self._waiting.clear()
             self._running = []
+            self._adopted_pending.clear()
         for seq in pending:
             self._finish(seq, abort_code, "engine stopped")
+        with self._cv:
+            self._adopted.clear()
+            self._recover_index.clear()
         if self.prefix is not None:
             # release every tree hold so assert_idle sees the pool whole
             self.prefix.clear()
@@ -273,7 +342,7 @@ class ServingEngine:
     # ------------------------------------------------------------ admission
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
                stop_token: int = 0, done: Optional[Callable] = None,
-               cntl=None, stream_id: int = 0
+               cntl=None, stream_id: int = 0, resume_seq_id: int = 0
                ) -> "tuple[int, Optional[Sequence]]":
         """Admission front door (runs on the RPC thread). Returns
         (error_code, seq): 0 and the queued sequence, or a reject code
@@ -282,13 +351,29 @@ class ServingEngine:
 
         ``cntl`` switches ``done`` to the RPC form (see the module doc);
         ``stream_id`` is the server-side stream accepted for the request,
-        0 for none."""
+        0 for none. ``resume_seq_id`` attaches to a migrated-in sequence
+        (the handoff reply named it): no admission, no allocation, the
+        chain is already here."""
+        if resume_seq_id:
+            with self._cv:
+                seq = self._adopted.get(resume_seq_id)
+            if seq is None:
+                return errors.EREQUEST, None
+            return self._bind_attach(seq, cntl, done, stream_id,
+                                     resume=True)
         if max_new_tokens < 1:
             return errors.EREQUEST, None
         max_new_tokens = min(max_new_tokens, self.config.max_new_tokens_cap)
         if len(prompt) < 1 or (len(prompt) + max_new_tokens
                                > self.model.config.max_context):
             return errors.EREQUEST, None
+        # shard-death recovery: a retried request whose sequence was
+        # drained here picks up the live generation, no prefill
+        if self._recover_index:
+            cand = self._recover_match(prompt, max_new_tokens, stop_token)
+            if cand is not None:
+                return self._bind_attach(cand, cntl, done, stream_id,
+                                         resume=False)
         if len(prompt) > self.config.token_budget:
             # FIFO admission pulls a prompt only within one step's budget:
             # a longer one would never run and would block the queue
@@ -347,6 +432,92 @@ class ServingEngine:
     def running_count(self) -> int:
         return len(self._running)
 
+    # -------------------------------------------------- migration adoption
+    def make_adopted_sequence(self, prompt: np.ndarray,
+                              out_tokens: List[int], max_new_tokens: int,
+                              stop_token: int = 0) -> Sequence:
+        """The destination-side Sequence of a migrated chain. The caller
+        (MigrationReceiver) adopts the KV under its ``seq_id`` BEFORE
+        handing it to :meth:`adopt_migrated`: the step loop never sees
+        the sequence without blocks."""
+        seq = Sequence(prompt, max_new_tokens, stop_token)
+        seq.out_tokens = list(out_tokens)
+        seq.handoff_base = len(out_tokens)
+        seq.adopted = True
+        seq.state = STATE_RUNNING
+        # the source engine recorded TTFT; t_last_token stays 0 so the
+        # first local decode restarts the ITL clock (transfer and slot
+        # wait belong to the handoff, not to this engine's token gap)
+        seq.t_first_token = time.monotonic()
+        seq.t_last_token = 0.0
+        return seq
+
+    def adopt_migrated(self, seq: Sequence, recovery: bool = False) -> bool:
+        """Queue a migrated-in sequence (its KV already adopted) for
+        decode. The step loop moves it into the running set under the
+        same max_batch cap as admission; its tokens wait on the sequence
+        until a client attaches. ``recovery`` also indexes it for the
+        attach by prompt match (a retry after shard death has no
+        resume_seq_id: the original reply never arrived)."""
+        with self._cv:
+            if not self.running:
+                return False
+            self._adopted[seq.seq_id] = seq
+            if recovery:
+                key = (tuple(int(t) for t in seq.prompt),
+                       int(seq.max_new_tokens), int(seq.stop_token))
+                self._recover_index.setdefault(
+                    key, collections.deque()).append(seq.seq_id)
+            self._adopted_pending.append(seq)
+            self._cv.notify()
+        return True
+
+    def _recover_match(self, prompt: np.ndarray, max_new_tokens: int,
+                       stop_token: int) -> Optional[Sequence]:
+        key = (tuple(int(t) for t in prompt), int(max_new_tokens),
+               int(stop_token))
+        with self._cv:
+            dq = self._recover_index.get(key)
+            while dq:
+                rid = dq.popleft()
+                if not dq:
+                    self._recover_index.pop(key, None)
+                    dq = None
+                cand = self._adopted.get(rid)
+                if cand is not None and not cand._attached:
+                    return cand
+        return None
+
+    def _bind_attach(self, seq: Sequence, cntl, done, stream_id: int,
+                     resume: bool) -> "tuple[int, Optional[Sequence]]":
+        """Attach a client to a parked migrated sequence. A live one
+        streams the tokens decoded since the handoff and keeps decoding;
+        a finished one completes the request at once from its deferred
+        result."""
+        with self._cv:
+            if seq._attached or seq.done is not None:
+                return errors.EREQUEST, None
+            seq._attached = True
+            seq.resume_attach = resume
+            seq.cntl = cntl
+            seq.stream_id = stream_id
+            deferred = seq._deferred
+            base = seq.handoff_base if resume else 0
+            replay = list(seq.out_tokens[base:])
+            finished = seq.state == STATE_DONE
+            if deferred is None:
+                seq.done = done
+            else:
+                self._adopted.pop(seq.seq_id, None)
+        if deferred is not None:
+            if done is not None:
+                self._complete(seq, done, *deferred)
+            return 0, seq
+        if replay and stream_id:
+            # catch the client up on tokens decoded before it attached
+            self._stream_delta(seq, replay, finished)
+        return 0, seq
+
     # ------------------------------------------------------------ step loop
     def _loop(self) -> None:
         _prof.register_current_thread("serving")
@@ -354,7 +525,8 @@ class ServingEngine:
             while True:
                 with self._cv:
                     while (self.running and not self._waiting
-                           and not self._running):
+                           and not self._running
+                           and not self._adopted_pending):
                         self._cv.wait(self.config.idle_wait_s)
                     if not self.running:
                         return
@@ -365,7 +537,8 @@ class ServingEngine:
                     time.sleep(0.002)
                     continue
                 try:
-                    self._step(admitted)
+                    with self.pool_gate:
+                        self._step(admitted)
                 except Exception as e:  # the engine must survive a bad step
                     for seq in list(self._running):
                         self._finish(seq, errors.EINTERNAL,
@@ -382,6 +555,13 @@ class ServingEngine:
         if cfg.scheduling == SCHED_STATIC and self._running:
             return []
         admitted: List[Sequence] = []
+        # migrated-in chains first (already prefilled), capped by
+        # max_batch so a burst of migrations never grows the decode
+        # batch past what admission itself would run
+        while self._adopted_pending and len(self._running) < cfg.max_batch:
+            seq = self._adopted_pending.popleft()
+            self._running.append(seq)
+            admitted.append(seq)
         # a speculating sequence can commit up to 1 + k tokens a step, so
         # it reserves that many budget slots, not one
         budget = cfg.token_budget - sum(self._decode_cost(s)
@@ -462,6 +642,8 @@ class ServingEngine:
             prev = _prof.set_phase("prefill")
             try:
                 for seq in admitted:
+                    if seq.adopted:
+                        continue  # the chain arrived prefilled
                     tp0 = time.perf_counter_ns()
                     if seq.prefix_len:
                         # forked chain: split the divergence block if it
@@ -487,6 +669,12 @@ class ServingEngine:
             finally:
                 _prof.set_phase(prev)
         self._reap_finished()
+        # ---- disaggregated handoff: a prefill-role engine ships every
+        # live chain to the decode engine right after its first token; a
+        # failed migration leaves the sequence here (local decode), tried
+        # again next step
+        if self.config.role == ROLE_PREFILL and self.migrator is not None:
+            self._migrate_handoff()
         # ---- decode phase: ONE decode step for the whole batch
         batch = list(self._running)
         if batch:
@@ -509,11 +697,12 @@ class ServingEngine:
                     for s, d in zip(batch, drafts)]
                 # dispatch-count invariant: under an armed ledger the whole
                 # decode batch, all k+1 verify rows per sequence included,
-                # must cost exactly ONE launch + ONE host sync
+                # must cost exactly ONE launch + ONE host sync of this
+                # thread (another engine in the process counts apart)
                 audit = (getattr(self.model, "FUSED_STEP", False)
                          and self.kv._check)
                 if audit:
-                    d_before = step_dispatch.snapshot()
+                    d_before = step_dispatch.thread_snapshot()
                 if spec_on:
                     outs = self.model.verify_step(tokens, positions, tables,
                                                   drafts)
@@ -521,7 +710,7 @@ class ServingEngine:
                     nxt = self.model.decode_step(tokens, positions, tables)
                 if audit:
                     launches, _, syncs = step_dispatch.delta(
-                        d_before, step_dispatch.snapshot())
+                        d_before, step_dispatch.thread_snapshot())
                     if (launches, syncs) != (1, 1):
                         raise AssertionError(
                             f"decode step dispatched {launches} launches / "
@@ -680,6 +869,74 @@ class ServingEngine:
                 still.append(seq)
         self._running = still
 
+    # ------------------------------------------------------------- handoff
+    def _migrate_handoff(self) -> None:
+        """Ship every live chain to the decode engine (on the engine
+        thread between phases, so each sequence is quiescent). A success
+        completes the request with the handoff; a failure stays in the
+        running set and decodes here."""
+        moved = []
+        for seq in list(self._running):
+            if seq.state == STATE_DONE or seq.adopted:
+                continue
+            dest = self.migrator.migrate(seq, self.kv)
+            if dest is not None:
+                moved.append((seq, dest))
+        if not moved:
+            return
+        gone = {id(s) for s, _ in moved}
+        self._running = [s for s in self._running if id(s) not in gone]
+        for seq, dest in moved:
+            self._finish_handoff(seq, dest)
+
+    def _finish_handoff(self, seq: Sequence, dest_seq_id: int) -> None:
+        """Complete the stage-1 request: ``finish_reason`` "handoff", the
+        adopted sequence's id and ``handoff_shard`` tell the client where
+        its generation goes on. The migrator released the chain on the
+        destination's ACK: nothing to free here."""
+        seq.state = STATE_DONE
+        seq.finish_reason = "handoff"
+        self._stream_delta(seq, [], True)  # the stage-1 stream is complete
+        done, seq.done = seq.done, None
+        if done is None:
+            return
+        shard = self.migrator.dest_shard
+        try:
+            if seq.cntl is not None:
+                done(serving_pb2.GenerateResponse(
+                    tokens=seq.out_tokens, seq_id=dest_seq_id,
+                    prompt_len=len(seq.prompt), steps=len(seq.out_tokens),
+                    ttft_us=self._ttft_us(seq), finish_reason="handoff",
+                    handoff_shard=shard))
+            else:
+                done(GenerateResult(
+                    tokens=list(seq.out_tokens), seq_id=dest_seq_id,
+                    prompt_len=len(seq.prompt), steps=len(seq.out_tokens),
+                    ttft_us=self._ttft_us(seq), finish_reason="handoff",
+                    handoff_shard=shard))
+        except Exception:  # a caller's callback must not kill the engine
+            _log.exception("handoff completion of sequence %d raised",
+                           seq.seq_id)
+
+    def _drain_migrate(self) -> None:
+        """stop()'s recovery: move live chains to the survivor. The
+        request still fails retriably (its engine is going away), but its
+        retry attaches to the migrated sequence on the destination with
+        no prefill."""
+        with self._cv:
+            live = [s for s in self._running
+                    if s.state != STATE_DONE and not s.adopted]
+        for seq in live:
+            dest = self.migrator.migrate(seq, self.kv, recovery=True)
+            if dest is None:
+                continue  # the abort in stop() cleans it up
+            with self._cv:
+                if seq in self._running:
+                    self._running.remove(seq)
+            self._finish(seq, errors.EFAILEDSOCKET,
+                         "shard draining: sequence migrated to survivor "
+                         "(retriable)")
+
     def _finish(self, seq: Sequence, code: int, reason: str) -> None:
         if code == 0 and self.prefix is not None and seq.out_tokens:
             # commit the fully written blocks into the radix tree
@@ -699,45 +956,55 @@ class ServingEngine:
 
             stream_close(seq.stream_id)
             seq.stream_id = 0
+        with self._cv:
+            if seq.adopted and seq.done is None and not seq._attached:
+                # migrated in with no client yet: park the result for the
+                # resume or retry attach (the blocks are freed above)
+                seq._deferred = (code, reason)
+                return
+            self._adopted.pop(seq.seq_id, None)
         done, seq.done = seq.done, None
         if done is None:
             return
-        ttft_us = 0
-        if seq.t_first_token:
-            ttft_us = int((seq.t_first_token - seq.t_submit) * 1e6)
-        if seq.cntl is not None:
-            self._finish_rpc(seq, done, code, reason, ttft_us)
-            return
-        result = GenerateResult(
-            tokens=list(seq.out_tokens), seq_id=seq.seq_id,
-            prompt_len=len(seq.prompt), steps=len(seq.out_tokens),
-            ttft_us=ttft_us, finish_reason=seq.finish_reason or
-            ("length" if code == 0 else "error"),
-            error_code=code, error_text=reason)
-        try:
-            done(result)
-        except Exception:  # a caller's callback must not kill the engine
-            _log.exception("done callback of sequence %d raised",
-                           seq.seq_id)
+        self._complete(seq, done, code, reason)
 
     @staticmethod
-    def _finish_rpc(seq: Sequence, done, code: int, reason: str,
-                    ttft_us: int) -> None:
-        """The RPC form of completion: the server's ``done`` with the
-        ``GenerateResponse``, or with None after ``cntl.set_failed``."""
+    def _ttft_us(seq: Sequence) -> int:
+        if not seq.t_first_token:
+            return 0
+        return int((seq.t_first_token - seq.t_submit) * 1e6)
+
+    def _complete(self, seq: Sequence, done, code: int,
+                  reason: str) -> None:
+        """Call ``done`` for a finished sequence: the RPC form (the
+        ``GenerateResponse``, or None after ``cntl.set_failed``) when a
+        controller came with it, else a :class:`GenerateResult`. A resume
+        attach already has the prefill engine's tokens from the handoff
+        reply and gets only the suffix decoded here; a recovery attach
+        replaces the lost reply whole."""
+        toks = (seq.out_tokens[seq.handoff_base:] if seq.resume_attach
+                else seq.out_tokens)
         try:
-            if code != 0:
-                seq.cntl.set_failed(code, reason)
-                done(None)
+            if seq.cntl is not None:
+                if code != 0:
+                    seq.cntl.set_failed(code, reason)
+                    done(None)
+                else:
+                    done(serving_pb2.GenerateResponse(
+                        tokens=toks, seq_id=seq.seq_id,
+                        prompt_len=len(seq.prompt), steps=len(toks),
+                        ttft_us=self._ttft_us(seq),
+                        finish_reason=seq.finish_reason or "length"))
             else:
-                done(serving_pb2.GenerateResponse(
-                    tokens=seq.out_tokens, seq_id=seq.seq_id,
-                    prompt_len=len(seq.prompt), steps=len(seq.out_tokens),
-                    ttft_us=ttft_us,
-                    finish_reason=seq.finish_reason or "length"))
-        except Exception:  # the response path must not kill the engine
-            _log.exception("RPC completion of sequence %d raised",
-                           seq.seq_id)
+                done(GenerateResult(
+                    tokens=list(toks), seq_id=seq.seq_id,
+                    prompt_len=len(seq.prompt), steps=len(toks),
+                    ttft_us=self._ttft_us(seq),
+                    finish_reason=seq.finish_reason or
+                    ("length" if code == 0 else "error"),
+                    error_code=code, error_text=reason))
+        except Exception:  # a caller's callback must not kill the engine
+            _log.exception("completion of sequence %d raised", seq.seq_id)
 
     # ------------------------------------------------------------ visibility
     def snapshot(self) -> Dict[str, object]:
@@ -745,7 +1012,16 @@ class ServingEngine:
             return float(np.percentile(samples, q)) if samples else 0.0
 
         occ = (self._occupancy_sum / self.steps) if self.steps else 0.0
+        migration = None
+        if self.migrator is not None or self._migration_rx is not None:
+            migration = {"parked": len(self._adopted)}
+            if self.migrator is not None:
+                migration["out"] = self.migrator.snapshot()
+            if self._migration_rx is not None:
+                migration["in"] = self._migration_rx.snapshot()
         return {
+            "role": self.config.role,
+            "migration": migration,
             "scheduling": self.config.scheduling,
             "max_batch": self.config.max_batch,
             "token_budget": self.config.token_budget,

@@ -29,15 +29,19 @@ every alloc/extend/truncate/free/hold re-audits the invariants, and
 :meth:`PagedKVCache.assert_idle` proves at teardown that every block came
 back and that no tree hold lingers.
 
-Migration export (quiesce / export / adopt from a peer) is not ported
-yet (ROADMAP Queue 1 item 6).
+Migration export, as in the reference: ``quiesce_sequence`` audits the
+ledger (armed or not) and marks a chain frozen, ``export_chain`` refuses
+a chain without that mark, and any write (extend, truncate, copy-on-write,
+free) clears it; ``release_exported`` drops the source's ownership once
+the destination has adopted the chain, ``unquiesce_sequence`` aborts the
+export and leaves the chain local and writable.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -89,6 +93,10 @@ class PagedKVCache:
         self._cache_ref: Dict[int, int] = {}
         # the page copy cow_block runs; None is the pools' own copy
         self._cow_copy_fn = None
+        # sequences audited and frozen for export (migration); any write
+        # clears the mark, so export_chain only sees a chain with no
+        # write since its quiesce
+        self._quiesced: set = set()
         self.admission_rejects = 0
         self.cow_splits = 0
         self._check = os.environ.get("BRPC_TPU_CHECK", "") == "1"
@@ -185,6 +193,7 @@ class PagedKVCache:
             while len(table) < need:
                 table.append(self._take_block_locked())
             self._seq_len[seq_id] = new_len
+            self._quiesced.discard(seq_id)
             self._audit_locked()
         return list(table)
 
@@ -202,6 +211,7 @@ class PagedKVCache:
                 freed += self._drop_block_locked(table.pop())
             self._seq_len[seq_id] = min(self._seq_len.get(seq_id, new_len),
                                         new_len)
+            self._quiesced.discard(seq_id)
             self._audit_locked()
         return freed
 
@@ -294,6 +304,7 @@ class PagedKVCache:
                 raise IndexError(f"block index {block_index} outside "
                                  f"table of {len(table)}")
             src = table[block_index]
+            self._quiesced.discard(seq_id)  # a write is coming
             if self._ref.get(src, 0) == 1:
                 return src  # exclusive already: no split needed
             dst = self._take_block_locked()
@@ -322,6 +333,52 @@ class PagedKVCache:
             pool[:, d0:d0 + bs].copy_(pool[:, s0:s0 + bs])
         self.update_pools(self.k_pool, self.v_pool)
 
+    # ------------------------------------------------------------ migration
+    def quiesce_sequence(self, seq_id: int) -> int:
+        """Freeze a sequence for export: audit the ledger (even a disarmed
+        one; exporting over refcounts that disagree with the tables ships
+        corruption) and mark the chain quiesced. Returns the tokens the
+        chain covers. The engine calls this only when no launch of the
+        sequence is outstanding."""
+        with self._lock:
+            if seq_id not in self._tables:
+                raise KeyError(f"unknown sequence {seq_id}")
+            problems = self._invariant_problems_locked()
+            if problems:
+                raise AssertionError(
+                    "refusing to quiesce over a broken ledger: " +
+                    "; ".join(problems))
+            self._quiesced.add(seq_id)
+            return self._seq_len[seq_id]
+
+    def export_chain(self, seq_id: int) -> Tuple[List[int], int]:
+        """(block table, ntokens) of a quiesced sequence, for migration.
+        The chain stays the source's until :meth:`release_exported`: the
+        destination's ACK moves ownership, so the blocks never belong to
+        nobody or to both sides."""
+        with self._lock:
+            if seq_id not in self._tables:
+                raise KeyError(f"unknown sequence {seq_id}")
+            if seq_id not in self._quiesced:
+                raise AssertionError(
+                    f"export of sequence {seq_id} without quiesce: call "
+                    f"quiesce_sequence first (no in-flight writes may be "
+                    f"outstanding when a chain leaves the pool)")
+            return list(self._tables[seq_id]), self._seq_len[seq_id]
+
+    def release_exported(self, seq_id: int) -> int:
+        """Drop the source's ownership of a migrated chain once the
+        destination ACKed adoption. Returns blocks freed."""
+        with self._lock:
+            self._quiesced.discard(seq_id)
+        return self.free_sequence(seq_id)
+
+    def unquiesce_sequence(self, seq_id: int) -> None:
+        """Abort an export (the migration failed): the chain stays local
+        and writable."""
+        with self._lock:
+            self._quiesced.discard(seq_id)
+
     def free_sequence(self, seq_id: int) -> int:
         """Drop a sequence's table; blocks return to the free list when
         their refcount hits zero. Returns blocks actually freed."""
@@ -329,6 +386,7 @@ class PagedKVCache:
         with self._lock:
             table = self._tables.pop(seq_id, None)
             self._seq_len.pop(seq_id, None)
+            self._quiesced.discard(seq_id)
             if table is None:
                 return 0
             for b in table:

@@ -23,8 +23,13 @@ The port of ``brpc_tpu/serving/model.py``:
 Prefill and decode keep the JAX model's shape buckets (prefill: a power
 of two >= 16, then a multiple of 128; decode: a power-of-two batch and
 block count) and its ``step_dispatch`` launch and host-sync notes, so
-the engine's per-step (1 launch, 1 host sync) audit holds. Prompts at or
-past ``ring_threshold`` need ring attention, which is not ported yet.
+the engine's per-step (1 launch, 1 host sync) audit holds.
+
+- **Long prompts**: a prompt of ``ring_threshold`` tokens or more
+  prefills through ring attention (``tpu/ring.ring_attention`` on its
+  plain lane, as the reference's ``_prefill_ring`` runs the lax ring),
+  one layer at a time. The port has no device mesh yet, so the ring has
+  one position (``sp = 1``): one hop, and no pad rows.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 from torch import nn
 
 from brpc_tpu_torch.serving.kv_cache import PagedKVCache
-from brpc_tpu_torch.tpu import pallas_ops
+from brpc_tpu_torch.tpu import pallas_ops, ring
 from brpc_tpu_torch.tpu.device_lane import step_dispatch
 
 
@@ -229,15 +234,11 @@ class TinyTransformer(nn.Module):
 
     def prefill(self, tokens: np.ndarray, table: Sequence[int]) -> int:
         """Run prompt prefill for ONE sequence: scatter its K/V pages into
-        the pool and return the first generated token (greedy)."""
-        cfg = self.config
+        the pool and return the first generated token (greedy). Long
+        prompts take the ring-attention path."""
         s = len(tokens)
-        if s >= cfg.ring_threshold:
-            raise NotImplementedError(
-                f"prompt of {s} tokens needs ring attention (ring_threshold "
-                f"{cfg.ring_threshold}) over the process's device mesh, "
-                f"which the torch port lacks until the mesh is ported "
-                f"(ROADMAP.md Queue 1 item 7)")
+        if s >= self.config.ring_threshold:
+            return self._prefill_ring(tokens, table)
         self.kv.assert_writable(table, 0, s)
         bucket = max(16, _next_pow2(s))
         if bucket > 128:
@@ -249,6 +250,44 @@ class TinyTransformer(nn.Module):
         nxt = self._prefill_impl(self._to_dev(toks), self._to_dev(slots), s,
                                  self._use_flash())
         first = int(nxt.item())
+        step_dispatch.note_host_sync()
+        return first
+
+    @torch.no_grad()
+    def _prefill_ring(self, tokens: np.ndarray,
+                      table: Sequence[int]) -> int:
+        """Long-context prefill: each layer's attention through the ring
+        (``sp`` sequence blocks; one card is one position, one hop). The
+        layer loop runs on the host, one launch noted per layer's ring
+        call and one host sync at the end, as in the reference."""
+        cfg = self.config
+        H, hd, D = cfg.n_heads, cfg.head_dim, cfg.d_model
+        sp = 1  # no mesh in the port yet: one ring position
+        s = len(tokens)
+        self.kv.assert_writable(table, 0, s)
+        pad = ((s + sp - 1) // sp) * sp
+        p = self._params
+        toks = np.zeros(pad, dtype=np.int64)
+        toks[:s] = tokens
+        x = p["embed"][self._to_dev(toks)]
+        kpool, vpool = self.kv.k_pool, self.kv.v_pool
+        slots = self._to_dev(self._slots_for(table, s, pad))
+        for l in range(cfg.n_layers):
+            h = _rms(x)
+            q, k, vv = (h @ p[f"wqkv{l}"]).split(D, dim=-1)
+            kpool[l, slots] = k
+            vpool[l, slots] = vv
+            step_dispatch.note_launch(1)
+            attn = ring.ring_attention(q.reshape(1, pad, H, hd),
+                                       k.reshape(1, pad, H, hd),
+                                       vv.reshape(1, pad, H, hd), sp,
+                                       causal=True)
+            x = x + attn.reshape(pad, -1) @ p[f"wo{l}"]
+            h2 = _rms(x)
+            x = x + torch.relu(h2 @ p[f"w1{l}"]) @ p[f"w2{l}"]
+        self.kv.update_pools(kpool, vpool)
+        logits = _rms(x[s - 1]) @ p["embed"].T
+        first = int(torch.argmax(logits).item())
         step_dispatch.note_host_sync()
         return first
 

@@ -29,7 +29,7 @@ blocks back (``evict_for_admission``); the watermark itself is unchanged.
 Counters: the six ``g_serving_prefix_*`` Adders and the
 ``g_serving_prefix_hit_ratio`` gauge; fault point ``serving.prefix.evict``
 forces eviction churn at every fork. The per-shard trees of a sharded
-pool wait for the port's ``ShardedKVCache`` (ROADMAP Queue 1 item 7).
+pool wait for the port's ``ShardedKVCache`` (ROADMAP Queue 1 item 7(c)).
 """
 
 from __future__ import annotations
@@ -309,5 +309,5 @@ def build_prefix_cache(kv) -> PrefixCache:
     if not isinstance(kv, PagedKVCache):
         raise NotImplementedError(
             f"prefix cache over {type(kv).__name__}: the per-shard trees "
-            f"of a sharded pool are not ported (ROADMAP Queue 1 item 7)")
+            f"of a sharded pool are not ported (ROADMAP Queue 1 item 7(c))")
     return PrefixCache(kv)

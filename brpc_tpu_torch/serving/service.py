@@ -25,10 +25,14 @@ which is also what stamps ``cntl.deadline_mono`` for the engine's
 admission re-check and carries the span the engine annotates with
 prefill/decode phases.
 
-Not ported yet: KV migration (ROADMAP Queue 1 item 6), so ``MigrateOpen``
-and ``MigrateCommit`` fail with ENOMETHOD and a ``resume_seq_id`` fails
-with EREQUEST (no sequence can have migrated in); QoS (item 5), so
-``tenant_id`` and ``priority`` are accepted and ignored.
+Disaggregated serving: ``MigrateOpen`` and ``MigrateCommit`` are the
+destination side of a KV migration (``serving/migration.py``; the
+receiver is built at the first call), and a ``Generate`` carrying
+``resume_seq_id`` attaches to the sequence a handoff named: no prompt,
+no admission, EREQUEST when no such sequence is parked here.
+
+Not ported yet: QoS (ROADMAP Queue 1 item 5), so ``tenant_id`` and
+``priority`` are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -41,9 +45,6 @@ from brpc_tpu_torch.rpc.server import Service
 from brpc_tpu_torch.rpc.stream import StreamOptions, stream_accept
 from brpc_tpu_torch.serving.engine import ServingEngine
 
-MIGRATION_NOT_PORTED = ("KV migration is not ported (ROADMAP Queue 1 "
-                        "item 6)")
-
 
 class LlmServingService(Service):
     DESCRIPTOR = serving_pb2.DESCRIPTOR.services_by_name["LlmService"]
@@ -51,11 +52,22 @@ class LlmServingService(Service):
     def __init__(self, engine: ServingEngine):
         super().__init__()
         self.engine = engine
+        # inbound KV migration, built at the first MigrateOpen or
+        # MigrateCommit so co-located deployments never load it
+        self._receiver = None
 
     def Generate(self, cntl, request, done):
         if request.resume_seq_id:
-            cntl.set_failed(errors.EREQUEST, "no such migrated sequence")
-            return serving_pb2.GenerateResponse()
+            # stage 2 of the disaggregated dispatch: attach to the
+            # migrated sequence (no prompt, no admission, no allocation)
+            code, _seq = self.engine.submit(
+                np.zeros(0, dtype=np.int32), 0, cntl=cntl, done=done,
+                stream_id=self._accept_stream(cntl),
+                resume_seq_id=request.resume_seq_id)
+            if code != 0:
+                cntl.set_failed(code, "no such migrated sequence")
+                return serving_pb2.GenerateResponse()
+            return None  # async: completion comes from the step loop
         if request.prompt_tokens:
             prompt = np.asarray(request.prompt_tokens, dtype=np.int32)
         elif request.prompt_len > 0:
@@ -64,26 +76,43 @@ class LlmServingService(Service):
             cntl.set_failed(errors.EREQUEST,
                             "need prompt_tokens or prompt_len")
             return serving_pb2.GenerateResponse()
-        stream_id = 0
-        meta = getattr(cntl, "_srv_meta", None)
-        if meta is not None and meta.stream_settings.stream_id:
-            stream_id = stream_accept(cntl, StreamOptions())
         code, _seq = self.engine.submit(
             prompt, request.max_new_tokens or 16,
             stop_token=request.stop_token, cntl=cntl, done=done,
-            stream_id=stream_id)
+            stream_id=self._accept_stream(cntl))
         if code != 0:
             cntl.set_failed(code, "serving admission rejected")
             return serving_pb2.GenerateResponse()
         return None  # async: the engine's step loop calls done()
 
+    @staticmethod
+    def _accept_stream(cntl) -> int:
+        """Accept the request's stream if the client created one; 0 if
+        not."""
+        meta = getattr(cntl, "_srv_meta", None)
+        if meta is not None and meta.stream_settings.stream_id:
+            return stream_accept(cntl, StreamOptions())
+        return 0
+
+    def _migration_receiver(self):
+        if self._receiver is None:
+            from brpc_tpu_torch.serving.migration import MigrationReceiver
+
+            self._receiver = MigrationReceiver(self.engine)
+            self.engine._migration_rx = self._receiver
+        return self._receiver
+
     def MigrateOpen(self, cntl, request, done):
-        cntl.set_failed(errors.ENOMETHOD, MIGRATION_NOT_PORTED)
-        return serving_pb2.MigrateAck()
+        """Inbound KV migration, phase 1: check the manifest, stage a
+        block chain, accept the caller's record stream. The reply only
+        says "start streaming"."""
+        return self._migration_receiver().open(cntl, request)
 
     def MigrateCommit(self, cntl, request, done):
-        cntl.set_failed(errors.ENOMETHOD, MIGRATION_NOT_PORTED)
-        return serving_pb2.MigrateAck()
+        """Inbound KV migration, phase 2: wait until every block is in
+        and the sequence adopted (or the transfer failed or timed out).
+        The reply IS the adoption ACK the source releases its chain on."""
+        return self._migration_receiver().commit(cntl, request)
 
     def Stats(self, cntl, request, done):
         e = self.engine

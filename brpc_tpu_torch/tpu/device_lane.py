@@ -71,15 +71,32 @@ class DispatchCounter:
     model notes every launch and host sync here and the engine asserts
     the per-step delta under an armed ledger; the store's copies note
     theirs too, so the data plane's op rate is read from the same
-    numbers."""
+    numbers.
+
+    Each thread's own notes are also kept apart
+    (:meth:`thread_snapshot`): the engine audits its step with them, so
+    a second engine in the process (a disaggregated pair), or a
+    migration writing the pools from a stream thread, never counts in
+    another engine's step. The process-wide totals are the reference's
+    only view, and its audit counts them (ROADMAP Queue 3)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.launches = 0
         self.ops = 0
         self.host_syncs = 0
+        self._mine = threading.local()
+
+    def _thread_counts(self) -> list:
+        counts = getattr(self._mine, "counts", None)
+        if counts is None:
+            counts = self._mine.counts = [0, 0, 0]
+        return counts
 
     def note_launch(self, n_ops: int = 1) -> None:
+        mine = self._thread_counts()
+        mine[0] += 1
+        mine[1] += n_ops
         with self._lock:
             self.launches += 1
             self.ops += n_ops
@@ -87,6 +104,7 @@ class DispatchCounter:
         g_device_fused_ops.put(n_ops)
 
     def note_host_sync(self) -> None:
+        self._thread_counts()[2] += 1
         with self._lock:
             self.host_syncs += 1
         g_device_host_syncs.put(1)
@@ -94,6 +112,10 @@ class DispatchCounter:
     def snapshot(self) -> Tuple[int, int, int]:
         with self._lock:
             return self.launches, self.ops, self.host_syncs
+
+    def thread_snapshot(self) -> Tuple[int, int, int]:
+        """(launches, ops, host syncs) noted by the calling thread."""
+        return tuple(self._thread_counts())
 
     @staticmethod
     def delta(before: Tuple[int, int, int],

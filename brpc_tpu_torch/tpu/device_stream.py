@@ -91,6 +91,29 @@ def device_stream_options(consume: Callable[[int, int], None],
                          measure=record_measure)
 
 
+def host_sink_options(sink: Callable[[bytes], None], window_bytes: int,
+                      store=None, on_closed=None) -> StreamOptions:
+    """Receiver-side options for record lanes whose consumer needs the
+    block BYTES on the host (KV migration adopting blocks into another
+    pool): each record's staged payload is read back once
+    (``store.get``), its handle freed (credits flow back as on the
+    on-device path) and ``sink(data)`` called in record order. A handle
+    the store no longer knows gives ``sink(b"")``, so the consumer can
+    fail the transfer instead of stalling."""
+    if store is None:
+        from brpc_tpu_torch.tpu.device_lane import global_store
+
+        store = global_store()
+
+    def consume(handle: int, nbytes: int) -> None:
+        data = store.get(handle)
+        store.free(handle)
+        sink(data if data is not None else b"")
+
+    return device_stream_options(consume, window_bytes,
+                                 on_closed=on_closed)
+
+
 class DeviceStreamEchoService(Service):
     """Accepts device streams on Echo (message == "device-stream"): each
     incoming block is consumed ON-DEVICE (a transient copy, device memory

@@ -1,7 +1,7 @@
 """tpu:// device naming on the port: ``tpu://host/n`` names CUDA card n.
 
 The port of ``brpc_tpu/tpu/mesh.py``'s :func:`resolve_device` only; the
-mesh, its axes and the collectives wait for ROADMAP Queue 1 item 7.
+mesh, its axes and the collectives wait for ROADMAP Queue 1 item 7(b).
 
 A ``tpu://`` ordinal resolves to ``torch.device("cuda", n)``. A process
 that has no card, or that runs on the CPU on purpose (the tests), says so

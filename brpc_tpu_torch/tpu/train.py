@@ -36,7 +36,7 @@ from brpc_tpu_torch.tpu.device_lane import resolve_device
 
 _MESH_SLICE = ("a mesh (the sharded train step with ring attention) is not "
                "ported yet: it comes with the port's mesh and sharded "
-               "training slice (ROADMAP.md, slice 9)")
+               "training (ROADMAP.md Queue 1 item 7(d))")
 
 
 @dataclass(frozen=True)

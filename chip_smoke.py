@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then eight paths:
+(nvcc, sm_90a, one process per source, all at once). Then eleven paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -33,6 +33,25 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   and one host sync per prefill and step); both again as streamed
   ``Generate`` calls, the frames' accepted counts summing to the
   engine's; the copy-on-write page copy on the card.
+- Disaggregated serving (phase 4d): a decode-role engine behind the
+  port's ``Server`` and a prefill-role engine with a ``KVMigrator`` to
+  it, both ledgers armed, serve the requests above and the corpus
+  schedule twice, every handoff resumed on the decode engine: tokens
+  equal a co-located engine's, the decode engine prefills nothing, the
+  kernel runs once per layer and prefill on the prefill engine, the
+  migrated blocks and bytes are exact, a request meeting
+  ``serving.migrate.drop`` decodes locally to the same tokens, both pools
+  end idle.
+- Long prompts on one card (phase 4e): 4096 and 5000 tokens at the
+  reference's ``ring_threshold`` through the ring prefill on the card
+  and on the CPU, and through the flash prefill with the threshold
+  raised (the kernel held against its plain version at buckets 4096 and
+  5120 first): tokens equal across the three, the card's pools within
+  1e-4 of the CPU's; prefill times and peak memory.
+- The examples of the ported lanes (phase 4f): echo, streaming echo,
+  tpu_transfer, device_stream and device_data, each server and client a
+  fresh interpreter on the card, held as the reference's tests hold
+  them, the copy kernels' launches read back from their output.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm kernel against their plain versions in fp32 and bf16 (in bf16
   all three attention kernels are the tensor-core kernels, held also at
@@ -105,13 +124,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from brpc_tpu_torch import graft_entry  # noqa: E402
-from brpc_tpu_torch import rpc  # noqa: E402
+from brpc_tpu_torch import fault, flags, graft_entry, rpc  # noqa: E402
 from brpc_tpu_torch.examples.llm_server import client  # noqa: E402
 from brpc_tpu_torch.proto import serving_pb2  # noqa: E402
 from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,  # noqa: E402
                                     ModelConfig, PagedKVCache,
                                     ServingEngine, TinyTransformer)
+from brpc_tpu_torch.serving.migration import (KVMigrator,  # noqa: E402
+                                              chain_block_bytes)
 from brpc_tpu_torch.serving.service import LlmServingService  # noqa: E402
 from brpc_tpu_torch.tpu import (_build, bench_kernels,  # noqa: E402
                                  device_lane, pallas_ops, ring, train)
@@ -267,45 +287,50 @@ def flash_inputs(gen, shape, dev):
     return tuple(torch.randn(shape, generator=gen).to(dev) for _ in range(3))
 
 
-def check_flash(dev):
-    """Phase 3: the kernel against attention_reference on the card."""
+def flash_row(gen, shape, causal, dev):
+    """The kernel against attention_reference at one shape on the card:
+    its error (held to FLASH_TOL), the kernel's, plain and SDPA times and
+    the bound. Prints and returns the row."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
+    q, k, v = flash_inputs(gen, shape, dev)
+    out = pallas_ops.flash_attention(q, k, v, causal=causal)
+    ref = pallas_ops.attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not math.isfinite(err) or err > FLASH_TOL:
+        raise AssertionError(f"flash_attention {shape} causal={causal}:"
+                             f" max |kernel - plain| {err} > "
+                             f"{FLASH_TOL}")
+    # SDPA as the yardstick only: (1, H, S, D) views of the same data
+    qh, kh, vh = (t.unsqueeze(1) if t.dim() == 2 else t
+                  for t in (q, k, v))
+    qh, kh, vh = (t.permute(1, 0, 2).unsqueeze(0) for t in (qh, kh, vh))
+    # each input read once and o written once, against the 4 D FLOPs
+    # (QK^T and PV) of each live (q, k) pair
+    s, d = shape[0], shape[-1]
+    h = shape[1] if len(shape) == 3 else 1
+    pairs = s * (s + 1) // 2 if causal else s * s
+    bound_ms, bound_by = bound(4 * s * h * d * 4, 4 * pairs * d * h,
+                               torch.float32)
+    row = {"shape": list(shape), "causal": causal, "max_err": err}
+    row.update(timings({
+        "kernel": lambda: pallas_ops.flash_attention(q, k, v,
+                                                     causal=causal),
+        "plain": lambda: pallas_ops.attention_reference(q, k, v,
+                                                        causal=causal),
+        "library": lambda: sdpa(qh, kh, vh, is_causal=causal),
+    }, iters=200 if shape[0] <= 384 else 50))
+    row.update(bound_ms=bound_ms, bound_by=bound_by)
+    print(json.dumps({"flash_attention": row}), flush=True)
+    return row
+
+
+def check_flash(dev):
+    """Phase 3: the kernel against attention_reference on the card."""
     gen = torch.Generator(device="cpu").manual_seed(0)
-    rows = {}
-    for shape, causal in FLASH_SHAPES:
-        q, k, v = flash_inputs(gen, shape, dev)
-        out = pallas_ops.flash_attention(q, k, v, causal=causal)
-        ref = pallas_ops.attention_reference(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        if not math.isfinite(err) or err > FLASH_TOL:
-            raise AssertionError(f"flash_attention {shape} causal={causal}:"
-                                 f" max |kernel - plain| {err} > "
-                                 f"{FLASH_TOL}")
-        # SDPA as the yardstick only: (1, H, S, D) views of the same data
-        qh, kh, vh = (t.unsqueeze(1) if t.dim() == 2 else t
-                      for t in (q, k, v))
-        qh, kh, vh = (t.permute(1, 0, 2).unsqueeze(0) for t in (qh, kh, vh))
-        # each input read once and o written once, against the 4 D FLOPs
-        # (QK^T and PV) of each live (q, k) pair
-        s, d = shape[0], shape[-1]
-        h = shape[1] if len(shape) == 3 else 1
-        pairs = s * (s + 1) // 2 if causal else s * s
-        bound_ms, bound_by = bound(4 * s * h * d * 4, 4 * pairs * d * h,
-                                   torch.float32)
-        row = {"shape": list(shape), "causal": causal, "max_err": err}
-        row.update(timings({
-            "kernel": lambda: pallas_ops.flash_attention(q, k, v,
-                                                         causal=causal),
-            "plain": lambda: pallas_ops.attention_reference(q, k, v,
-                                                            causal=causal),
-            "library": lambda: sdpa(qh, kh, vh, is_causal=causal),
-        }, iters=200 if shape[0] <= 384 else 50))
-        row.update(bound_ms=bound_ms, bound_by=bound_by)
-        rows[(tuple(shape), causal)] = row
-        print(json.dumps({"flash_attention": row}), flush=True)
-    return rows
+    return {(tuple(shape), causal): flash_row(gen, shape, causal, dev)
+            for shape, causal in FLASH_SHAPES}
 
 
 # card vs CPU: the same model in fp32 (TF32 off) on both; cuBLAS and the
@@ -354,12 +379,13 @@ def check_against_cpu(dev):
           flush=True)
 
 
-def build_engine(dev, attn, prefix_cache=False, spec_k=0):
+def build_engine(dev, attn, prefix_cache=False, spec_k=0, role="both"):
     """The llm_server example's engine at full width. The prefix cache is
     off unless ``prefix_cache=None`` (the engine's default) is passed:
     the serving phases before the prefix-cache phase count one flash
     launch per layer and prefill, and their numbers stay comparable with
-    the runs before the cache was ported."""
+    the runs before the cache was ported. ``role`` places it in a
+    disaggregated pair."""
     cfg = ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=2,
                       max_context=1024, seed=0, attn=attn)
     kv = PagedKVCache(KVCacheConfig(block_size=16, num_blocks=256,
@@ -369,7 +395,7 @@ def build_engine(dev, attn, prefix_cache=False, spec_k=0):
     model = TinyTransformer(cfg, kv)
     engine = ServingEngine(model, kv, EngineConfig(
         max_batch=8, token_budget=TOKEN_BUDGET, idle_wait_s=0.001,
-        spec_k=spec_k), prefix_cache=prefix_cache)
+        spec_k=spec_k, role=role), prefix_cache=prefix_cache)
     return engine.start()
 
 
@@ -924,6 +950,482 @@ def run_prefix_spec(dev, smi, n_layers):
            "cow_copy": cow, "hit_vs_cold": time_hit_vs_cold(dev)}
     print(json.dumps({"prefix_spec": row}), flush=True)
     return row
+
+
+# ------------------------------------------- phase 4d: disaggregated serving
+# the llm_server widths' migrated block: k and v of 2 layers x 16 slots x
+# 64 fp32 (serving/migration.chain_block_bytes)
+DISAGG_BLOCK_BYTES = 16 << 10
+# the request that meets the serving.migrate.drop fault: PROMPT_LENS[3]
+DROP_REQUEST = 3
+
+
+def disagg_window(pre, dec, requests, timeout=600.0):
+    """(prompt_len, max_new) requests submitted together to the prefill
+    engine; each handoff is resumed on the decode engine
+    (``submit(resume_seq_id=)``) from the prefill engine's completion.
+    Returns ([(stage-1 result, resume result or None)], wall seconds from
+    the first submit to the last completion)."""
+    out = [None] * len(requests)
+    lock = threading.Lock()
+    ev = threading.Event()
+    left = [len(requests)]
+
+    def finish(i, first, resumed):
+        with lock:
+            out[i] = (first, resumed)
+            left[0] -= 1
+            if not left[0]:
+                ev.set()
+
+    def stage1(i):
+        def done(first):
+            if first.finish_reason != "handoff":
+                finish(i, first, None)  # local decode: the whole answer
+                return
+            code, _ = dec.submit(
+                np.zeros(0, dtype=np.int32), 0, resume_seq_id=first.seq_id,
+                done=lambda r: finish(i, first, r))
+            if code:
+                finish(i, first, code)
+        return done
+
+    t0 = time.perf_counter()
+    for i, (plen, max_new) in enumerate(requests):
+        code, _ = pre.submit(pre.model.synth_prompt(plen), max_new,
+                             done=stage1(i))
+        if code:
+            raise AssertionError(f"prefill submit({plen}, {max_new}) "
+                                 f"refused: {code}")
+    if not ev.wait(timeout):
+        raise AssertionError(f"{left[0]} of {len(requests)} disaggregated "
+                             f"requests never completed")
+    wall = time.perf_counter() - t0
+    for i, ((plen, max_new), (first, resumed)) in enumerate(
+            zip(requests, out)):
+        if first.error_code or isinstance(resumed, int) or \
+                (resumed is not None and resumed.error_code) or \
+                len(joined_tokens(first, resumed)) != max_new:
+            raise AssertionError(f"request {i} ({plen}, {max_new}) ended "
+                                 f"{first} / {resumed}")
+    return out, wall
+
+
+def joined_tokens(first, resumed):
+    return list(first.tokens) + (list(resumed.tokens) if resumed else [])
+
+
+def run_disagg(dev, smi, n_layers):
+    """Phase 4d: disaggregated serving at the llm_server widths. A
+    co-located engine serves PROMPT_LENS and the corpus schedule twice
+    (24 requests); then a decode-role engine behind the port's Server and
+    a prefill-role engine with a KVMigrator to it serve the same windows,
+    every handoff resumed on the decode engine; both ledgers armed, the
+    prefix cache off. Held: tokens equal the co-located engine's; the
+    decode engine prefills 0 tokens (so launches no flash kernel) and the
+    prefill engine launches flash once per layer and prefill; migrated
+    blocks are the sum of blocks_for(prompt) and bytes blocks x 16 KiB;
+    one request meeting serving.migrate.drop decodes locally to the same
+    tokens; both pools idle at teardown. Counts are reset just before
+    each window and read just after."""
+    windows = {"prompt_lens": list(zip(PROMPT_LENS, MAX_NEW)),
+               "corpus": CORPUS_SCHEDULE * 2}
+    engine = build_engine(dev, "auto")
+    try:
+        serve(engine, [(16, 2)])
+        colo = {tag: serve(engine, reqs) for tag, reqs in windows.items()}
+    finally:
+        engine.stop()
+    engine.kv.assert_idle("after the co-located disaggregation baseline")
+    engine.model.close()
+    engine.kv.close()
+
+    dec = build_engine(dev, "auto", role="decode")
+    server = rpc.Server().add_service(LlmServingService(dec)) \
+        .start("127.0.0.1:0")
+    pre = build_engine(dev, "auto", role="prefill")
+    migrator = KVMigrator(str(server.listen_endpoint()))
+    pre.set_migrator(migrator)
+    rows, flash_total = {}, 0
+    try:
+        if chain_block_bytes(pre.kv) != DISAGG_BLOCK_BYTES:
+            raise AssertionError(f"block bytes {chain_block_bytes(pre.kv)}"
+                                 f" != {DISAGG_BLOCK_BYTES}")
+        disagg_window(pre, dec, [(16, 2)])  # warm-up
+        for tag, reqs in windows.items():
+            m0 = migrator.snapshot()
+            n0 = len(migrator.seq_s)
+            pf_pre, pf_dec = pre.prefill_tokens, dec.prefill_tokens
+            pallas_ops.launches.reset()
+            out, wall = disagg_window(pre, dec, reqs)
+            pre.kv.store.fence()
+            launches = pallas_ops.launches["flash_attention"]
+            m1 = migrator.snapshot()
+            seq_ms = [t * 1e3 for t in migrator.seq_s[n0:]]
+            phase_ms = {k: (m1["phase_s"][k] - m0["phase_s"][k]) * 1e3
+                        / len(reqs) for k in m1["phase_s"]}
+            moved = {k: m1[k] - m0[k]
+                     for k in ("seqs", "blocks", "bytes", "failed")}
+            want_blocks = sum(pre.kv.blocks_for(p) for p, _ in reqs)
+            colo_res, colo_wall = colo[tag]
+            for i, ((first, resumed), c) in enumerate(zip(out, colo_res)):
+                if first.finish_reason != "handoff":
+                    raise AssertionError(f"{tag} {i}: no handoff ({first})")
+                if joined_tokens(first, resumed) != c.tokens:
+                    raise AssertionError(
+                        f"{tag} {i}: disaggregated tokens "
+                        f"{joined_tokens(first, resumed)} != co-located "
+                        f"{c.tokens}")
+            if dec.prefill_tokens != pf_dec or \
+                    pre.prefill_tokens - pf_pre != sum(p for p, _ in reqs):
+                raise AssertionError(f"{tag}: prefill tokens pre "
+                                     f"{pre.prefill_tokens - pf_pre}, "
+                                     f"dec {dec.prefill_tokens - pf_dec}")
+            if launches != n_layers * len(reqs):
+                raise AssertionError(f"{tag}: flash launched {launches} "
+                                     f"times for {len(reqs)} prefills")
+            if (moved["seqs"], moved["blocks"], moved["bytes"],
+                    moved["failed"]) != (len(reqs), want_blocks,
+                                         want_blocks * DISAGG_BLOCK_BYTES,
+                                         0):
+                raise AssertionError(f"{tag}: migrated {moved}, want "
+                                     f"{len(reqs)} seqs, {want_blocks} "
+                                     f"blocks")
+            flash_total += launches
+            tokens = sum(len(joined_tokens(f, r)) for f, r in out)
+            rows[tag] = {
+                "requests": len(reqs), "tokens": tokens,
+                "flash_launches_prefill_engine": launches,
+                "prefill_tokens_decode_engine": dec.prefill_tokens - pf_dec,
+                "migrated": moved,
+                "ms_per_migrated_seq_p50": pct(seq_ms, 50),
+                "ms_per_migrated_seq_max": max(seq_ms),
+                "ms_per_migrated_seq_by_phase": phase_ms,
+                "migrate_gbps": moved["bytes"] / (sum(seq_ms) / 1e3) / 1e9,
+                "tokens_per_s": tokens / wall,
+                "tokens_per_s_colocated": tokens / colo_wall,
+                "ttft_us_p50": pct([f.ttft_us for f, _ in out], 50),
+                "ttft_us_p50_colocated": pct([c.ttft_us for c in colo_res],
+                                             50),
+                "wall_s": wall, "wall_s_colocated": colo_wall,
+            }
+        # one request's migrations meet the drop fault (every retry): the
+        # chain stays here and it decodes locally to the co-located tokens
+        plen, max_new = PROMPT_LENS[DROP_REQUEST], MAX_NEW[DROP_REQUEST]
+        failed0 = migrator.failed
+        flags.set_flag("fault_injection_enabled", True)
+        fault.arm("serving.migrate.drop", mode="always")
+        try:
+            out, _ = disagg_window(pre, dec, [(plen, max_new)])
+        finally:
+            fault.disarm_all()
+            flags.set_flag("fault_injection_enabled", False)
+        first, resumed = out[0]
+        want = colo["prompt_lens"][0][DROP_REQUEST].tokens
+        if resumed is not None or first.finish_reason != "length" or \
+                list(first.tokens) != want or migrator.failed <= failed0:
+            raise AssertionError(f"drop fault: {first} / {resumed}, want a "
+                                 f"local decode to {want}")
+        rows["drop_fault"] = {"prompt": plen, "fell_back": True,
+                              "tokens_equal": True,
+                              "failed_migrations": migrator.failed
+                              - failed0}
+        migration = {"out": migrator.snapshot(),
+                     "in": dec.snapshot()["migration"]["in"]}
+    finally:
+        pre.stop()
+        server.stop()
+        server.join(timeout=5)
+        dec.stop()
+    pre.kv.assert_idle("prefill pool after the disaggregated run")
+    dec.kv.assert_idle("decode pool after the disaggregated run")
+    for e in (pre, dec):
+        e.model.close()
+        e.kv.close()
+    row = {"card": smi, "windows": rows, "migration": migration,
+           "flash_launches": flash_total}
+    print(json.dumps({"disagg": row}), flush=True)
+    return row
+
+
+# ------------------------------------------ phase 4e: long-prompt prefill
+LONG_PROMPTS = (4096, 5000)   # the default ring_threshold, and off every
+LONG_NEW = 8                  # block and tile edge (bucket 5120)
+LONG_BUCKETS = (4096, 5120)
+LONG_POOL_TOL = 1e-4          # card vs CPU pools, as CPU_TOL
+
+
+def build_long_engine(dev, ring_threshold):
+    """The llm_server widths at max_context 8192, KV 512 x 16 and a token
+    budget of 8192, so prompts of 4096-5000 tokens are admitted."""
+    cfg = ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=2,
+                      max_context=8192, seed=0, attn="auto",
+                      ring_threshold=ring_threshold)
+    kv = PagedKVCache(KVCacheConfig(block_size=16, num_blocks=512),
+                      cfg.n_layers, cfg.kv_dim, device=dev)
+    kv._check = True
+    model = TinyTransformer(cfg, kv)
+    return ServingEngine(model, kv, EngineConfig(
+        max_batch=8, token_budget=8192, idle_wait_s=0.001),
+        prefix_cache=False).start()
+
+
+def long_lane(dev, ring_threshold, timed):
+    """One lane of phase 4e: LONG_PROMPTS served one at a time through an
+    engine (their tokens), then each prefilled again through the model on
+    a fresh table, the pools after it kept for the comparison (one
+    prompt's table at a time: both do not fit in 512 blocks); with
+    ``timed`` the prefill's ms per call (a synchronize on each side of a
+    host clock, three calls) and the lane's peak device memory. Flash
+    launches are reset before the engine's requests and read after
+    them."""
+    engine = build_long_engine(dev, ring_threshold)
+    if timed:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    pallas_ops.launches.reset()
+    results = []
+    try:
+        for plen in LONG_PROMPTS:
+            results += serve(engine, [(plen, LONG_NEW)])[0]
+        if dev.type == "cuda":
+            engine.kv.store.fence()
+        launches = pallas_ops.launches["flash_attention"]
+    finally:
+        engine.stop()
+    engine.kv.assert_idle(f"after the long-prompt lane on {dev}")
+    model, kv = engine.model, engine.kv
+    row = {"tokens": [r.tokens for r in results],
+           "flash_launches": launches}
+    tables, pools = [], []
+    for i, plen in enumerate(LONG_PROMPTS, start=1):
+        prompt = model.synth_prompt(plen)
+        tables.append(kv.alloc_sequence(i, plen))
+        first = model.prefill(prompt, tables[-1])
+        if first != results[i - 1].tokens[0]:
+            raise AssertionError(f"{plen}: prefill's token {first} != "
+                                 f"the engine's {results[i - 1].tokens[0]}")
+        if timed:
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.prefill(prompt, tables[-1])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            row[f"prefill_ms_{plen}"] = ms
+        # a copy: on the CPU .cpu() would return the pool itself
+        pools.append((kv.k_pool.to("cpu", copy=True),
+                      kv.v_pool.to("cpu", copy=True)))
+        kv.free_sequence(i)
+    if timed:
+        # the lane's own peak: what earlier phases left allocated is not
+        # its memory
+        row["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    kv.assert_idle()
+    model.close()
+    kv.close()
+    return row, tables, pools
+
+
+def run_long_prompt(dev, smi, n_layers):
+    """Phase 4e: prompts of 4096 and 5000 tokens at the llm_server widths
+    and the reference's default ring_threshold (4096): the ring prefill on
+    the card (the plain ring lane, one position), the same on the CPU,
+    and the flash prefill with ring_threshold raised past them (kernel #1
+    at buckets 4096 and 5120, held against its plain version first).
+    Held: the ring's tokens on the card equal the CPU's and the flash
+    prefill's; the card's pools after the ring prefills are within 1e-4
+    of the CPU's (scratch block 0 left out); flash launches once per
+    layer and prompt on the flash lane and never on the ring lane."""
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    held = {s: flash_row(gen, (s, 4, 16), True, dev) for s in LONG_BUCKETS}
+    ring_card, t_card, p_card = long_lane(dev, 4096, timed=True)
+    ring_cpu, t_cpu, p_cpu = long_lane(torch.device("cpu"), 4096,
+                                       timed=False)
+    flash, _, _ = long_lane(dev, max(LONG_PROMPTS) + 1, timed=True)
+    if t_card != t_cpu:
+        raise AssertionError(f"tables differ card/CPU: {t_card} {t_cpu}")
+    bs = 16
+    pool_err = max(float((a[:, bs:] - b[:, bs:]).abs().max())
+                   for pc, pp in zip(p_card, p_cpu)
+                   for a, b in zip(pc, pp))
+    for name, lane in (("CPU ring", ring_cpu), ("flash", flash)):
+        if lane["tokens"] != ring_card["tokens"]:
+            raise AssertionError(f"long prompts: card ring tokens "
+                                 f"{ring_card['tokens']} != {name} "
+                                 f"{lane['tokens']}")
+    if pool_err > LONG_POOL_TOL or not math.isfinite(pool_err):
+        raise AssertionError(f"long prompts: card vs CPU pools differ by "
+                             f"{pool_err} > {LONG_POOL_TOL}")
+    if ring_card["flash_launches"] or \
+            flash["flash_launches"] != n_layers * len(LONG_PROMPTS):
+        raise AssertionError(f"flash launches: ring lane "
+                             f"{ring_card['flash_launches']}, flash lane "
+                             f"{flash['flash_launches']}")
+    row = {"card": smi, "prompts": list(LONG_PROMPTS), "new": LONG_NEW,
+           "tokens": ring_card["tokens"], "pool_max_err_vs_cpu": pool_err,
+           "flash_launches": flash["flash_launches"],
+           "peak_mem_bytes_ring": ring_card["peak_mem_bytes"],
+           "peak_mem_bytes_flash": flash["peak_mem_bytes"],
+           "flash_held": {s: {k: held[s][k] for k in (
+               "max_err", "kernel_ms", "plain_ms", "library_ms",
+               "bound_ms")} for s in LONG_BUCKETS}}
+    for plen in LONG_PROMPTS:
+        row[f"ring_prefill_ms_{plen}"] = ring_card[f"prefill_ms_{plen}"]
+        row[f"flash_prefill_ms_{plen}"] = flash[f"prefill_ms_{plen}"]
+    print(json.dumps({"long_prompt": row}), flush=True)
+    return row
+
+
+# ------------------------------------------------- phase 4f: the examples
+EXAMPLES = "brpc_tpu_torch.examples"
+# run in each example's interpreter: its main, then the modules it loaded
+# that the port must never load
+EXAMPLE_GUARD = (
+    "import runpy, sys; sys.argv = [{mod!r}] + {args!r}; rc = 0\n"
+    "try:\n"
+    "    runpy.run_module({mod!r}, run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code or 0\n"
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+    "print('foreign modules', bad, flush=True)\n"
+    "sys.exit(rc or (1 if bad else 0))")
+
+
+def example_cmd(name, args):
+    mod = f"{EXAMPLES}.{name}"
+    return [sys.executable, "-c",
+            EXAMPLE_GUARD.format(mod=mod, args=list(args))]
+
+
+def example_env():
+    root = os.path.dirname(os.path.abspath(__file__))
+    return root, {**os.environ, "PYTHONPATH": root}
+
+
+def example_launches(out):
+    lines = [l for l in out.splitlines() if l.startswith("launches ")]
+    return json.loads(lines[-1].split(" ", 1)[1]) if lines else {}
+
+
+def run_example_client(name, args, timeout=180):
+    root, env = example_env()
+    proc = subprocess.run(example_cmd(name, args), cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode or "foreign modules []" not in proc.stdout:
+        raise AssertionError(f"{name} exited {proc.returncode}:\n"
+                             f"{proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
+def run_example_pair(server, server_args, client_name, client_args):
+    """A server example and then its client, fresh interpreters each; the
+    client's arguments may name ``{addr}``, the address the server's
+    first line gives after " on ". Returns (client output, server output
+    after SIGTERM)."""
+    root, env = example_env()
+    srv = subprocess.Popen(example_cmd(server, server_args), cwd=root,
+                           env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    try:
+        line = srv.stdout.readline()
+        if " on " not in line:
+            raise AssertionError(f"{server} did not come up: {line!r}")
+        addr = line.split(" on ", 1)[1].split(" ")[0].strip()
+        out = run_example_client(client_name, [a.format(addr=addr)
+                                               for a in client_args])
+    finally:
+        srv.send_signal(2)  # SIGINT: the examples' clean stop
+        try:
+            rest, _ = srv.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            rest, _ = srv.communicate()
+    if srv.returncode or "foreign modules []" not in rest:
+        raise AssertionError(f"{server} exited {srv.returncode}:\n{rest}")
+    return out, rest
+
+
+def run_examples(smi):
+    """Phase 4f: the ported examples as users start them, each server and
+    client a fresh interpreter on the card (``--device`` left at its
+    default), all five at once; their outputs held as
+    tests/test_examples.py holds the reference's, none loading JAX, the
+    JAX package or protobuf. The device servers and tpu_transfer print
+    their copy kernels' launches, which are read back here."""
+    def free_port():
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    p_echo, p_stream = free_port(), free_port()
+    jobs = {
+        "echo": lambda: run_example_pair(
+            "echo.server", ["--port", str(p_echo), "--run_seconds", "120"],
+            "echo.client", ["--server", f"127.0.0.1:{p_echo}", "-n", "3"]),
+        "streaming_echo": lambda: run_example_pair(
+            "streaming_echo.server",
+            ["--port", str(p_stream), "--run_seconds", "120"],
+            "streaming_echo.client",
+            ["--server", f"127.0.0.1:{p_stream}", "-n", "30"]),
+        "tpu_transfer": lambda: (run_example_client(
+            "tpu_transfer.client", ["--sizes", "4096,65536", "-n", "4"]),
+            ""),
+        "device_stream": lambda: run_example_pair(
+            "device_stream.server", ["--listen", "127.0.0.1:0"],
+            "device_stream.client",
+            ["--server", "{addr}", "-n", "4", "--block-kb", "64",
+             "--window-kb", "128"]),
+        "device_data": lambda: run_example_pair(
+            "device_data.server", ["--listen", "tpu://127.0.0.1:0/0"],
+            "device_data.client",
+            ["--server", "{addr}", "--mb", "1", "--copies", "3",
+             "--pump-rounds", "2"]),
+    }
+    results, errors_ = {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        try:
+            results[name] = fn() + (time.perf_counter() - t0,)
+        except Exception as e:  # reported below, all at once
+            errors_[name] = e
+
+    threads = [threading.Thread(target=run, args=item)
+               for item in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors_ or len(results) != len(jobs):
+        raise AssertionError(f"examples failed: {errors_}")
+    checks = {
+        "echo": lambda c, s: "hello 2" in c and "attachment" in c,
+        "streaming_echo": lambda c, s: "echoed 30 messages" in c,
+        "tpu_transfer": lambda c, s: "MB/s" in c,
+        "device_stream": lambda c, s: "consumed on-device" in c,
+        "device_data": lambda c, s: ("content verified" in c
+                                     and "checksum=" in c),
+    }
+    row, launches = {"card": smi}, {"hbm_copy": 0, "hbm_copy_batched": 0}
+    for name, (cout, sout, secs) in results.items():
+        if not checks[name](cout, sout):
+            raise AssertionError(f"example {name}: {cout}\n{sout}")
+        counts = example_launches(cout) or example_launches(sout)
+        row[name] = {"s": secs, "launches": {
+            k: counts.get(k, 0) for k in launches}}
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+    if not launches["hbm_copy"] or not launches["hbm_copy_batched"]:
+        raise AssertionError(f"the device examples launched no copy "
+                             f"kernel: {row}")
+    row["launches"] = launches
+    print(json.dumps({"examples": row}), flush=True)
+    return launches
 
 
 def no_protobuf_or_jax(where):
@@ -2751,6 +3253,10 @@ def main():
                              f"layers x {prefills} prefills")
     no_protobuf_or_jax("after the RPC path")
     prefix_spec = run_prefix_spec(dev, smi, n_layers)
+    disagg = run_disagg(dev, smi, n_layers)
+    long_prompt = run_long_prompt(dev, smi, n_layers)
+    example_launches = run_examples(smi)
+    no_protobuf_or_jax("after the disaggregated and long-prompt paths")
 
     profile = profile_engine(dev)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -2783,6 +3289,8 @@ def main():
         "launches": launches, "launches_rpc": rpc_launches,
         "launches_prefix_spec": prefix_spec["prefix"]["flash_launches"],
         "launches_prefix_spec_rpc": prefix_spec["rpc"]["flash_launches"],
+        "launches_disagg": disagg["flash_launches"],
+        "launches_long_prompt": long_prompt["flash_launches"],
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2795,6 +3303,9 @@ def main():
     }] + kernel_rows(fwd, bwd, rms, counts) + slice3_rows(
         xent, qgrid, carry, counts, ring_counts) + slice4_rows(
         copy_times, lane, probe_launches, op_rate_launches, ceiling, tpu)
+    for e in kernels:
+        if e["name"] in example_launches:
+            e["launches_examples"] = example_launches[e["name"]]
     no_protobuf_or_jax("at the end")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

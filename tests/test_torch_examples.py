@@ -1,0 +1,168 @@
+"""The port's copies of the examples of its lanes (brpc_tpu_torch/examples/
+{echo,streaming_echo,device_data,device_stream,tpu_transfer}), run as
+the JAX package's tests/test_examples.py runs the originals: server and
+client pairs as fresh interpreters on random ports, with the device
+examples on ``--device cpu``, their outputs held to the same strings.
+Each device server also prints its copy kernels' launches on SIGTERM
+(all 0 here: a CPU tensor takes the plain copy). None of them may load
+JAX, the JAX package or protobuf.
+"""
+
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = {**os.environ, "PYTHONPATH": REPO}
+PKG = "brpc_tpu_torch.examples"
+
+# run inside each example's interpreter: its own main, then the modules
+# it loaded that the port must never load
+_GUARD = ("import runpy, sys; sys.argv = [{mod!r}] + {args!r}; "
+          "rc = 0\n"
+          "try:\n"
+          "    runpy.run_module({mod!r}, run_name='__main__')\n"
+          "except SystemExit as e:\n"
+          "    rc = e.code or 0\n"
+          "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+          "('jax', 'jaxlib', 'brpc_tpu') or "
+          "m.startswith('google.protobuf'))\n"
+          "print('foreign modules', bad, flush=True)\n"
+          "sys.exit(rc or (1 if bad else 0))")
+
+
+def _cmd(example, args):
+    mod = f"{PKG}.{example}"
+    return [sys.executable, "-c", _GUARD.format(mod=mod, args=list(args))]
+
+
+def free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_client(example, args, timeout=120):
+    proc = subprocess.run(_cmd(example, args), env=ENV, cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "foreign modules []" in proc.stdout
+    return proc.stdout
+
+
+class Server:
+    """A server example in a fresh interpreter; ``address`` is what its
+    first line names after " on "."""
+
+    def __init__(self, example, args):
+        self.proc = subprocess.Popen(_cmd(example, args), env=ENV, cwd=REPO,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            line = self.proc.stdout.readline()
+            if " on " in line:
+                self.address = line.split(" on ", 1)[1].split(" ")[0].strip()
+                return
+            if not line and self.proc.poll() is not None:
+                break
+        self.proc.kill()
+        pytest.fail(f"{example} never came up")
+
+    def stop(self):
+        """SIGTERM, then everything the server printed after its first
+        line."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        return self.proc.returncode, out
+
+
+def _launches(out):
+    lines = [l for l in out.splitlines() if l.startswith("launches ")]
+    assert lines, out
+    return json.loads(lines[-1].split(" ", 1)[1])
+
+
+def test_echo():
+    port = free_port()
+    srv = Server("echo.server", ["--port", str(port), "--run_seconds", "30"])
+    try:
+        out = run_client("echo.client",
+                         ["--server", f"127.0.0.1:{port}", "-n", "3"])
+        assert "hello 2" in out and "attachment" in out
+    finally:
+        srv.stop()
+
+
+def test_streaming_echo():
+    port = free_port()
+    srv = Server("streaming_echo.server",
+                 ["--port", str(port), "--run_seconds", "30"])
+    try:
+        out = run_client("streaming_echo.client",
+                         ["--server", f"127.0.0.1:{port}", "-n", "30"])
+        assert "echoed 30 messages" in out
+    finally:
+        srv.stop()
+
+
+def test_tpu_transfer():
+    out = run_client("tpu_transfer.client",
+                     ["--device", "cpu", "--sizes", "4096,65536", "-n", "4"])
+    assert "MB/s" in out
+    assert _launches(out)["hbm_copy"] == 0  # the CPU takes the plain copy
+
+
+def test_device_stream():
+    srv = Server("device_stream.server",
+                 ["--listen", "127.0.0.1:0", "--device", "cpu"])
+    try:
+        out = run_client("device_stream.client",
+                         ["--server", srv.address, "-n", "4",
+                          "--block-kb", "64", "--window-kb", "128"])
+        assert "consumed on-device" in out
+    finally:
+        rc, sout = srv.stop()
+    assert rc == 0, sout
+    assert "foreign modules []" in sout
+    assert _launches(sout)["hbm_copy_batched"] == 0
+
+
+def test_device_data():
+    srv = Server("device_data.server",
+                 ["--listen", "tpu://127.0.0.1:0/0", "--device", "cpu"])
+    try:
+        out = run_client("device_data.client",
+                         ["--server", srv.address, "--mb", "1",
+                          "--copies", "3", "--pump-rounds", "2"])
+        assert "content verified" in out
+        assert "checksum=" in out
+    finally:
+        rc, sout = srv.stop()
+    assert rc == 0, sout
+    assert "foreign modules []" in sout
+    assert _launches(sout)["hbm_copy"] == 0
+
+
+def test_device_examples_default_to_the_card():
+    """Without ``--device`` a device example's store is the card's: with
+    no card it raises instead of running on the CPU."""
+    from brpc_tpu_torch.examples import device_store
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default resolves to it")
+    with pytest.raises(RuntimeError):
+        device_store()

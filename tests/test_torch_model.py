@@ -11,6 +11,15 @@ products summed in another order by XLA and by torch. Block 0 is left
 out of every pool comparison: padded positions of both programs scatter
 there with duplicate indices, and which write wins is unspecified.
 Tokens must be equal.
+
+Long prompts (``ring_threshold`` 32 at the tiny config): the JAX
+``_prefill_ring`` runs the lax ring over a one-device ``sp`` mesh (its
+model's ``mesh``; "single-device meshes degenerate to one hop"), the
+port's ring has one position (sp 1): greedy tokens equal, pools within
+1e-5 outside block 0. Over the default mesh of the conftest's 8 CPU
+devices the JAX ring prefill raises before it computes anything (its
+inputs live on device 0, its shard_map on all 8); that fault of the
+reference is held as it is, beside the port serving the same prompt.
 """
 
 import numpy as np
@@ -37,8 +46,9 @@ BLOCK = 16
 NUM_BLOCKS = 24
 
 
-def _pair(name, jax_attn="reference", torch_attn="reference", seed=0):
-    kw = CONFIGS[name]
+def _pair(name, jax_attn="reference", torch_attn="reference", seed=0,
+          **extra):
+    kw = dict(CONFIGS[name], **extra)
     jcfg = JaxModelConfig(attn=jax_attn, seed=seed, **kw)
     tcfg = ModelConfig(attn=torch_attn, seed=seed, **kw)
     jkv = JaxKV(JaxKVConfig(BLOCK, NUM_BLOCKS), jcfg.n_layers, jcfg.kv_dim)
@@ -142,15 +152,91 @@ def test_decode_batch_of_three(name):
             last[s] = (last[s][0] + 1, int(tok))
 
 
+def _ring_pair():
+    """The tiny pair at ``ring_threshold`` 32, the JAX model on a
+    one-device ``sp`` mesh (its single-device case: one hop)."""
+    import jax
+
+    from brpc_tpu.tpu.mesh import make_mesh
+
+    jm, tm = _pair("tiny", ring_threshold=32)
+    jm.mesh = make_mesh({"sp": 1}, jax.devices()[:1])
+    return jm, tm
+
+
 def test_ring_threshold_prompt_raises():
-    kw = dict(CONFIGS["tiny"], ring_threshold=32)
-    cfg = ModelConfig(**kw)
-    kv = PagedKVCache(KVCacheConfig(BLOCK, NUM_BLOCKS), cfg.n_layers,
-                      cfg.kv_dim, device="cpu")
-    tm = TinyTransformer(cfg, kv)
-    table = kv.alloc_sequence(1, 40)
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        tm.prefill(tm.synth_prompt(40), table)
+    """A prompt at ``ring_threshold`` takes the ring path, which refuses a
+    table with a shared block before it writes anything, as the JAX
+    ``_prefill_ring`` does (the armed ledger's copy-on-write guard)."""
+    jm, tm = _pair("tiny", ring_threshold=32)
+    for m in (jm, tm):
+        m.kv.alloc_sequence(1, 40)
+        table = m.kv.fork_sequence(1, 2)
+        with pytest.raises(AssertionError, match="cow violation"):
+            m.prefill(m.synth_prompt(40), table)
+    assert not tm.kv.k_pool.any() and not tm.kv.v_pool.any()
+    assert not np.asarray(jm.kv.k_pool).any()
+
+
+@pytest.mark.parametrize("length", [32, 40, 77])
+def test_ring_prefill_matches_jax(length):
+    """Prompts at and past ``ring_threshold`` (32, 40: block-aligned and
+    not; 77: off every block and the JAX ring's 8-way split): the first
+    token and three decode steps after it equal the JAX model's, the
+    pools agree outside scratch block 0, and the port's ring prefill
+    notes one launch per layer and one host sync."""
+    jm, tm = _ring_pair()
+    prompt = tm.synth_prompt(length)
+    jt = jm.kv.alloc_sequence(1, length)
+    tt = tm.kv.alloc_sequence(1, length)
+    jf = jm.prefill(prompt, jt)
+    before = step_dispatch.snapshot()
+    tf = tm.prefill(prompt, tt)
+    launches, _, syncs = step_dispatch.delta(before,
+                                             step_dispatch.snapshot())
+    assert (launches, syncs) == (tm.config.n_layers, 1)
+    assert tf == jf
+    _pools_close(jm, tm)
+    tok, pos = tf, length
+    for _ in range(3):
+        jt = jm.kv.extend_sequence(1, pos + 1)
+        assert tm.kv.extend_sequence(1, pos + 1) == jt
+        want = np.asarray(jm.decode_step(np.array([tok], np.int32),
+                                         np.array([pos], np.int32), [jt]))
+        got = tm.decode_step(np.array([tok], np.int32),
+                             np.array([pos], np.int32), [jt])
+        np.testing.assert_array_equal(got, want)
+        _pools_close(jm, tm)
+        tok, pos = int(got[0]), pos + 1
+
+
+def test_ring_prefill_through_the_engine():
+    """One engine request past ``ring_threshold`` on each package: the
+    same greedy tokens, and the port's pool idle afterwards."""
+    import threading
+
+    from brpc_tpu.serving import EngineConfig as JaxEngineConfig
+    from brpc_tpu.serving import ServingEngine as JaxEngine
+    from brpc_tpu_torch.serving import EngineConfig, ServingEngine
+
+    jm, tm = _ring_pair()
+    out = []
+    for m, engine_cls, cfg_cls in ((jm, JaxEngine, JaxEngineConfig),
+                                   (tm, ServingEngine, EngineConfig)):
+        m.kv._check = True
+        engine = engine_cls(m, m.kv, cfg_cls(max_batch=4, token_budget=256,
+                                             idle_wait_s=0.002),
+                            prefix_cache=False).start()
+        ev = threading.Event()
+        try:
+            code, seq = engine.submit(m.synth_prompt(77), 6,
+                                      done=lambda r, ev=ev: ev.set())
+            assert code == 0 and ev.wait(120)
+            out.append([int(t) for t in seq.out_tokens])
+        finally:
+            engine.stop()
+        m.kv.assert_idle()
+    assert out[0] == out[1] and len(out[1]) == 6
 
 
 def test_use_flash_follows_attn_and_device():
@@ -169,3 +255,19 @@ def test_close_frees_the_weight_handle():
     tm.close()
     assert tm.store.lookup(h) is None
     assert isinstance(tm, torch.nn.Module)
+
+
+def test_jax_ring_prefill_on_the_default_mesh_fails_port_serves():
+    """The reference's fault (ROADMAP Queue 3): on the default ``sp`` mesh
+    of the conftest's 8 CPU devices the JAX ring prefill raises (its
+    inputs are committed to device 0, its shard_map spans all 8), while
+    the port serves the same prompt and writes its K/V."""
+    jm, tm = _pair("tiny", ring_threshold=32)
+    assert jm.mesh is None
+    jt = jm.kv.alloc_sequence(1, 40)
+    with pytest.raises(ValueError, match="incompatible devices"):
+        jm.prefill(jm.synth_prompt(40), jt)
+    tt = tm.kv.alloc_sequence(1, 40)
+    first = tm.prefill(tm.synth_prompt(40), tt)
+    assert 0 <= first < tm.config.vocab
+    assert tm.kv.k_pool[:, BLOCK:].abs().sum() > 0

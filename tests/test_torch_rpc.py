@@ -235,9 +235,7 @@ _UNPORTED_FLAGS = (
     "health_check_interval_s", "tpu_shard_rebalance_pct",
     "tpu_shard_respawn_backoff_ms", "tpu_shard_respawn_max",
     "tpu_shard_ring_mb", "tpu_shard_forward_max", "shard_vars_interval_s",
-    "serving_shard_skew_ratio", "serving_migrate_window_mb",
-    "serving_migrate_timeout_ms", "serving_migrate_backlog_max",
-    "serving_qos_starvation_ms")
+    "serving_shard_skew_ratio", "serving_qos_starvation_ms")
 
 
 @pytest.mark.parametrize("name", _UNPORTED_FLAGS)
@@ -266,6 +264,11 @@ _SERVING_FLAGS = (
     "serving_prefix_thrash_rate", "serving_spec_accept_rate_min")
 
 
+# KV migration's flags came with the disaggregated serving plane.
+_MIGRATION_FLAGS = ("serving_migrate_window_mb", "serving_migrate_timeout_ms",
+                    "serving_migrate_backlog_max")
+
+
 @pytest.mark.parametrize("name", _TUNNEL_FLAGS)
 def test_flags_of_the_tunnel_match_the_reference(name):
     _flag_matches_the_reference(name)
@@ -273,6 +276,11 @@ def test_flags_of_the_tunnel_match_the_reference(name):
 
 @pytest.mark.parametrize("name", _SERVING_FLAGS)
 def test_flags_of_the_prefix_cache_and_spec_match_the_reference(name):
+    _flag_matches_the_reference(name)
+
+
+@pytest.mark.parametrize("name", _MIGRATION_FLAGS)
+def test_flags_of_kv_migration_match_the_reference(name):
     _flag_matches_the_reference(name)
 
 
@@ -303,6 +311,7 @@ def test_default_watch_rules_read_exported_variables():
     """Every default watch rule reads a variable the port exposes once its
     server has started and its serving package is loaded."""
     import brpc_tpu_torch.serving  # noqa: F401  (the serving variables)
+    import brpc_tpu_torch.serving.migration  # noqa: F401  (loaded lazily)
     from brpc_tpu_torch.metrics import variable
     from brpc_tpu_torch.metrics.watch import global_watch
 
@@ -310,6 +319,7 @@ def test_default_watch_rules_read_exported_variables():
     try:
         rules = global_watch().rules()
         assert [r.name for r in rules] == ["deadline_expiry_rate",
+                                           "serving_migrate_backlog",
                                            "serving_prefix_thrash",
                                            "serving_spec_collapse"]
         for r in rules:

@@ -205,18 +205,43 @@ def test_neither_prompt_field_is_erequest(port_server):
 
 
 def test_migration_and_resume_fail_until_ported(port_server):
+    """The reference's wire refusals (tests/test_serving_migration.py:211,
+    :251 and :340) over the port's RPC, each equal to the JAX server's:
+    ``MigrateOpen`` without a record stream and ``MigrateCommit`` of a
+    sequence with no open migration answer ``accepted=False`` with the
+    reason, and a ``Generate`` resuming an unknown sequence fails with
+    EREQUEST. (Before KV migration was ported the first two failed with
+    ENOMETHOD.)"""
     server, _ = port_server
-    stub = _stub(SIDES["port"], server)
-    for call, req, code in (
-            (stub.MigrateOpen, serving_pb2.MigrateRequest(seq_id=1),
-             errors.ENOMETHOD),
-            (stub.MigrateCommit, serving_pb2.MigrateCommitRequest(seq_id=1),
-             errors.ENOMETHOD),
-            (stub.Generate, serving_pb2.GenerateRequest(
-                resume_seq_id=3, max_new_tokens=2), errors.EREQUEST)):
-        with pytest.raises(port_rpc.RpcError) as ei:
-            call(req)
-        assert ei.value.error_code == code
+    jeng = _jax_engine()
+    jserver = jax_rpc.Server().add_service(JaxLlmService(jeng)) \
+        .start("127.0.0.1:0")
+    replies = {}
+    try:
+        for name, srv in (("jax", jserver), ("port", server)):
+            side = SIDES[name]
+            stub = _stub(side, srv)
+            opened = stub.MigrateOpen(side.pb.MigrateRequest(seq_id=1))
+            committed = stub.MigrateCommit(
+                side.pb.MigrateCommitRequest(seq_id=1))
+            with pytest.raises(side.rpc.RpcError) as ei:
+                stub.Generate(side.pb.GenerateRequest(resume_seq_id=3,
+                                                      max_new_tokens=2))
+            replies[name] = [
+                (opened.accepted, opened.message, opened.dest_seq_id),
+                (committed.accepted, committed.message),
+                (ei.value.error_code,
+                 ei.value.controller.error_text())]
+    finally:
+        jserver.stop()
+        jserver.join(timeout=2)
+        jeng.stop()
+    assert replies["port"] == replies["jax"]
+    assert replies["port"][0][:2] == (False,
+                                      "migration needs a record stream")
+    assert replies["port"][1] == (False, "no open migration for sequence 1")
+    assert replies["port"][2][0] == errors.EREQUEST
+    assert "no such migrated sequence" in replies["port"][2][1]
 
 
 def test_qos_identity_is_accepted(port_server):

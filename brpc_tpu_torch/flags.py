@@ -238,6 +238,12 @@ tpu_shard_workers = define(
     "the sharded dispatch plane is not ported, so Server.start refuses "
     "any value above 0 (ROADMAP Queue 1 item 2(b))",
     validator=_non_negative)
+serving_shard_skew_ratio = define(
+    "serving_shard_skew_ratio", 0.25,
+    "serving_shard_skew watch rule fires when any KV shard's occupancy "
+    "exceeds its fleet mean by more than this ratio (reloadable: the "
+    "rule reads the flag at every tick)",
+    validator=lambda v: 0.0 < v <= 1.0)
 serving_prefix_cache_enabled = define(
     "serving_prefix_cache_enabled", True,
     "radix prefix cache over the paged KV pools: admission forks the "

@@ -270,12 +270,20 @@ def install_default_rules() -> None:
 
 def _add_default_rules() -> None:
     # the rules over variables the port exports; the reference's tunnel,
-    # shard, KV and QoS rules come back when their variables are ported
+    # shard-worker, KV-exhaustion and QoS rules come back when their
+    # variables are ported
     from brpc_tpu_torch import flags as _flags
     w = _global_watch
     w.add(WatchRule(
         "deadline_expiry_rate", "g_server_deadline_expired", KIND_RATE,
         ">", 0.5, window_s=10, for_ticks=2, clear_ticks=5))
+    # sharded serving: one KV shard filling while its siblings idle means
+    # routing (or a hot sequence) is concentrating load. Bound: the
+    # reloadable serving_shard_skew_ratio flag
+    w.add(WatchRule(
+        "serving_shard_skew", "g_serving_kv_shard_skew",
+        KIND_THRESHOLD, ">", 0.25, window_s=10, for_ticks=2, clear_ticks=5,
+        value_fn=lambda: _flags.get("serving_shard_skew_ratio")))
     # prefix cache: sustained eviction means the radix tree is thrashing,
     # the working set of prefixes outruns the pool's cache headroom.
     # Bound: the reloadable serving_prefix_thrash_rate flag (blocks/s)

@@ -2,16 +2,22 @@
 
 - :mod:`brpc_tpu_torch.serving.kv_cache` — paged KV-cache block manager
   over DeviceStore handles (block tables, refcounts, watermark admission,
-  ledger audits).
+  ledger audits); ``ShardedKVCache``, one ledger per dp shard of the
+  serving mesh over stacked pools, and its ``ShardTable``.
 - :mod:`brpc_tpu_torch.serving.model` — the toy transformer: weights by
   handle, flash-attention prefill, one decode step per engine step.
+- :mod:`brpc_tpu_torch.serving.mesh_model` — ``MeshTransformer``, the
+  same model over a dp x sp x tp mesh: prefill tp-sharded over heads
+  (one kernel launch per head slice), decode grouped by owning dp shard
+  at one launch and one host sync a step. Loaded on first use.
 - :mod:`brpc_tpu_torch.serving.weights` — carries weights to and from
   the JAX model.
 - :mod:`brpc_tpu_torch.serving.prefix_cache` — radix tree over token
   prefixes mapping to refcounted KV block chains: admission forks the
   longest cached prefix (no copy), completion commits blocks back
   (insert-or-share), eviction is watermark-aware LRU over refcount-1
-  chains.
+  chains; ``ShardedPrefixCache``, one tree per dp shard, prefix-hash
+  placed.
 - :mod:`brpc_tpu_torch.serving.speculative` — the speculative-decoding
   draft lane: host-side prompt-lookup drafting feeding the model's one
   ``verify_step`` launch per step; greedy acceptance keeps the tokens
@@ -35,11 +41,13 @@
 """
 
 from brpc_tpu_torch.serving.kv_cache import (KVCacheConfig, KVCacheFull,
-                                             PagedKVCache)
+                                             PagedKVCache, ShardedKVCache,
+                                             ShardTable)
 from brpc_tpu_torch.serving.model import ModelConfig, TinyTransformer
 from brpc_tpu_torch.serving.engine import (EngineConfig, GenerateResult,
                                            ServingEngine, active_engines)
 from brpc_tpu_torch.serving.prefix_cache import (PrefixCache,
+                                                 ShardedPrefixCache,
                                                  build_prefix_cache,
                                                  prefix_route_key)
 from brpc_tpu_torch.serving.speculative import (AdaptiveK,
@@ -49,8 +57,11 @@ from brpc_tpu_torch.serving.speculative import (AdaptiveK,
 
 
 def __getattr__(name):
-    # the migration plane loads on first use: co-located deployments
-    # never pay for the record-lane and fault wiring at import time
+    # the mesh model and the migration plane load on first use: plain
+    # single-device and co-located deployments never import them
+    if name == "MeshTransformer":
+        from brpc_tpu_torch.serving.mesh_model import MeshTransformer
+        return MeshTransformer
     if name == "KVMigrator":
         from brpc_tpu_torch.serving.migration import KVMigrator
         return KVMigrator
@@ -61,10 +72,12 @@ def __getattr__(name):
 
 
 __all__ = [
-    "KVCacheConfig", "KVCacheFull", "PagedKVCache",
-    "ModelConfig", "TinyTransformer",
+    "KVCacheConfig", "KVCacheFull", "PagedKVCache", "ShardedKVCache",
+    "ShardTable",
+    "ModelConfig", "TinyTransformer", "MeshTransformer",
     "EngineConfig", "GenerateResult", "ServingEngine", "active_engines",
     "KVMigrator", "MigrationReceiver",
-    "PrefixCache", "build_prefix_cache", "prefix_route_key",
+    "PrefixCache", "ShardedPrefixCache", "build_prefix_cache",
+    "prefix_route_key",
     "AdaptiveK", "accept_longest_prefix", "draft_tokens",
 ]

@@ -59,7 +59,13 @@ the destination on ``stop()`` (shard death): each request fails
 retriably with EFAILEDSOCKET, and its retry, the same prompt, attaches
 by prompt match to the migrated sequence with no prefill. ``pool_gate``
 serializes the step's launches against a migration writing the pools.
-Still to port: QoS (ROADMAP Queue 1 item 5).
+
+Over a :class:`~brpc_tpu_torch.serving.kv_cache.ShardedKVCache` (a
+:class:`~brpc_tpu_torch.serving.mesh_model.MeshTransformer`'s dp
+shards), a prompt is placed on its prefix-hash shard at submit and at
+allocation, the watermark is the owning shard's, and ``snapshot()``'s
+``shard_steps`` attributes each decode step to the shards whose
+sequences it ran. Still to port: QoS (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -284,6 +290,9 @@ class ServingEngine:
         # serializes pool writes between the step loop's launches and a
         # migration writing an adopted chain into the pools
         self.pool_gate = threading.Lock()
+        # per-shard decode attribution: shard -> [steps, total_us,
+        # last_us, seq_steps] (only shards with live sequences tick)
+        self._shard_step: Dict[int, List[float]] = {}
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "ServingEngine":
@@ -404,18 +413,24 @@ class ServingEngine:
                            stream_id)
             queued = sum(s.context_len() for s in self._waiting)
             need = queued + len(prompt)
+            shard = None
             if self.prefix is not None:
                 # a cached prefix's blocks already count in the pool's
-                # occupancy: only the suffix is new demand
+                # occupancy: only the suffix is new demand; prefix-hash
+                # placement beats the seq-id route, so a hit lands on the
+                # shard holding the chain
+                shard = self.prefix.route_shard(prompt)
                 need = queued + max(1, len(prompt)
                                     - self.prefix.match_len(prompt))
-            if not self.kv.can_admit(need, route_key=seq.seq_id):
+            if not self.kv.can_admit(need, route_key=seq.seq_id,
+                                     shard=shard):
                 # before refusing, ask the tree to give back LRU
                 # refcount-1 chains; the watermark itself is unchanged
                 if not (self.prefix is not None
                         and self.prefix.evict_for_admission(
-                            need, route_key=seq.seq_id)
-                        and self.kv.can_admit(need, route_key=seq.seq_id)):
+                            need, shard=shard, route_key=seq.seq_id)
+                        and self.kv.can_admit(need, route_key=seq.seq_id,
+                                              shard=shard)):
                     self.kv.note_rejected()
                     self.rejected += 1
                     g_serving_rejected.put(1)
@@ -620,11 +635,20 @@ class ServingEngine:
     def _alloc_for(self, seq: Sequence) -> None:
         """Allocate ``seq``'s block table, forking the longest cached
         prefix chain when the tree has one (refcount++, no copy), else
-        cold."""
-        matched = (self.prefix.fork(seq.seq_id, seq.prompt)
-                   if self.prefix is not None else 0)
-        if not matched:
+        cold: on a sharded pool the cold table is placed on the prompt's
+        prefix-hash shard, so a first-seen prefix builds its chain where
+        later hits will route to."""
+        if self.prefix is None:
             self.kv.alloc_sequence(seq.seq_id, seq.context_len())
+            return
+        matched = self.prefix.fork(seq.seq_id, seq.prompt)
+        if not matched:
+            shard = self.prefix.route_shard(seq.prompt)
+            if shard is None:
+                self.kv.alloc_sequence(seq.seq_id, seq.context_len())
+            else:
+                self.kv.alloc_sequence(seq.seq_id, seq.context_len(),
+                                       shard=shard)
             return
         seq.prefix_len = matched
         try:
@@ -717,6 +741,16 @@ class ServingEngine:
                             f"{syncs} host syncs for {len(batch)} seqs; "
                             f"the step contract is exactly (1, 1)")
                 decode_us = (time.perf_counter_ns() - td0) / 1000.0
+                shards_live: Dict[int, int] = {}
+                for tbl in tables:
+                    sh = getattr(tbl, "shard", 0)
+                    shards_live[sh] = shards_live.get(sh, 0) + 1
+                for sh, n_live in shards_live.items():
+                    st = self._shard_step.setdefault(sh, [0, 0.0, 0.0, 0])
+                    st[0] += 1
+                    st[1] += decode_us
+                    st[2] = decode_us
+                    st[3] += n_live
                 if spec_on:
                     self._commit_speculative(batch, drafts, outs)
                 else:
@@ -1038,6 +1072,13 @@ class ServingEngine:
             "ttft_us_p50": pct(self.ttft_samples, 50),
             "ttft_us_p99": pct(self.ttft_samples, 99),
             "itl_us_p50": pct(self.itl_samples, 50),
+            "shard_steps": {
+                sh: {"steps": int(st[0]),
+                     "avg_us": round(st[1] / st[0], 1) if st[0] else 0.0,
+                     "last_us": round(st[2], 1),
+                     "seq_steps": int(st[3])}
+                for sh, st in sorted(self._shard_step.items())
+            },
             "kv": self.kv.snapshot(),
             "prefix": (self.prefix.snapshot()
                        if self.prefix is not None else None),

@@ -35,17 +35,33 @@ a chain without that mark, and any write (extend, truncate, copy-on-write,
 free) clears it; ``release_exported`` drops the source's ownership once
 the destination has adopted the chain, ``unquiesce_sequence`` aborts the
 export and leaves the chain local and writable.
+
+**Sharded mode** (:class:`ShardedKVCache`): one block pool per ``dp``
+shard of the serving mesh (``tpu/mesh.py``). Each shard keeps its own
+ledger-only :class:`PagedKVCache` (``device_pools=False``: free list,
+refcounts, watermark, audits, per pool), while the K/V live as ONE
+stacked ``(dp, layers, slots, kv_dim)`` pair on the mesh's device,
+adopted once in the DeviceStore. Block tables name (shard, block) pairs:
+a :class:`ShardTable` is the block-id list plus the owning shard, and a
+sequence routes to its shard with the splitmix64 ``shard_for`` of the
+shard plane. fork, extend and free touch only the owning shard's
+ledger. Both caches hand the model and the migration the pools a table
+indexes (``pool_views``) and take back the note that they were written
+(``pools_written``).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from brpc_tpu_torch.tpu.device_lane import global_store
+from brpc_tpu_torch.metrics.status import PassiveStatus
+from brpc_tpu_torch.tpu.device_lane import global_store, resolve_device
 
 
 class KVCacheFull(Exception):
@@ -68,22 +84,33 @@ class KVCacheConfig:
 class PagedKVCache:
     """Block manager + the device-resident K/V pools behind it. The pools
     live on the store's device: the card unless ``device="cpu"`` (or a
-    CPU store) is passed."""
+    CPU store) is passed.
+
+    ``device_pools=False`` runs ledger-only: the block, refcount,
+    watermark and audit machinery with no pools of its own, how
+    :class:`ShardedKVCache` gives every shard its own ledger while the
+    K/V live in the stacked pools."""
 
     def __init__(self, config: KVCacheConfig, layers: int, kv_dim: int,
-                 store=None, dtype=torch.float32, device=None):
+                 store=None, dtype=torch.float32, device=None,
+                 device_pools: bool = True):
         self.config = config
         self.layers = layers
         self.kv_dim = kv_dim
         self._lock = threading.Lock()
-        self.store = store if store is not None else global_store(device)
-        # physical block 0 is scratch (pad scatter target): +1 below
-        slots = (config.num_blocks + 1) * config.block_size
-        self.k_pool = torch.zeros((layers, slots, kv_dim), dtype=dtype,
-                                  device=self.store.device)
-        self.v_pool = torch.zeros_like(self.k_pool)
-        self.k_handle, _ = self.store.adopt(self.k_pool)
-        self.v_handle, _ = self.store.adopt(self.v_pool)
+        self.store = store
+        self.k_pool = self.v_pool = None
+        self.k_handle = self.v_handle = 0
+        if device_pools:
+            if store is None:
+                self.store = global_store(device)
+            # physical block 0 is scratch (pad scatter target): +1 below
+            slots = (config.num_blocks + 1) * config.block_size
+            self.k_pool = torch.zeros((layers, slots, kv_dim), dtype=dtype,
+                                      device=self.store.device)
+            self.v_pool = torch.zeros_like(self.k_pool)
+            self.k_handle, _ = self.store.adopt(self.k_pool)
+            self.v_handle, _ = self.store.adopt(self.v_pool)
         self._free: List[int] = list(range(config.num_blocks, 0, -1))
         self._ref: Dict[int, int] = {}
         self._tables: Dict[int, List[int]] = {}
@@ -331,7 +358,7 @@ class PagedKVCache:
         d0, s0 = dst * bs, src * bs
         for pool in (self.k_pool, self.v_pool):
             pool[:, d0:d0 + bs].copy_(pool[:, s0:s0 + bs])
-        self.update_pools(self.k_pool, self.v_pool)
+        self.pools_written()
 
     # ------------------------------------------------------------ migration
     def quiesce_sequence(self, seq_id: int) -> int:
@@ -445,6 +472,15 @@ class PagedKVCache:
         self.store.replace(self.k_handle, k_pool)
         self.store.replace(self.v_handle, v_pool)
 
+    def pool_views(self, table) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (k, v) pools, ``(layers, slots, kv_dim)``, that ``table``'s
+        slots index: here the one pair."""
+        return self.k_pool, self.v_pool
+
+    def pools_written(self) -> None:
+        """Note an in-place write of the pools (once per launch)."""
+        self.update_pools(self.k_pool, self.v_pool)
+
     # ---------------------------------------------------------------- audit
     def _audit_locked(self) -> None:
         if not self._check:
@@ -519,3 +555,362 @@ class PagedKVCache:
                 "cow_splits": self.cow_splits,
                 "admission_rejects": self.admission_rejects,
             }
+
+
+class ShardTable(list):
+    """A block table that knows which dp shard owns it: the (shard,
+    block) naming of the sharded plane. It IS the plain block-id list
+    everywhere the single-pool path expects one; the mesh model and the
+    migration read ``.shard`` to find the sequence's pools."""
+
+    def __init__(self, shard: int, blocks):
+        super().__init__(blocks)
+        self.shard = shard
+
+
+_sharded: "weakref.WeakSet[ShardedKVCache]" = weakref.WeakSet()
+
+
+def _fleet_skew() -> float:
+    """Worst per-shard occupancy excess over its cache's mean: the
+    quantity the serving_shard_skew watch rule fires on. 0 when balanced
+    (or when no sharded cache is live)."""
+    worst = 0.0
+    for c in list(_sharded):
+        ratios = [p.used_ratio() for p in c.pools]
+        if ratios:
+            worst = max(worst, max(ratios) - sum(ratios) / len(ratios))
+    return worst
+
+
+g_serving_kv_shard_skew = PassiveStatus(_fleet_skew) \
+    .expose("g_serving_kv_shard_skew")
+g_serving_kv_shard_skew.prometheus_type = "gauge"
+
+
+class ShardedKVCache:
+    """Per-shard block pools over the serving mesh's ``dp`` axis.
+
+    One ledger-only :class:`PagedKVCache` per shard carries the block
+    accounting (watermark, refcounts, audits: enforced PER POOL), while
+    the K/V are ONE stacked ``(dp, layers, slots, kv_dim)`` pair on the
+    mesh's device, adopted once in the DeviceStore. Sequences route to
+    shards with the shard plane's splitmix64 ``shard_for`` (stable under
+    reused ``version << 32`` ids); fork, extend and free touch only the
+    owning shard's ledger."""
+
+    def __init__(self, config: KVCacheConfig, layers: int, kv_dim: int,
+                 mesh=None, store=None, dtype=torch.float32):
+        from brpc_tpu_torch.shard.plane import shard_for
+        from brpc_tpu_torch.tpu.mesh import serving_mesh
+
+        if mesh is None:
+            mesh = serving_mesh()
+        if "dp" not in mesh.axis_names:
+            raise ValueError(f"mesh {mesh.axis_names} has no dp axis")
+        self.config = config
+        self.layers = layers
+        self.kv_dim = kv_dim
+        self.mesh = mesh
+        self.n_shards = int(mesh.shape["dp"])
+        self.store = store if store is not None else global_store(
+            mesh.device)
+        if self.store.device != resolve_device(mesh.device):
+            raise ValueError(f"store on {self.store.device}, mesh on "
+                             f"{mesh.device}")
+        self._route = shard_for
+        self._lock = threading.Lock()
+        self.pools = [PagedKVCache(config, layers, kv_dim,
+                                   device_pools=False)
+                      for _ in range(self.n_shards)]
+        for i, p in enumerate(self.pools):
+            # ledger-only shards copy-on-write through the stacked pools
+            p._cow_copy_fn = (lambda dst, src, _s=i:
+                              self._cow_copy_block_shard(_s, dst, src))
+        self._shard_of: Dict[int, int] = {}
+        self.admission_rejects = 0
+        slots = (config.num_blocks + 1) * config.block_size
+        shape = (self.n_shards, layers, slots, kv_dim)
+        self.k_pools = torch.zeros(shape, dtype=dtype,
+                                   device=self.store.device)
+        self.v_pools = torch.zeros_like(self.k_pools)
+        self.k_handle, _ = self.store.adopt(self.k_pools)
+        self.v_handle, _ = self.store.adopt(self.v_pools)
+        _sharded.add(self)  # the skew gauge sees the per-shard spread
+
+    # ------------------------------------------------------------- geometry
+    @property
+    def device(self) -> torch.device:
+        return self.store.device
+
+    @property
+    def num_blocks(self) -> int:
+        return self.config.num_blocks * self.n_shards
+
+    @property
+    def block_size(self) -> int:
+        return self.config.block_size
+
+    @property
+    def used_blocks(self) -> int:
+        return sum(p.used_blocks for p in self.pools)
+
+    @property
+    def free_blocks(self) -> int:
+        return sum(p.free_blocks for p in self.pools)
+
+    def used_ratio(self) -> float:
+        return self.used_blocks / float(self.num_blocks)
+
+    def blocks_for(self, ntokens: int) -> int:
+        return self.pools[0].blocks_for(ntokens)
+
+    # the armed-ledger switch (kv._check = True) fans out to every shard's
+    # ledger: the audit contract is per pool
+    @property
+    def _check(self) -> bool:
+        return any(p._check for p in self.pools)
+
+    @_check.setter
+    def _check(self, v: bool) -> None:
+        for p in self.pools:
+            p._check = v
+
+    # -------------------------------------------------------------- routing
+    def shard_of(self, seq_id: int) -> int:
+        """The dp shard owning (or that would own) a sequence. Live
+        sequences keep their pinned shard; new ones route by splitmix64,
+        so a retry re-submitted with the same id lands on the same
+        pool."""
+        with self._lock:
+            pinned = self._shard_of.get(seq_id)
+        if pinned is not None:
+            return pinned
+        return self._route(seq_id, self.n_shards)
+
+    def _pool_of(self, seq_id: int) -> Optional[Tuple[int, PagedKVCache]]:
+        with self._lock:
+            shard = self._shard_of.get(seq_id)
+        if shard is None:
+            return None
+        return shard, self.pools[shard]
+
+    def _owned(self, seq_id: int) -> Tuple[int, PagedKVCache]:
+        got = self._pool_of(seq_id)
+        if got is None:
+            raise KeyError(f"unknown sequence {seq_id}")
+        return got
+
+    # ------------------------------------------------------------ admission
+    def can_admit(self, ntokens: int, route_key: Optional[int] = None,
+                  shard: Optional[int] = None) -> bool:
+        """Watermark admission against the OWNING shard's pool when the
+        placement is known (an explicit ``shard``, from prefix-hash
+        routing, beats the ``route_key`` hash), against the fleet
+        aggregate otherwise."""
+        if shard is not None:
+            return self.pools[shard].can_admit(ntokens)
+        if route_key is not None:
+            return self.pools[self.shard_of(route_key)].can_admit(ntokens)
+        need = self.blocks_for(ntokens)
+        limit = int(self.config.watermark * self.num_blocks)
+        return self.used_blocks + need <= limit
+
+    def note_rejected(self) -> None:
+        with self._lock:
+            self.admission_rejects += 1
+
+    # ----------------------------------------------------------- block ops
+    def alloc_sequence(self, seq_id: int, ntokens: int,
+                       shard: Optional[int] = None) -> ShardTable:
+        if shard is None:
+            shard = self.shard_of(seq_id)
+        table = self.pools[shard].alloc_sequence(seq_id, ntokens)
+        with self._lock:
+            self._shard_of[seq_id] = shard
+        return ShardTable(shard, table)
+
+    def pin_shard(self, seq_id: int, shard: int) -> None:
+        """Pin a sequence to a shard ahead of ledger registration: the
+        prefix cache pins hits to the shard whose tree holds the chain,
+        overriding the splitmix64 route."""
+        if not 0 <= shard < self.n_shards:
+            raise ValueError(f"shard {shard} outside [0, {self.n_shards})")
+        with self._lock:
+            self._shard_of[seq_id] = shard
+
+    def extend_sequence(self, seq_id: int, new_len: int) -> ShardTable:
+        shard, pool = self._owned(seq_id)
+        return ShardTable(shard, pool.extend_sequence(seq_id, new_len))
+
+    def truncate_sequence(self, seq_id: int, new_len: int) -> int:
+        return self._owned(seq_id)[1].truncate_sequence(seq_id, new_len)
+
+    def fork_sequence(self, src_seq: int, dst_seq: int) -> ShardTable:
+        """Shard-local fork: the child shares the parent's blocks, so it
+        lives on the parent's shard, whatever its hash route says."""
+        shard, pool = self._owned(src_seq)
+        table = pool.fork_sequence(src_seq, dst_seq)
+        with self._lock:
+            self._shard_of[dst_seq] = shard
+        return ShardTable(shard, table)
+
+    def free_sequence(self, seq_id: int) -> int:
+        with self._lock:
+            shard = self._shard_of.pop(seq_id, None)
+        if shard is None:
+            return 0
+        return self.pools[shard].free_sequence(seq_id)
+
+    def adopt_sequence(self, seq_id: int, blocks, ntokens: int,
+                       shard: Optional[int] = None) -> ShardTable:
+        """Register a sequence over a live chain on ``shard`` (a prefix
+        hit, a migration's staging adopt): refcount++ on every chain
+        block, no allocation. Defaults to the chain's own shard when
+        ``blocks`` is a :class:`ShardTable`."""
+        if shard is None:
+            shard = getattr(blocks, "shard", None)
+        if shard is None:
+            raise ValueError("adopt_sequence on a sharded pool needs the "
+                             "owning shard (ShardTable or shard=)")
+        table = self.pools[shard].adopt_sequence(seq_id, list(blocks),
+                                                 ntokens)
+        with self._lock:
+            self._shard_of[seq_id] = shard
+        return ShardTable(shard, table)
+
+    # ------------------------------------------------------------ migration
+    def quiesce_sequence(self, seq_id: int) -> int:
+        return self._owned(seq_id)[1].quiesce_sequence(seq_id)
+
+    def export_chain(self, seq_id: int) -> Tuple[ShardTable, int]:
+        shard, pool = self._owned(seq_id)
+        blocks, ntokens = pool.export_chain(seq_id)
+        return ShardTable(shard, blocks), ntokens
+
+    def release_exported(self, seq_id: int) -> int:
+        with self._lock:
+            shard = self._shard_of.pop(seq_id, None)
+        if shard is None:
+            return 0
+        return self.pools[shard].release_exported(seq_id)
+
+    def unquiesce_sequence(self, seq_id: int) -> None:
+        got = self._pool_of(seq_id)
+        if got is not None:
+            got[1].unquiesce_sequence(seq_id)
+
+    # -------------------------------------------------------- copy-on-write
+    def cow_block(self, seq_id: int, block_index: int) -> int:
+        return self._owned(seq_id)[1].cow_block(seq_id, block_index)
+
+    def ensure_writable(self, seq_id: int, pos: int) -> int:
+        return self.cow_block(seq_id, pos // self.config.block_size)
+
+    def _cow_copy_block_shard(self, shard: int, dst: int, src: int) -> None:
+        """The page copy of a ledger-only shard pool: one ``copy_`` of the
+        block's slots across every layer, in the shard's slice of the
+        stacked K and V."""
+        bs = self.config.block_size
+        d0, s0 = dst * bs, src * bs
+        for pools in (self.k_pools, self.v_pools):
+            pools[shard, :, d0:d0 + bs].copy_(pools[shard, :, s0:s0 + bs])
+        self.pools_written()
+
+    def assert_writable(self, table, start: int, stop: int) -> None:
+        self.pools[getattr(table, "shard", 0)].assert_writable(
+            table, start, stop)
+
+    def assert_writable_batch(self, tables, positions) -> None:
+        if not self._check:
+            return
+        for t, p in zip(tables, positions):
+            self.assert_writable(t, int(p), int(p) + 1)
+
+    def block_table(self, seq_id: int) -> Optional[ShardTable]:
+        got = self._pool_of(seq_id)
+        if got is None:
+            return None
+        shard, pool = got
+        table = pool.block_table(seq_id)
+        return ShardTable(shard, table) if table is not None else None
+
+    def seq_len(self, seq_id: int) -> int:
+        got = self._pool_of(seq_id)
+        return got[1].seq_len(seq_id) if got else 0
+
+    def live_sequences(self) -> List[int]:
+        out: List[int] = []
+        for p in self.pools:
+            out.extend(p.live_sequences())
+        return sorted(out)
+
+    # ------------------------------------------------------------ pool swap
+    def update_pools(self, k_pools: torch.Tensor,
+                     v_pools: torch.Tensor) -> None:
+        """Install the stacked pools and re-point the store's handles at
+        them: one swap per launch for the WHOLE mesh, not per shard."""
+        self.k_pools = k_pools
+        self.v_pools = v_pools
+        self.store.replace(self.k_handle, k_pools)
+        self.store.replace(self.v_handle, v_pools)
+
+    def pool_views(self, table) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The owning shard's ``(layers, slots, kv_dim)`` slices of the
+        stacked pools (views: a write lands in the stack)."""
+        shard = getattr(table, "shard", 0)
+        return self.k_pools[shard], self.v_pools[shard]
+
+    def pools_written(self) -> None:
+        """Note an in-place write of the stacked pools (once per
+        launch)."""
+        self.update_pools(self.k_pools, self.v_pools)
+
+    # ---------------------------------------------------------------- audit
+    def assert_idle(self, context: str = "") -> None:
+        for i, p in enumerate(self.pools):
+            where = f"shard {i}" + (f", {context}" if context else "")
+            p.assert_idle(where)
+        with self._lock:
+            if self._shard_of:
+                raise AssertionError(
+                    f"sharded kv not idle [{context}]: routing entries "
+                    f"for {sorted(self._shard_of)} still pinned")
+
+    def close(self) -> None:
+        self.store.free(self.k_handle)
+        self.store.free(self.v_handle)
+
+    def snapshot(self) -> Dict[str, object]:
+        used = self.used_blocks
+        total = self.num_blocks
+        dp = self.mesh.axis_names.index("dp")
+        dev_rows = np.moveaxis(self.mesh.devices, dp, 0).reshape(
+            self.n_shards, -1)
+        shards = []
+        for i, p in enumerate(self.pools):
+            s = p.snapshot()
+            s["shard"] = i
+            s["devices"] = [str(d) for d in dev_rows[i]]
+            shards.append(s)
+        with self._lock:
+            shard_map = dict(sorted(self._shard_of.items()))
+            rejects = self.admission_rejects
+        ratios = [s["used_ratio"] for s in shards]
+        return {
+            "block_size": self.config.block_size,
+            "blocks_total": total,
+            "blocks_used": used,
+            "blocks_free": total - used,
+            "watermark": self.config.watermark,
+            "used_ratio": used / float(total),
+            "sequences": sum(s["sequences"] for s in shards),
+            "blocks_cached": sum(s["blocks_cached"] for s in shards),
+            "cow_splits": sum(s["cow_splits"] for s in shards),
+            "admission_rejects": rejects + sum(s["admission_rejects"]
+                                               for s in shards),
+            "n_shards": self.n_shards,
+            "shard_skew": max(ratios) - sum(ratios) / len(ratios),
+            "shards": shards,
+            "shard_map": shard_map,
+        }

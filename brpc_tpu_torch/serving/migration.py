@@ -33,9 +33,11 @@ owned by nobody or by both sides:
 The block bytes are the reference's: fp32, ``(2, layers, block_size,
 kv_dim)`` per block. The pools live on the store's device and are written
 in place; the engine's ``pool_gate`` keeps the write off the step loop's
-launches. The source and destination ``DeviceStore`` must be one store
-(both engines on ``global_store(device)`` of one process), because a
-record names a handle of the store it was put in.
+launches. A sharded chain (a ``ShardTable`` of a ``ShardedKVCache``) is
+read from and written to its shard's slices of the stacked pools
+(``kv.pool_views``). The source and destination ``DeviceStore`` must be
+one store (both engines on ``global_store(device)`` of one process),
+because a record names a handle of the store it was put in.
 
 Fault points: ``serving.migrate.stall`` (``delay_ms`` per block record on
 the source) and ``serving.migrate.drop`` (the destination's tunnel dies
@@ -95,9 +97,10 @@ def read_chain_blocks(kv, table, block_bytes: int) -> List[bytes]:
     pool on the pools' device, ONE copy of both to the host, then one
     ``k ‖ v`` payload per block, in table (= position) order."""
     bs = kv.block_size
+    k, v = kv.pool_views(table)   # a sharded chain: its shard's slices
     idx = torch.from_numpy(_slot_index(table, bs)).to(kv.device)
-    both = torch.stack([kv.k_pool.index_select(1, idx),
-                        kv.v_pool.index_select(1, idx)]).cpu().numpy()
+    both = torch.stack([k.index_select(1, idx),
+                        v.index_select(1, idx)]).cpu().numpy()
     out: List[bytes] = []
     for i in range(len(table)):
         payload = np.ascontiguousarray(
@@ -127,10 +130,10 @@ def write_chain_blocks(kv, staging_table, payloads: List[bytes],
     blocks = torch.from_numpy(host).to(kv.device).view(
         n, 2, kv.layers, bs, kv.kv_dim)
     idx = torch.from_numpy(_slot_index(staging_table, bs)).to(kv.device)
-    for half, pool in enumerate((kv.k_pool, kv.v_pool)):
+    for half, pool in enumerate(kv.pool_views(staging_table)):
         pool.index_copy_(1, idx, blocks[:, half].transpose(0, 1).reshape(
             kv.layers, n * bs, kv.kv_dim))
-    kv.update_pools(kv.k_pool, kv.v_pool)
+    kv.pools_written()
 
 
 def chain_block_bytes(kv) -> int:

@@ -28,8 +28,18 @@ the engine's per-step (1 launch, 1 host sync) audit holds.
 - **Long prompts**: a prompt of ``ring_threshold`` tokens or more
   prefills through ring attention (``tpu/ring.ring_attention`` on its
   plain lane, as the reference's ``_prefill_ring`` runs the lax ring),
-  one layer at a time. The port has no device mesh yet, so the ring has
-  one position (``sp = 1``): one hop, and no pad rows.
+  one layer at a time, over the ``sp`` axis of the model's ``mesh``
+  (``TinyTransformer(..., mesh=)``), every ring position replayed on the
+  pools' device. Without a mesh, or on one with no ``sp`` axis, the ring
+  has one position (``sp = 1``: one hop, no pad rows), where the
+  reference falls back to a process-wide mesh. Several cards are ROADMAP
+  Queue 1 item 7(d).
+
+The mesh-sharded model (``serving/mesh_model.MeshTransformer``) reuses
+this one through two seams: the KV cache hands over the pools a table
+indexes (``kv.pool_views``) and takes the note that they were written
+(``kv.pools_written``), and :meth:`TinyTransformer._attend` is where a
+tp split of the heads goes.
 """
 
 from __future__ import annotations
@@ -127,12 +137,14 @@ class TinyTransformer(nn.Module):
     # decode_step is ONE logical launch + ONE host materialization
     FUSED_STEP = True
 
-    def __init__(self, config: ModelConfig, kv: PagedKVCache, store=None):
+    def __init__(self, config: ModelConfig, kv: PagedKVCache, store=None,
+                 mesh=None):
         super().__init__()
         self.config = config
         self.kv = kv
         self.store = store if store is not None else kv.store
         self.device = self.store.device
+        self.mesh = mesh
 
         # ---- weights: pack host-side once, stage onto the device by handle
         flat, self._offsets = self._init_weights(config)
@@ -205,16 +217,22 @@ class TinyTransformer(nn.Module):
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _attend(self, q, k, v, use_flash: bool) -> torch.Tensor:
+        """Causal prefill attention over (S, H, hd) views: all heads in
+        one call (one kernel launch on the card)."""
+        attend = (pallas_ops.flash_attention if use_flash
+                  else pallas_ops.attention_reference)
+        return attend(q, k, v, causal=True)
+
     @torch.no_grad()
     def _prefill_impl(self, toks: torch.Tensor, slots: torch.Tensor,
-                      length: int, use_flash: bool) -> torch.Tensor:
+                      length: int, use_flash: bool,
+                      table: Sequence[int]) -> torch.Tensor:
         cfg = self.config
         p = self._params
         S = toks.shape[0]
         H, hd, D = cfg.n_heads, cfg.head_dim, cfg.d_model
-        attend = (pallas_ops.flash_attention if use_flash
-                  else pallas_ops.attention_reference)
-        kpool, vpool = self.kv.k_pool, self.kv.v_pool
+        kpool, vpool = self.kv.pool_views(table)
         x = p["embed"][toks]                            # (S, D)
         for l in range(cfg.n_layers):
             h = _rms(x)
@@ -223,12 +241,12 @@ class TinyTransformer(nn.Module):
             vpool[l, slots] = vv
             # (S, H, hd) views of the fused QKV product; the kernel reads
             # their strides, no copy
-            attn = attend(q.view(S, H, hd), k.view(S, H, hd),
-                          vv.view(S, H, hd), causal=True)
+            attn = self._attend(q.view(S, H, hd), k.view(S, H, hd),
+                                vv.view(S, H, hd), use_flash)
             x = x + attn.reshape(S, -1) @ p[f"wo{l}"]
             h2 = _rms(x)
             x = x + torch.relu(h2 @ p[f"w1{l}"]) @ p[f"w2{l}"]
-        self.kv.update_pools(kpool, vpool)
+        self.kv.pools_written()
         logits = _rms(x[length - 1]) @ p["embed"].T
         return torch.argmax(logits)
 
@@ -248,7 +266,7 @@ class TinyTransformer(nn.Module):
         slots = self._slots_for(table, s, bucket)
         step_dispatch.note_launch(1)
         nxt = self._prefill_impl(self._to_dev(toks), self._to_dev(slots), s,
-                                 self._use_flash())
+                                 self._use_flash(), table)
         first = int(nxt.item())
         step_dispatch.note_host_sync()
         return first
@@ -257,12 +275,15 @@ class TinyTransformer(nn.Module):
     def _prefill_ring(self, tokens: np.ndarray,
                       table: Sequence[int]) -> int:
         """Long-context prefill: each layer's attention through the ring
-        (``sp`` sequence blocks; one card is one position, one hop). The
-        layer loop runs on the host, one launch noted per layer's ring
-        call and one host sync at the end, as in the reference."""
+        over the mesh's ``sp`` axis (one position without one), K/V
+        scattered into the pools the table indexes. The layer loop runs
+        on the host, one launch noted per layer's ring call and one host
+        sync at the end, as in the reference."""
         cfg = self.config
         H, hd, D = cfg.n_heads, cfg.head_dim, cfg.d_model
-        sp = 1  # no mesh in the port yet: one ring position
+        on_mesh = self.mesh is not None and "sp" in self.mesh.axis_names
+        sp = int(self.mesh.shape["sp"]) if on_mesh else 1
+        ring_of = (self.mesh, "sp") if on_mesh else (sp, None)
         s = len(tokens)
         self.kv.assert_writable(table, 0, s)
         pad = ((s + sp - 1) // sp) * sp
@@ -270,22 +291,20 @@ class TinyTransformer(nn.Module):
         toks = np.zeros(pad, dtype=np.int64)
         toks[:s] = tokens
         x = p["embed"][self._to_dev(toks)]
-        kpool, vpool = self.kv.k_pool, self.kv.v_pool
+        kpool, vpool = self.kv.pool_views(table)
         slots = self._to_dev(self._slots_for(table, s, pad))
         for l in range(cfg.n_layers):
             h = _rms(x)
             q, k, vv = (h @ p[f"wqkv{l}"]).split(D, dim=-1)
             kpool[l, slots] = k
             vpool[l, slots] = vv
+            qh, kh, vh = (t.reshape(1, pad, H, hd) for t in (q, k, vv))
             step_dispatch.note_launch(1)
-            attn = ring.ring_attention(q.reshape(1, pad, H, hd),
-                                       k.reshape(1, pad, H, hd),
-                                       vv.reshape(1, pad, H, hd), sp,
-                                       causal=True)
+            attn = ring.ring_attention(qh, kh, vh, *ring_of, causal=True)
             x = x + attn.reshape(pad, -1) @ p[f"wo{l}"]
             h2 = _rms(x)
             x = x + torch.relu(h2 @ p[f"w1{l}"]) @ p[f"w2{l}"]
-        self.kv.update_pools(kpool, vpool)
+        self.kv.pools_written()
         logits = _rms(x[s - 1]) @ p["embed"].T
         first = int(torch.argmax(logits).item())
         step_dispatch.note_host_sync()
@@ -327,13 +346,14 @@ class TinyTransformer(nn.Module):
         for i, table in enumerate(tables):
             slot_tables[i] = self._slots_for(table, positions[i] + 1,
                                              l_bucket)
+        kpool, vpool = self.kv.pool_views(tables[0])
         step_dispatch.note_launch(1)
         with torch.no_grad():
-            kpool, vpool, nxt = _decode_body(
-                self.config, self._params, self.kv.k_pool, self.kv.v_pool,
+            _, _, nxt = _decode_body(
+                self.config, self._params, kpool, vpool,
                 self._to_dev(toks), self._to_dev(pos),
                 self._to_dev(slot_tables), b_bucket, l_bucket)
-        self.kv.update_pools(kpool, vpool)
+        self.kv.pools_written()
         out = nxt[:B].to(torch.int32).cpu().numpy()
         step_dispatch.note_host_sync()
         return out

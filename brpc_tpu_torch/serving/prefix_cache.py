@@ -28,8 +28,16 @@ blocks back (``evict_for_admission``); the watermark itself is unchanged.
 
 Counters: the six ``g_serving_prefix_*`` Adders and the
 ``g_serving_prefix_hit_ratio`` gauge; fault point ``serving.prefix.evict``
-forces eviction churn at every fork. The per-shard trees of a sharded
-pool wait for the port's ``ShardedKVCache`` (ROADMAP Queue 1 item 7(c)).
+forces eviction churn at every fork.
+
+**Sharded mode** (:class:`ShardedPrefixCache`): one tree per dp shard of
+a :class:`~brpc_tpu_torch.serving.kv_cache.ShardedKVCache`, each over its
+shard's ledger. Placement is prefix-hash routed: ``prefix_route_key``
+folds the first block of token ids, and the shard plane's ``shard_for``
+maps it to a shard, so same-prefix traffic lands on the shard that holds
+the chain. The client-side half of that routing (the reference's
+``GenerateRouter`` over a ``PartitionChannel``) waits for ROADMAP Queue 1
+item 2(b)8.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from brpc_tpu_torch import fault as _fault
 from brpc_tpu_torch import flags as _flags
 from brpc_tpu_torch.metrics.reducer import Adder
 from brpc_tpu_torch.metrics.status import PassiveStatus
-from brpc_tpu_torch.serving.kv_cache import PagedKVCache
+from brpc_tpu_torch.serving.kv_cache import PagedKVCache, ShardedKVCache
 
 _fault.register("serving.prefix.evict",
                 "force radix prefix-cache eviction churn (blocks=)")
@@ -101,8 +109,9 @@ class PrefixCache:
     Lock order: the tree lock is OUTER, the pool's ledger lock inner
     (every ``kv.*`` call below takes it), never the reverse."""
 
-    def __init__(self, kv: PagedKVCache):
+    def __init__(self, kv: PagedKVCache, shard: int = 0):
         self.kv = kv
+        self.shard = shard
         self._lock = threading.Lock()
         self._root = _Node((), -1, None)
         self._tick = 0  # monotonic LRU clock (stamps, not wall time)
@@ -303,11 +312,84 @@ class PrefixCache:
         }
 
 
-def build_prefix_cache(kv) -> PrefixCache:
-    """The engine's factory: one tree over a plain pool. A sharded pool's
-    per-shard trees wait for the port's sharded KV cache."""
-    if not isinstance(kv, PagedKVCache):
-        raise NotImplementedError(
-            f"prefix cache over {type(kv).__name__}: the per-shard trees "
-            f"of a sharded pool are not ported (ROADMAP Queue 1 item 7(c))")
+class ShardedPrefixCache:
+    """One radix tree per dp shard, each over its shard's ledger pool.
+
+    ``route_shard`` puts ``prefix_route_key`` through the shard plane's
+    splitmix64 ``shard_for``: admission and placement agree, and
+    same-prefix traffic lands where the chain lives."""
+
+    def __init__(self, kv: ShardedKVCache):
+        from brpc_tpu_torch.shard.plane import shard_for
+        self.kv = kv
+        self._route = shard_for
+        self.trees = [PrefixCache(pool, shard=i)
+                      for i, pool in enumerate(kv.pools)]
+
+    @staticmethod
+    def enabled() -> bool:
+        return PrefixCache.enabled()
+
+    def route_shard(self, tokens) -> Optional[int]:
+        """Prefix-hash placement for a prompt, or None when it cannot hit
+        the cache (too short): callers fall back to seq-id routing."""
+        if not self.enabled():
+            return None
+        key = prefix_route_key(tokens, self.kv.config.block_size)
+        if key is None:
+            return None
+        return self._route(key, self.kv.n_shards)
+
+    def match_len(self, tokens) -> int:
+        shard = self.route_shard(tokens)
+        if shard is None:
+            return 0
+        return self.trees[shard].match_len(tokens)
+
+    def fork(self, seq_id: int, tokens) -> int:
+        shard = self.route_shard(tokens)
+        if shard is None:
+            return 0
+        matched = self.trees[shard].fork(seq_id, tokens)
+        if matched:
+            # the chain pins the sequence to its shard (the adopt
+            # registered it in that pool's ledger; routing must agree)
+            self.kv.pin_shard(seq_id, shard)
+        return matched
+
+    def commit(self, seq_id: int, tokens, valid_len: int) -> int:
+        got = self.kv._pool_of(seq_id)
+        if got is None:
+            return 0
+        return self.trees[got[0]].commit(seq_id, tokens, valid_len)
+
+    def evict_for_admission(self, ntokens: int, shard: Optional[int] = None,
+                            route_key: Optional[int] = None) -> bool:
+        if shard is None and route_key is not None:
+            shard = self.kv.shard_of(route_key)
+        if shard is None:
+            return any(t.evict_for_admission(ntokens) for t in self.trees)
+        return self.trees[shard].evict_for_admission(ntokens)
+
+    def clear(self) -> int:
+        return sum(t.clear() for t in self.trees)
+
+    def snapshot(self) -> Dict[str, object]:
+        shards = [t.snapshot() for t in self.trees]
+        agg = {k: sum(s[k] for s in shards)
+               for k in ("nodes", "blocks", "hit_seqs", "miss_seqs",
+                         "hit_blocks", "hit_tokens", "inserted_blocks",
+                         "evicted_blocks")}
+        total = agg["hit_seqs"] + agg["miss_seqs"]
+        agg["hit_ratio"] = agg["hit_seqs"] / total if total else 0.0
+        agg["enabled"] = self.enabled()
+        agg["shards"] = shards
+        return agg
+
+
+def build_prefix_cache(kv):
+    """The engine's factory: per-shard trees over a ShardedKVCache, one
+    tree over a plain pool."""
+    if isinstance(kv, ShardedKVCache):
+        return ShardedPrefixCache(kv)
     return PrefixCache(kv)

@@ -1,23 +1,48 @@
-"""tpu:// device naming on the port: ``tpu://host/n`` names CUDA card n.
+"""The device mesh and ``tpu://`` device naming, on the port.
 
-The port of ``brpc_tpu/tpu/mesh.py``'s :func:`resolve_device` only; the
-mesh, its axes and the collectives wait for ROADMAP Queue 1 item 7(b).
+The port of ``brpc_tpu/tpu/mesh.py``. A ``tpu://host/n`` ordinal names
+CUDA card n; a :class:`Mesh` lays named axes over positions, as JAX's
+``jax.sharding.Mesh`` lays them over devices. Standard axis vocabulary:
+dp (data: batch, KV pools), tp (tensor: heads), sp (sequence: ring
+attention), pp (pipeline), ep (experts).
 
-A ``tpu://`` ordinal resolves to ``torch.device("cuda", n)``. A process
-that has no card, or that runs on the CPU on purpose (the tests), says so
-once through :func:`use_cpu`: ordinals below the count it gives then
-resolve to the CPU, as the JAX package's resolve against the host
-platform's virtual devices. Without a card and without that call,
-resolving raises; nothing falls back to the CPU on its own.
+**Single controller.** The reference is one process running one SPMD
+program over every device of its mesh. The port keeps that shape: one
+process replays every mesh position, as ``tpu/ring.py`` replays every
+ring position, and the collectives (``tpu/collective.py``) and the
+sharded serving stack compute what each position's program computes. A
+mesh's positions may repeat one device: the card machine has one H100,
+NCCL puts one rank on one card, and the serving stack's stacked KV pools
+live on one device. So a mesh whose positions span more than one
+distinct device is refused when it is built; several cards (a rank per
+card, the hop as a send) are ROADMAP Queue 1 item 7(d).
+
+A process that has no card, or that runs on the CPU on purpose (the
+tests), says so once through :func:`use_cpu`: ordinals below the count
+it gives then resolve to the CPU, and :func:`devices` lists that many
+CPU positions, as the JAX package's resolve against the host platform's
+virtual devices (``--xla_force_host_platform_device_count``). Without a
+card and without that call, resolving raises; nothing falls back to the
+CPU on its own. On the card, a caller lays several positions on it
+explicitly: ``make_mesh(..., devices_list=[torch.device("cuda", 0)] *
+8)``; without that, :func:`serving_mesh` over one card is 1 x 1 x 1, the
+reference's one-chip case.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
+from typing import Dict, List, Tuple
+
+import numpy as np
 import torch
 
 from brpc_tpu_torch.butil.endpoint import EndPoint
 
 _cpu_devices = 0   # > 0: ordinals 0 .. _cpu_devices - 1 are the CPU
+_lock = threading.Lock()
+_default_mesh = None
 
 
 def use_cpu(count: int = 1) -> None:
@@ -27,6 +52,29 @@ def use_cpu(count: int = 1) -> None:
     if count < 0:
         raise ValueError(f"use_cpu: count {count} < 0")
     _cpu_devices = int(count)
+
+
+def devices() -> List[torch.device]:
+    """This process's positions: ``use_cpu(n)``'s n CPU positions, else
+    one per card. Raises without a card unless the CPU was asked for."""
+    if _cpu_devices:
+        return [torch.device("cpu")] * _cpu_devices
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; call "
+            "brpc_tpu_torch.tpu.mesh.use_cpu() to run on the CPU")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def device_count() -> int:
+    return len(devices())
+
+
+def list_device_endpoints(host: str = "localhost") -> List[EndPoint]:
+    """The tpu:// naming view of this process (one EndPoint per
+    position)."""
+    return [EndPoint.from_tpu(host, i) for i in range(device_count())]
 
 
 def resolve_device(ep: EndPoint) -> torch.device:
@@ -47,3 +95,97 @@ def resolve_device(ep: EndPoint) -> torch.device:
     if 0 <= n < torch.cuda.device_count():
         return torch.device("cuda", n)
     raise ValueError(f"no local device with ordinal {n}")
+
+
+class Mesh:
+    """Named axes over an ndarray of positions (``torch.device`` each),
+    replayed by one process. ``shape`` is ``{axis: size}`` in axis
+    order, as JAX's. Every position must be the same device."""
+
+    def __init__(self, positions: np.ndarray, axis_names):
+        names = tuple(axis_names)
+        if positions.ndim != len(names):
+            raise ValueError(f"{positions.ndim}-d positions for axes "
+                             f"{names}")
+        distinct = sorted({str(d) for d in positions.flat})
+        if len(distinct) != 1:
+            raise ValueError(
+                f"mesh over {distinct}: the port replays every position "
+                f"in one process on one device; a mesh across several "
+                f"cards is ROADMAP Queue 1 item 7(d)")
+        self.devices = positions
+        self.axis_names = names
+        self.shape: Dict[str, int] = dict(zip(names, positions.shape))
+
+    @property
+    def device(self) -> torch.device:
+        """The one device every position lies on."""
+        return self.devices.flat[0]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, device={self.device})"
+
+
+def make_mesh(axis_sizes: Dict[str, int], devices_list=None) -> Mesh:
+    """A :class:`Mesh` with named axes over ``devices_list`` (default:
+    :func:`devices`). ``axis_sizes`` is ordered ``{axis: size}``; the
+    sizes must multiply to the position count (one ``-1`` is
+    inferred)."""
+    devs = list(devices_list if devices_list is not None else devices())
+    names = list(axis_sizes.keys())
+    sizes = list(axis_sizes.values())
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1]))
+        sizes[sizes.index(-1)] = len(devs) // known
+    total = int(np.prod(sizes))
+    if total != len(devs):
+        raise ValueError(
+            f"mesh {dict(zip(names, sizes))} needs {total} devices, "
+            f"have {len(devs)}")
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = devs
+    return Mesh(arr.reshape(sizes), names)
+
+
+def mesh_factors(n: int) -> Tuple[int, int, int]:
+    """Split n positions into (dp, sp, tp), preferring to use every axis
+    (8 -> dp=2 sp=2 tp=2). Any n works: odd counts fold the even axes to
+    1."""
+    tp = 2 if n % 2 == 0 else 1
+    rem = n // tp
+    sp = 2 if rem % 2 == 0 else 1
+    dp = rem // sp
+    return dp, sp, tp
+
+
+def serving_mesh(devices_list=None) -> Mesh:
+    """The serving plane's dp/sp/tp mesh: dp shards the request batch
+    and the KV pools, sp carries the ring-attention lane, tp shards
+    attention heads in prefill. 1 x 1 x 1 over one device."""
+    devs = list(devices_list if devices_list is not None else devices())
+    dp, sp, tp = mesh_factors(len(devs))
+    return make_mesh({"dp": dp, "sp": sp, "tp": tp}, devices_list=devs)
+
+
+def default_mesh(axis_name: str = "x") -> Mesh:
+    """Process-wide 1-D mesh over all positions (the 'whole ring')."""
+    global _default_mesh
+    with _lock:
+        if (_default_mesh is None
+                or _default_mesh.axis_names != (axis_name,)):
+            _default_mesh = make_mesh({axis_name: -1})
+        return _default_mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """Which mesh axis each dim of a stacked tensor follows (``None``:
+    replicated). The port annotates nothing: one process holds every
+    position's slice, so the record only names the layout."""
+
+    mesh: Mesh
+    spec: Tuple
+
+
+def named_sharding(mesh: Mesh, *spec) -> NamedSharding:
+    return NamedSharding(mesh, tuple(spec))

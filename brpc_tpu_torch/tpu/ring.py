@@ -8,8 +8,11 @@ positions run in turn on one device: at hop i, position ``my`` works on
 the key block that originated at position ``src = (my - i) % sp`` (the JAX
 order), and the hop's ppermute becomes indexing into that block. This is
 the replay that the JAX package's ``tools/kernel_bench.py``
-(``bench_ring_path``) runs on one chip. A later slice puts the positions
-on separate cards and the hop on ``torch.distributed``.
+(``bench_ring_path``) runs on one chip. Over a mesh (``tpu/mesh.py``),
+B splits over a batch axis and H over a head axis and each slice runs
+its own ring, as the JAX ring's ``shard_map`` over (batch, sequence,
+head) axes does. Positions on separate cards, with the hop as a send to
+the neighbour rank, are ROADMAP Queue 1 item 7(d).
 
 Two lanes, as in JAX:
 
@@ -167,26 +170,62 @@ class _RingFlash(torch.autograd.Function):
                 _unblocks(dv, b, h).to(vb.dtype), None, None, None, None)
 
 
-def ring_attention(q, k, v, sp: int, causal: bool = False,
+def _ring(q, k, v, sp: int, causal: bool, use_flash: bool, block_q: int,
+          block_k: int):
+    """One replayed ring of ``sp`` positions over q, k, v [B, S, H, D]."""
+    if sp < 1 or q.shape[1] % sp or k.shape[1] % sp:
+        raise ValueError(f"sequence lengths ({q.shape[1]}, {k.shape[1]}) "
+                         f"must divide into sp={sp} blocks")
+    if use_flash:
+        return _RingFlash.apply(q, k, v, sp, causal, block_q, block_k)
+    return _ring_plain(q, k, v, sp, causal)
+
+
+def _axis_size(mesh, name) -> int:
+    return 1 if name is None else int(mesh.shape[name])
+
+
+def ring_attention(q, k, v, mesh, axis: str = None, causal: bool = False,
+                   batch_axis: str = None, head_axis: str = None,
                    use_flash: bool = False, block_q: int = 512,
                    block_k: int = 1024):
-    """Attention over q, k, v [B, S, H, D] split into ``sp`` sequence blocks
-    (the JAX ring's ``mesh.shape[axis]``), every ring position replayed on
-    the tensors' device. Exact, not approximate; differentiable in both
-    lanes. ``use_flash`` runs each hop through the carry kernel and the
-    backward kernels (see the module docstring); the blocks are fitted to
-    each sequence block as in JAX."""
+    """Attention over q, k, v [B, S, H, D] split into sequence blocks
+    along a ring, every ring position replayed on the tensors' device.
+    Exact, not approximate; differentiable in both lanes.
+
+    ``mesh`` is a :class:`~brpc_tpu_torch.tpu.mesh.Mesh` with ``axis``
+    the sequence axis (sp = ``mesh.shape[axis]``), as the JAX ring takes
+    it; ``batch_axis`` splits B and ``head_axis`` splits H over their
+    axes' positions (attention is independent per batch element and per
+    head, so only the sequence axis communicates), and each (batch,
+    head) slice runs its own ring. An int ``mesh`` is sp itself, one
+    slice. ``use_flash`` runs each hop through the carry kernel and the
+    backward kernels (see the module docstring); the blocks are fitted
+    to each sequence block as in JAX."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"ring_attention takes [B, S, H, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    b, s, h, d = q.shape
+    b, _, h, d = q.shape
     if k.shape[0] != b or tuple(k.shape[2:]) != (h, d):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if sp < 1 or s % sp or k.shape[1] % sp:
-        raise ValueError(f"sequence lengths ({s}, {k.shape[1]}) must "
-                         f"divide into sp={sp} blocks")
-    if use_flash:
-        return _RingFlash.apply(q, k, v, sp, causal, block_q, block_k)
-    return _ring_plain(q, k, v, sp, causal)
+    if isinstance(mesh, int):
+        if axis is not None or batch_axis or head_axis:
+            raise ValueError("an int sp takes no mesh axes")
+        return _ring(q, k, v, mesh, causal, use_flash, block_q, block_k)
+    sp = _axis_size(mesh, axis)
+    nb, nh = _axis_size(mesh, batch_axis), _axis_size(mesh, head_axis)
+    if b % nb or h % nh:
+        raise ValueError(f"B={b} / H={h} do not split over {batch_axis}="
+                         f"{nb} / {head_axis}={nh}")
+    bl, hl = b // nb, h // nh
+    rows = []
+    for i in range(nb):
+        bs = slice(i * bl, (i + 1) * bl)
+        rows.append(torch.cat([
+            _ring(q[bs, :, j * hl:(j + 1) * hl],
+                  k[bs, :, j * hl:(j + 1) * hl],
+                  v[bs, :, j * hl:(j + 1) * hl], sp, causal, use_flash,
+                  block_q, block_k) for j in range(nh)], dim=2))
+    return torch.cat(rows)

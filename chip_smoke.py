@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then eleven paths:
+(nvcc, sm_90a, one process per source, all at once). Then twelve paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -52,6 +52,19 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   tpu_transfer, device_stream and device_data, each server and client a
   fresh interpreter on the card, held as the reference's tests hold
   them, the copy kernels' launches read back from their output.
+- Mesh-sharded serving (phase 4g): the collectives over 8 positions
+  on cuda tensors against numpy; the serving kernel on tp head slices
+  (strided views of the fused QKV product), bit for bit the all-heads
+  launch at every bucket; ``MeshTransformer`` over a dp2 x sp2 x tp2
+  mesh laid on the card (``ShardedKVCache`` 256 x 16 per shard, armed)
+  on the requests above and the corpus schedule twice, beside the
+  single-device engine on the same requests: tokens equal, the kernel
+  launched tp x layers x prefills times, both shards serving, every
+  decode step one launch and one host sync, the pools idle; the mesh
+  engine at the reference's defaults (warm tokens equal cold); a
+  4096-token prompt through the ring over sp 2 (tokens equal the
+  one-position ring's); the ring's mesh form with its flash lane at
+  ``bench_ring_path``'s shape, carry and backward launches counted.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm kernel against their plain versions in fp32 and bf16 (in bf16
   all three attention kernels are the tensor-core kernels, held also at
@@ -1426,6 +1439,319 @@ def run_examples(smi):
     row["launches"] = launches
     print(json.dumps({"examples": row}), flush=True)
     return launches
+
+
+# ------------------------------------- phase 4g: mesh-sharded serving
+# the serving mesh laid on the one card: dp 2 x sp 2 x tp 2, eight
+# positions replayed in this process (brpc_tpu_torch/tpu/mesh.py)
+MESH_AXES = {"dp": 2, "sp": 2, "tp": 2}
+MESH_POSITIONS = 8
+MESH_LONG_PROMPT = 4096      # through the ring over sp 2
+RING_MESH_AXES = {"dp": 2, "sp": 2, "tp": 2}
+
+
+def card_mesh(dev, axes):
+    from brpc_tpu_torch.tpu import mesh as meshlib
+    return meshlib.make_mesh(axes, devices_list=[dev] * MESH_POSITIONS)
+
+
+def check_collectives(dev):
+    """The collectives over 8 positions on cuda tensors against their
+    numpy results: exact for the sums of small integers in float32,
+    rtol 1e-5 for ring_all_reduce of normal floats."""
+    from brpc_tpu_torch.tpu import collective as coll
+
+    m = card_mesh(dev, {"x": MESH_POSITIONS})
+    n = MESH_POSITIONS
+    rng = np.random.default_rng(12)
+    ar = np.arange(16.0, dtype=np.float32)
+    sq = np.arange(64.0, dtype=np.float32).reshape(8, 8)
+    rows = np.arange(8 * 16, dtype=np.float32).reshape(8, 16)
+    normal = rng.normal(size=(8, 32)).astype(np.float32)
+
+    def on(x):
+        return torch.from_numpy(x).to(dev)
+
+    coll.register_collective_fn("smoke_scale", lambda s: s * 3.0)
+    cases = {
+        "all_reduce": (coll.all_reduce(on(ar), m, "x"),
+                       np.tile(ar.reshape(n, 2).sum(0), n)),
+        "all_gather": (coll.all_gather(on(ar[:8]), m, "x"),
+                       np.tile(ar[:8], n)),
+        "reduce_scatter": (coll.reduce_scatter(on(rows), m, "x"),
+                           rows.sum(0)),
+        "all_to_all": (coll.all_to_all(on(sq), m, "x", 1, 0),
+                       sq.T.reshape(64, 1)),
+        "shift": (coll.shift(on(ar[:8]), m, "x", offset=3),
+                  np.roll(ar[:8], 3)),
+        "fanout_sum": (coll.fanout(lambda s: s * 2.0, m, "x", "sum")(
+            on(np.ones(8, np.float32))), np.full(8, 16.0)),
+        "fanout_gather": (coll.fanout(lambda s: s + 1.0, m, "x")(
+            on(ar[:8])), np.tile(ar[:8] + 1.0, n)),
+        "partition": (coll.partition(lambda s: s + 1.0, m, "x")(
+            on(ar[:8])), ar[:8] + 1.0),
+        "fanout_call_sum": (coll.fanout_call(
+            coll.collective_fn("smoke_scale"), m, "x", "sum", on(ar)),
+            3.0 * ar.reshape(n, 2).sum(0)),
+    }
+    for name, (got, want) in cases.items():
+        if got.device != dev or not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError(f"collective {name} on {got.device}: "
+                                 f"{got.cpu().numpy()} != {want}")
+    ring_sum = coll.ring_all_reduce(on(normal), m, "x").cpu().numpy()
+    np.testing.assert_allclose(ring_sum, np.tile(normal.sum(0), (n, 1)),
+                               rtol=1e-5, atol=1e-6)
+    return {"held_exact": sorted(cases), "ring_all_reduce_max_err": float(
+        np.abs(ring_sum - normal.sum(0)).max())}
+
+
+def check_head_slices(dev, tp):
+    """Kernel #1 as the mesh prefill calls it: each tp slice of the heads
+    of a fused QKV product, (S, H / tp, 16) strided views, one launch
+    each; concatenated, bit for bit the all-heads launch, at every
+    serving bucket. Returns the per-slice launches made (not counted on
+    the main path: the counts are reset before it)."""
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    h = 4
+    hl = h // tp
+    worst = 0.0
+    for s in SERVING_BUCKETS:
+        q, k, v = flash_inputs(gen, (s, h, 16), dev)
+        full = pallas_ops.flash_attention(q, k, v, causal=True)
+        parts = [pallas_ops.flash_attention(
+            q[:, i * hl:(i + 1) * hl], k[:, i * hl:(i + 1) * hl],
+            v[:, i * hl:(i + 1) * hl], causal=True) for i in range(tp)]
+        if not torch.equal(torch.cat(parts, dim=1), full):
+            raise AssertionError(f"bucket {s}: tp head slices differ from "
+                                 f"the all-heads launch")
+        ref = pallas_ops.attention_reference(q[:, :hl], k[:, :hl],
+                                             v[:, :hl], causal=True)
+        worst = max(worst, float((parts[0] - ref).abs().max()))
+    if worst > FLASH_TOL:
+        raise AssertionError(f"head slice vs plain: {worst} > {FLASH_TOL}")
+    return {"buckets": list(SERVING_BUCKETS), "bit_equal": True,
+            "slice_vs_plain_max_err": worst}
+
+
+def build_mesh_engine(dev, prefix_cache=False, spec_k=0, max_context=1024,
+                      num_blocks=256, token_budget=TOKEN_BUDGET,
+                      ring_threshold=4096):
+    """examples/llm_server's widths on a dp2 x sp2 x tp2 MeshTransformer
+    over a ShardedKVCache of num_blocks x 16 per shard, armed."""
+    from brpc_tpu_torch.serving import MeshTransformer, ShardedKVCache
+
+    cfg = ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=2,
+                      max_context=max_context, seed=0, attn="auto",
+                      ring_threshold=ring_threshold)
+    kv = ShardedKVCache(KVCacheConfig(block_size=16, num_blocks=num_blocks),
+                        cfg.n_layers, cfg.kv_dim,
+                        mesh=card_mesh(dev, MESH_AXES))
+    kv._check = True  # per-shard audits and the (1, 1) step contract
+    model = MeshTransformer(cfg, kv)
+    return ServingEngine(model, kv, EngineConfig(
+        max_batch=8, token_budget=token_budget, idle_wait_s=0.001,
+        spec_k=spec_k), prefix_cache=prefix_cache).start()
+
+
+def audit_steps(engine):
+    """Wraps the engine's decode_step to record each step's (launches,
+    host syncs) on its own thread; returns the list it fills."""
+    orig = engine.model.decode_step
+    deltas = []
+
+    def audited(tokens, positions, tables):
+        before = step_dispatch.thread_snapshot()
+        out = orig(tokens, positions, tables)
+        launches, _, syncs = step_dispatch.delta(
+            before, step_dispatch.thread_snapshot())
+        deltas.append((launches, syncs))
+        return out
+
+    engine.model.decode_step = audited
+    return deltas
+
+
+def window_stats(results, wall):
+    tokens = sum(len(r.tokens) for r in results)
+    return {"tokens_per_s": tokens / wall, "wall_s": wall,
+            "ttft_us_p50": pct([r.ttft_us for r in results], 50)}
+
+
+def mesh_windows(dev, windows, mesh):
+    """Each (name, requests) window through a fresh engine in turn, the
+    single-device engine first: tokens and stats of each; with ``mesh``
+    the flash launches of each window (counts reset just before its
+    requests, read just after) and every decode step's audit."""
+    engine = build_mesh_engine(dev) if mesh else build_engine(dev, "auto")
+    deltas = audit_steps(engine) if mesh else None
+    out = {}
+    try:
+        serve(engine, [(16, 2)])  # warm-up, uncounted
+        for name, requests in windows:
+            pallas_ops.launches.reset()
+            results, wall = serve(engine, requests)
+            engine.kv.store.fence()
+            row = window_stats(results, wall)
+            row["tokens"] = [r.tokens for r in results]
+            row["flash_launches"] = pallas_ops.launches["flash_attention"]
+            out[name] = row
+        snap = engine.snapshot()
+    finally:
+        engine.stop()
+    out["snapshot"] = snap
+    out["step_audit"] = deltas
+    engine.kv.assert_idle(f"after the {'mesh' if mesh else 'single'} "
+                          f"windows")
+    engine.model.close()
+    engine.kv.close()
+    return out
+
+
+def run_mesh_defaults(dev, cold):
+    """The mesh engine at the reference's defaults (prefix cache on,
+    spec_k=4) on the corpus schedule twice: warm tokens equal cold."""
+    engine = build_mesh_engine(dev, prefix_cache=None, spec_k=SPEC_K)
+    try:
+        warm = []
+        for _ in range(2):
+            warm += [r.tokens for r in serve(engine, CORPUS_SCHEDULE)[0]]
+        snap = engine.snapshot()
+    finally:
+        engine.stop()
+    engine.kv.assert_idle("after the mesh engine at the defaults")
+    engine.model.close()
+    engine.kv.close()
+    if warm != cold + cold:
+        raise AssertionError(f"mesh defaults: warm tokens {warm} != cold "
+                             f"{cold + cold}")
+    if not snap["prefix"]["hit_seqs"]:
+        raise AssertionError("mesh defaults: no prefix hit on the second "
+                             "pass")
+    return {"hit_seqs": snap["prefix"]["hit_seqs"],
+            "accepted": snap["spec"]["accepted"],
+            "steps": snap["steps"]}
+
+
+def run_mesh_long(dev, ring_tokens):
+    """One MESH_LONG_PROMPT-token prompt through the ring over the mesh's
+    sp axis (2 positions): its tokens equal the one-position ring's on
+    the card (phase 4e); the serving kernel is not launched."""
+    engine = build_mesh_engine(dev, max_context=8192, num_blocks=512,
+                               token_budget=8192)
+    try:
+        pallas_ops.launches.reset()
+        t0 = time.perf_counter()
+        res = serve(engine, [(MESH_LONG_PROMPT, LONG_NEW)])[0][0]
+        wall = time.perf_counter() - t0
+        launches = pallas_ops.launches["flash_attention"]
+    finally:
+        engine.stop()
+    engine.kv.assert_idle("after the mesh ring prompt")
+    engine.model.close()
+    engine.kv.close()
+    if res.tokens != ring_tokens or launches:
+        raise AssertionError(f"mesh ring: tokens {res.tokens} vs the "
+                             f"one-position ring's {ring_tokens}, flash "
+                             f"launches {launches}")
+    return {"prompt": MESH_LONG_PROMPT, "tokens": res.tokens,
+            "request_ms": wall * 1e3, "ttft_us": res.ttft_us}
+
+
+def run_mesh_ring(dev):
+    """ring_attention's mesh form with use_flash at dp2 sp2 tp2 on
+    bench_ring_path's shape (B 4, S 2048, H 8, D 128, causal, bf16,
+    blocks 512): each of the 4 (batch, head) slices runs a 2-position
+    ring. The counts are reset just before one forward and backward and
+    read just after (3 live hops a slice: 12 of each kernel); out and
+    grads held against the plain lane of the same mesh form."""
+    m = card_mesh(dev, RING_MESH_AXES)
+    gen = torch.Generator().manual_seed(17)
+    shape = (RING_B, RING_S, RING_H, RING_D)
+    q, k, v, g = (randn(gen, shape, torch.bfloat16, dev) for _ in range(4))
+
+    def fwd_bwd(use_flash):
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = ring.ring_attention(*ins, m, "sp", causal=True,
+                                  batch_axis="dp", head_axis="tp",
+                                  use_flash=use_flash, block_q=RING_BLOCK,
+                                  block_k=RING_BLOCK)
+        return out.detach(), torch.autograd.grad(out, ins, g)
+
+    torch.cuda.synchronize()
+    pallas_ops.launches.reset()
+    out, grads = fwd_bwd(True)
+    torch.cuda.synchronize()
+    counts = pallas_ops.launches.snapshot()
+    sp = RING_MESH_AXES["sp"]
+    slices = RING_MESH_AXES["dp"] * RING_MESH_AXES["tp"]
+    hops = slices * sp * (sp + 1) // 2
+    expect_launches(counts, {"flash_carry": hops, "flash_bwd_dq": hops,
+                             "flash_bwd_dkv": hops}, "mesh ring")
+    worst = new_worst()
+    p_out, p_grads = fwd_bwd(False)
+    held("mesh ring bf16 out vs plain", out, p_out, torch.bfloat16, worst)
+    for name, a, c in zip("qkv", grads, p_grads):
+        held(f"mesh ring bf16 d{name}", a, c, torch.bfloat16, worst,
+             rows=False)
+    del p_out, p_grads
+    return {"axes": RING_MESH_AXES, "launches": counts,
+            "fwd_bwd_ms": time_ms(lambda: fwd_bwd(True), 5),
+            **readings(worst)}
+
+
+def run_mesh(dev, smi, n_layers, long_prompt):
+    """Phase 4g: mesh-sharded serving on the card. The collectives over 8
+    positions; kernel #1 on tp head slices, bit for bit the all-heads
+    launch; the MeshTransformer (dp2 x sp2 x tp2 laid on the card,
+    llm_server widths, ShardedKVCache 256 x 16 per shard, armed) on
+    PROMPT_LENS and the corpus schedule twice, the prefix cache off,
+    beside the single-device engine on the same requests: tokens equal,
+    flash launches tp x layers x prefills, both shards serving, every
+    decode step (1, 1), the pools idle. Then the mesh engine at the
+    reference's defaults (warm = cold), a 4096-token prompt through the
+    ring over sp 2 (tokens = the one-position ring's), and the ring's
+    mesh form with its flash lane."""
+    tp = MESH_AXES["tp"]
+    coll = check_collectives(dev)
+    slices = check_head_slices(dev, tp)
+    windows = [("prompt_lens", list(zip(PROMPT_LENS, MAX_NEW))),
+               ("corpus_1", CORPUS_SCHEDULE), ("corpus_2", CORPUS_SCHEDULE)]
+    single = mesh_windows(dev, windows, mesh=False)
+    meshed = mesh_windows(dev, windows, mesh=True)
+    row = {"card": smi, "axes": MESH_AXES, "collectives": coll,
+           "head_slices": slices}
+    for name, requests in windows:
+        want = tp * n_layers * len(requests)
+        if meshed[name]["tokens"] != single[name]["tokens"]:
+            raise AssertionError(f"mesh {name}: tokens "
+                                 f"{meshed[name]['tokens']} != single "
+                                 f"device {single[name]['tokens']}")
+        got = meshed[name]["flash_launches"]
+        if got != want:
+            raise AssertionError(f"mesh {name}: {got} flash launches, "
+                                 f"want {want}")
+        row[name] = {
+            "flash_launches": got,
+            "single_flash_launches": single[name]["flash_launches"],
+            **{f"mesh_{k}": meshed[name][k] for k in
+               ("tokens_per_s", "ttft_us_p50", "wall_s")},
+            **{f"single_{k}": single[name][k] for k in
+               ("tokens_per_s", "ttft_us_p50", "wall_s")}}
+    snap = meshed["snapshot"]
+    steps = snap["shard_steps"]
+    if sorted(steps) != [0, 1] or not all(s["seq_steps"] for s in
+                                          steps.values()):
+        raise AssertionError(f"mesh: both shards must serve: {steps}")
+    audit = meshed["step_audit"]
+    if not audit or any(d != (1, 1) for d in audit):
+        raise AssertionError(f"mesh decode steps not (1, 1): {audit}")
+    row.update(shard_steps=steps, decode_steps_audited=len(audit))
+    row["defaults"] = run_mesh_defaults(
+        dev, meshed["corpus_1"]["tokens"])
+    row["long"] = run_mesh_long(dev, long_prompt["tokens"][0])
+    row["ring"] = run_mesh_ring(dev)
+    print(json.dumps({"mesh": row}), flush=True)
+    return row
 
 
 def no_protobuf_or_jax(where):
@@ -3256,7 +3582,9 @@ def main():
     disagg = run_disagg(dev, smi, n_layers)
     long_prompt = run_long_prompt(dev, smi, n_layers)
     example_launches = run_examples(smi)
-    no_protobuf_or_jax("after the disaggregated and long-prompt paths")
+    mesh = run_mesh(dev, smi, n_layers, long_prompt)
+    no_protobuf_or_jax("after the disaggregated, long-prompt and mesh "
+                       "paths")
 
     profile = profile_engine(dev)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -3291,6 +3619,9 @@ def main():
         "launches_prefix_spec_rpc": prefix_spec["rpc"]["flash_launches"],
         "launches_disagg": disagg["flash_launches"],
         "launches_long_prompt": long_prompt["flash_launches"],
+        "launches_mesh": mesh["prompt_lens"]["flash_launches"],
+        "launches_mesh_corpus": [mesh["corpus_1"]["flash_launches"],
+                                 mesh["corpus_2"]["flash_launches"]],
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3306,6 +3637,8 @@ def main():
     for e in kernels:
         if e["name"] in example_launches:
             e["launches_examples"] = example_launches[e["name"]]
+        if e["name"] in ("flash_carry", "flash_bwd_dq", "flash_bwd_dkv"):
+            e["launches_mesh_ring"] = mesh["ring"]["launches"][e["name"]]
     no_protobuf_or_jax("at the end")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

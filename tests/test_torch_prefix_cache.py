@@ -19,9 +19,10 @@ float32 with plain attention on the CPU). Requests are submitted under
 the engine's lock, so both engines admit them in one step and their
 prefix counters are comparable exactly.
 
-Left out, for ROADMAP Queue 1: the sharded cases (the route-agreement
-and sharded-fork tests and the sharded half of the factory test, item
-7) and the ``/serving`` builtin's prefix section (item 2(b)5).
+The sharded-fork test and the sharded half of the factory test are in
+``tests/test_torch_mesh_serving.py``. Left out, for ROADMAP Queue 1: the
+route-agreement test (the client router, item 2(b)8) and the
+``/serving`` builtin's prefix section (item 2(b)5).
 """
 
 import threading
@@ -562,15 +563,6 @@ def test_stub_models_get_no_prefix_cache():
 
 def test_build_prefix_cache_over_a_single_pool():
     assert isinstance(build_prefix_cache(_kv("port")), PrefixCache)
-
-
-def test_build_prefix_cache_refuses_a_sharded_pool():
-    """The sharded half of the reference's factory waits for the port's
-    sharded KV cache: anything but a single pool is refused by name."""
-    sharded = types.SimpleNamespace(pools=[_kv("port"), _kv("port")],
-                                    n_shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_prefix_cache(sharded)
 
 
 def test_thrash_watch_rule_installed_with_reloadable_bound():

@@ -235,7 +235,7 @@ _UNPORTED_FLAGS = (
     "health_check_interval_s", "tpu_shard_rebalance_pct",
     "tpu_shard_respawn_backoff_ms", "tpu_shard_respawn_max",
     "tpu_shard_ring_mb", "tpu_shard_forward_max", "shard_vars_interval_s",
-    "serving_shard_skew_ratio", "serving_qos_starvation_ms")
+    "serving_qos_starvation_ms")
 
 
 @pytest.mark.parametrize("name", _UNPORTED_FLAGS)
@@ -284,6 +284,12 @@ def test_flags_of_kv_migration_match_the_reference(name):
     _flag_matches_the_reference(name)
 
 
+# The shard-skew bound came with the sharded KV cache and its watch rule.
+@pytest.mark.parametrize("name", ["serving_shard_skew_ratio"])
+def test_flags_of_sharded_serving_match_the_reference(name):
+    _flag_matches_the_reference(name)
+
+
 def _flag_matches_the_reference(name):
     import brpc_tpu.flags as jax_flags
 
@@ -321,6 +327,7 @@ def test_default_watch_rules_read_exported_variables():
         assert [r.name for r in rules] == ["deadline_expiry_rate",
                                            "serving_migrate_backlog",
                                            "serving_prefix_thrash",
+                                           "serving_shard_skew",
                                            "serving_spec_collapse"]
         for r in rules:
             assert variable.get_exposed(r.var) is not None, r.var

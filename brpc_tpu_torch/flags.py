@@ -147,6 +147,9 @@ def _non_negative(v) -> bool:
     return v >= 0
 
 
+health_check_interval_s = define(
+    "health_check_interval_s", 3.0,
+    "seconds between re-probes of a failed server", validator=_positive)
 circuit_breaker_enabled = define(
     "circuit_breaker_enabled", True,
     "isolate error-rate outlier nodes", reloadable=True)

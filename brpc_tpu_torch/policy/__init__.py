@@ -1,4 +1,4 @@
-"""policy — pluggable protocols and limiters.
+"""policy — pluggable protocols, limiters, load balancers and naming.
 
 Counterpart of the reference's ``src/brpc/policy`` + the registration moment
 ``GlobalInitializeOrDie`` (global.cpp:370-626): ``ensure_registered()`` is
@@ -8,7 +8,9 @@ The port registers trpc_std, trpc_stream and the TPUC control protocol
 of the ``tpu://`` tunnel (``tpu/transport.py``), and has no C++ core to
 install (crc32c runs in Python, as the reference's fallback does). HTTP,
 h2, gRPC, redis, mongo, rtmp, thrift, memcache and nshead wait in ROADMAP
-Queue 1 item 2(b).
+Queue 1 item 2(b). The load balancers (``load_balancers.py``), naming
+services (``naming.py``) and the cluster-recover policy
+(``cluster_recover.py``) are looked up by name and need no registration.
 """
 
 from __future__ import annotations

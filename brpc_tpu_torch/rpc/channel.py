@@ -1,19 +1,23 @@
 """Channel — the client stub (reference channel.cpp:293,379,433).
 
 ``init`` accepts a single endpoint ("host:port", "unix:...",
-"tpu://host/n", "tpu://host:port/n").
+"tpu://host/n", "tpu://host:port/n") or a naming-service url + load
+balancer name ("list://a:1,b:2", "rr"; ``policy/naming.py``,
+``policy/load_balancers.py``).
 ``call_method`` drives the full client call stack of SURVEY §3.1: controller
-setup -> call-id creation -> timers -> serialize -> issue (select, pack,
-wait-free write) -> sync join or async done.
+setup -> call-id creation -> timers -> serialize -> issue (LB select, pack,
+wait-free write) -> sync join or async done. With a load balancer each
+attempt selects a server, a failed attempt retries on the next pick, the
+call's latency and error feed the balancer back, and a cluster-recover
+policy sheds calls (EREJECT) while the cluster comes back.
 
 The port's copy of the JAX package's ``rpc/channel.py`` on its pure-Python
 branch: every call takes the full Controller pipeline (the reference's
 ``native_transport`` fast lane needs its C++ core). A ``tpu://host/n``
 target runs the call in process on card n (``tpu/tpusocket.py``); a
 ``tpu://host:port/n`` target dials the cross-process tunnel
-(``tpu/transport.py``). What is not ported yet raises and names its
-ROADMAP item (Queue 1 item 2(b)): naming services with load balancers, and
-``native_transport``.
+(``tpu/transport.py``). ``native_transport`` is not ported and raises,
+naming its ROADMAP item (Queue 1 item 2(b)).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from brpc_tpu_torch.fiber import call_id as _cid
 from brpc_tpu_torch.metrics.latency_recorder import LatencyRecorder
 from brpc_tpu_torch.policy import compress as _compress
 from brpc_tpu_torch.proto._message import get_message_class
+from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.controller import Controller
 from brpc_tpu_torch.rpc.protocol import find_protocol
 from brpc_tpu_torch.rpc.socket_map import global_socket_map
@@ -84,30 +89,47 @@ class Channel:
         self.options = options or ChannelOptions()
         self._protocol = None
         self._remote: Optional[EndPoint] = None
+        self._lb = None
+        self._ns_thread = None
         self._socket_map = None
         self._init_done = False
         self.latency_recorder = LatencyRecorder()
 
     # ------------------------------------------------------------------ init
     def init(self, target: str, lb_name: Optional[str] = None) -> "Channel":
+        self._setup()
+        if lb_name:
+            from brpc_tpu_torch.policy.load_balancers import (
+                create_load_balancer)
+            from brpc_tpu_torch.policy.naming import start_naming_service
+
+            self._lb = create_load_balancer(lb_name)
+            self._ns_thread = start_naming_service(target, self._lb)
+        else:
+            self._remote = EndPoint.parse(target)
+        self._init_done = True
+        return self
+
+    def init_with_lb(self, lb) -> "Channel":
+        """Init over an externally-managed load balancer (PartitionChannel
+        feeds per-partition LBs from one naming watcher)."""
+        self._setup()
+        self._lb = lb
+        self._init_done = True
+        return self
+
+    def _setup(self) -> None:
         from brpc_tpu_torch.policy import ensure_registered
 
         ensure_registered()
         self._protocol = find_protocol(self.options.protocol)
         if self._protocol is None:
             raise ValueError(f"unknown protocol {self.options.protocol!r}")
-        if lb_name:
-            raise NotImplementedError(
-                "naming services and load balancers are not ported "
-                "(ROADMAP Queue 1 item 2(b))")
         if self.options.native_transport:
             raise NotImplementedError(
                 "native_transport: the C++ core is not ported (ROADMAP "
                 "Queue 1 item 2(b))")
-        self._remote = EndPoint.parse(target)
         self._socket_map = global_socket_map()
-        self._init_done = True
-        return self
 
     # ------------------------------------------------------------ call stack
     def call_method(self, method: MethodDescriptor, request,
@@ -144,7 +166,21 @@ class Channel:
 
     # ------------------------------------------------------------- internals
     def _select_socket(self, cntl: Controller):
-        ep = self._remote
+        if self._lb is not None:
+            recover = self._lb.recover_policy
+            ep = self._lb.select_server(cntl)
+            if ep is None:
+                if recover is not None:
+                    # total cluster loss: arm de-thundered recovery
+                    # (reference cluster_recover_policy.cpp StartRecover)
+                    recover.start_recover()
+                raise ConnectionError("no available server")
+            if recover is not None and recover.recovering and \
+                    recover.do_reject(self._lb.usable_count()):
+                raise errors.SelectError(
+                    errors.EREJECT, "request shed during cluster recovery")
+        else:
+            ep = self._remote
         # connection type: streaming binds single-style (the stream owns
         # its conn); everything else honors options.connection_type
         ctype = self.options.connection_type
@@ -206,6 +242,9 @@ class Channel:
 
     def _on_rpc_end(self, cntl: Controller) -> None:
         self.latency_recorder.record(cntl.latency_us)
+        if self._lb is not None and cntl._current_socket is not None:
+            self._lb.feedback(cntl._current_socket.remote,
+                              cntl.error_code, cntl.latency_us)
 
 class RawMessage:
     """Pre-serialized payload that rides the normal call stack — what

@@ -1,10 +1,11 @@
 """CircuitBreaker — per-node EMA error isolation (reference
-circuit_breaker.h:30-60).
+circuit_breaker.h:30-60 + cluster_recover_policy.cpp).
 
 Two EMA windows (long + short) over call outcomes; tripping isolates the
 node for an exponentially-growing duration (repeat offenders stay out
-longer), and a half-open probe ends isolation. The tunnel's healer
-(``tpu/transport.py``) is its one user here.
+longer), and a half-open probe ends isolation. The ClusterRecoverGuard
+de-thunders mass recovery: when most of a cluster is isolated, un-parking is
+rationed instead of simultaneous.
 """
 
 from __future__ import annotations
@@ -75,3 +76,34 @@ class CircuitBreaker:
     def isolated(self) -> bool:
         with self._lock:
             return self._is_isolated_locked()
+
+    def reset(self) -> None:
+        """Health check succeeded: full pardon."""
+        with self._lock:
+            self._long_ema = 0.0
+            self._short_ema = 0.0
+            self._samples = 0
+            self._fail_streak = 0
+            self._isolated_until = 0.0
+            self._isolation_s = self.base_isolation_s
+
+
+class ClusterRecoverGuard:
+    """When >=`threshold` of nodes are isolated, ration recovery: allow one
+    node back per `interval_s` instead of a thundering herd."""
+
+    def __init__(self, threshold: float = 0.5, interval_s: float = 0.5):
+        self.threshold = threshold
+        self.interval_s = interval_s
+        self._lock = threading.Lock()
+        self._last_recover = 0.0
+
+    def may_recover(self, isolated_count: int, total: int) -> bool:
+        if total == 0 or isolated_count / total < self.threshold:
+            return True
+        with self._lock:
+            now = time.monotonic()
+            if now - self._last_recover >= self.interval_s:
+                self._last_recover = now
+                return True
+            return False

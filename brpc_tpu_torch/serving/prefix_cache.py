@@ -36,8 +36,8 @@ shard's ledger. Placement is prefix-hash routed: ``prefix_route_key``
 folds the first block of token ids, and the shard plane's ``shard_for``
 maps it to a shard, so same-prefix traffic lands on the shard that holds
 the chain. The client-side half of that routing (the reference's
-``GenerateRouter`` over a ``PartitionChannel``) waits for ROADMAP Queue 1
-item 2(b)8.
+``GenerateRouter`` over a ``PartitionChannel``) waits for the serving
+router, ROADMAP Queue 1 item 7(c).
 """
 
 from __future__ import annotations

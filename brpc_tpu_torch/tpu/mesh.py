@@ -45,13 +45,15 @@ _lock = threading.Lock()
 _default_mesh = None
 
 
-def use_cpu(count: int = 1) -> None:
+def use_cpu(count: int = 1) -> int:
     """Resolve the ordinals ``0 .. count - 1`` to the CPU from now on, in
-    this process (``count`` 0 goes back to the cards)."""
+    this process (``count`` 0 goes back to the cards). Returns the count
+    it replaces, for a caller that restores it."""
     global _cpu_devices
     if count < 0:
         raise ValueError(f"use_cpu: count {count} < 0")
-    _cpu_devices = int(count)
+    prev, _cpu_devices = _cpu_devices, int(count)
+    return prev
 
 
 def devices() -> List[torch.device]:

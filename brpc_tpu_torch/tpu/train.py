@@ -1,9 +1,9 @@
-"""The flagship transformer LM's single-device training step, in PyTorch.
+"""The flagship transformer LM's training step, in PyTorch.
 
-The port of ``brpc_tpu/tpu/train.py`` on one device: the same model
-(pre-norm blocks of causal multi-head attention and a GELU MLP), the
-same parameter names and shapes, the same loss and the same
-SGD step. With ``use_flash_attention`` (the default) attention is
+The port of ``brpc_tpu/tpu/train.py``: the same model (pre-norm blocks
+of causal multi-head attention and a GELU MLP), the same parameter names
+and shapes, the same loss and the same SGD step, on one device or over a
+dp x sp x tp mesh. With ``use_flash_attention`` (the default) attention is
 :func:`~brpc_tpu_torch.tpu.pallas_ops.flash_attention_mha`, whose forward
 and backward are CUDA kernels on the card; with ``use_pallas_norm`` every
 norm is :func:`~brpc_tpu_torch.tpu.pallas_ops.rmsnorm`; with
@@ -12,13 +12,31 @@ norm is :func:`~brpc_tpu_torch.tpu.pallas_ops.rmsnorm`; with
 CUDA kernel on the card. The QKV, output, MLP and head products stay
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
-Not ported yet, and refused with ``NotImplementedError``: a mesh (the
-sharded step with ring attention).
+**The sharded step.** With a mesh (``tpu/mesh.py``: axes dp, sp, tp),
+attention is the ring over sp in its mesh form,
+``ring.ring_attention(q, k, v, mesh, "sp", batch_axis="dp",
+head_axis="tp", use_flash=use_flash_attention)``: B splits over dp, H
+over tp, and each (dp, tp) slice runs its own ring of sp positions, whose
+hops are the carry kernel forward and the dQ and dK/dV kernels backward
+on the card. The loss is the plain log-softmax (the JAX step takes the
+fused loss only without a mesh). Everything else computes on whole
+arrays. In the JAX step the rest of the program is placed, not split:
+``with_sharding_constraint`` lays activations over (dp, sp) and the
+parameters over tp (:func:`param_shardings`), and GSPMD inserts the dp
+gradient sums and the tp sums of the row-parallel products. The port's
+mesh is single-controller (every position replayed by one process on one
+device), so placement has no observable effect: the forward places
+nothing, and :func:`param_shardings` and ``make_train_step``'s batch
+shardings are records of the JAX step's layout. Explicit tp
+partial products and dp gradient all-reduces through
+``tpu/collective.py`` belong to a mesh over several cards, where
+placement differs (ROADMAP Queue 1 item 7(d)).
 
 Entry points: :class:`TrainLM` (``forward``), :func:`loss_fn`,
-:func:`value_and_grad`, :func:`sgd_train_step` and :func:`demo_batch`;
-:func:`params_from_jax` and :meth:`TrainLM.load_params` carry the JAX
-package's parameters across.
+:func:`value_and_grad`, :func:`sgd_train_step`, :func:`make_train_step`,
+:func:`param_shardings` and :func:`demo_batch`; :func:`params_from_jax`
+and :meth:`TrainLM.load_params` carry the JAX package's parameters
+across.
 """
 
 from __future__ import annotations
@@ -31,12 +49,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from brpc_tpu_torch.tpu import pallas_ops
+from brpc_tpu_torch.tpu import pallas_ops, ring
 from brpc_tpu_torch.tpu.device_lane import resolve_device
-
-_MESH_SLICE = ("a mesh (the sharded train step with ring attention) is not "
-               "ported yet: it comes with the port's mesh and sharded "
-               "training (ROADMAP.md Queue 1 item 7(d))")
+from brpc_tpu_torch.tpu.mesh import Mesh, named_sharding
 
 
 @dataclass(frozen=True)
@@ -127,11 +142,14 @@ class TrainLM(nn.Module):
             return pallas_ops.rmsnorm(x, w)
         return pallas_ops.rmsnorm_reference(x, w)
 
-    def forward(self, tokens, mesh=None, causal: bool = True):
-        """tokens [B, S] -> logits [B, S, V]."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_SLICE)
+    def forward(self, tokens, mesh: Mesh = None, causal: bool = True):
+        """tokens [B, S] -> logits [B, S, V]. With a mesh, attention is
+        ring attention over sp, B split over dp and H over tp."""
         cfg = self.config
+        if mesh is not None and \
+                resolve_device(mesh.device) != self.embed.device:
+            raise ValueError(f"mesh on {mesh.device}, parameters on "
+                             f"{self.embed.device}")
         B, S = tokens.shape
         H, Dh = cfg.n_heads, cfg.head_dim
         x = self.embed[tokens].to(cfg.dtype)                  # [B,S,D]
@@ -139,7 +157,12 @@ class TrainLM(nn.Module):
             h = self._norm(x, layer.ln1)
             qkv = (h @ layer.wqkv).reshape(B, S, 3, H, Dh)    # [B,S,3D]
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            if cfg.use_flash_attention:
+            if mesh is not None:
+                att = ring.ring_attention(
+                    q, k, v, mesh, axis="sp", causal=causal,
+                    batch_axis="dp", head_axis="tp",
+                    use_flash=cfg.use_flash_attention)
+            elif cfg.use_flash_attention:
                 # [B,S,H,Dh] -> [B,H,S,Dh] for the per-head kernel
                 att = pallas_ops.flash_attention_mha(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -152,9 +175,30 @@ class TrainLM(nn.Module):
         return self._norm(x, self.ln_f) @ self.head
 
 
-def loss_fn(model: TrainLM, batch, mesh=None):
-    """Mean next-token cross-entropy in fp32; with ``use_fused_xent`` the
-    fused kernel over the [B*S, V] logits."""
+def param_shardings(cfg: ModelConfig, mesh: Mesh) -> dict:
+    """tp shards model width; everything is replicated over dp/sp. The
+    records of the JAX step's layout, in the parameters' tree."""
+    def ns(*spec):
+        return named_sharding(mesh, *spec)
+
+    layer = {
+        "ln1": ns(), "ln2": ns(),
+        "wqkv": ns(None, "tp"),   # column-parallel: heads split over tp
+        "wo": ns("tp", None),     # row-parallel: a tp sum after the product
+        "w1": ns(None, "tp"),
+        "w2": ns("tp", None),
+    }
+    return {
+        "embed": ns(None, "tp"),
+        "head": ns(None, "tp"),
+        "ln_f": ns(),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+    }
+
+
+def loss_fn(model: TrainLM, batch, mesh: Mesh = None):
+    """Mean next-token cross-entropy in fp32; with ``use_fused_xent`` and
+    no mesh the fused kernel over the [B*S, V] logits."""
     tokens, targets = batch
     logits = model(tokens, mesh).float()
     if model.config.use_fused_xent and mesh is None:
@@ -165,7 +209,7 @@ def loss_fn(model: TrainLM, batch, mesh=None):
     return -torch.gather(logp, -1, targets[..., None]).mean()
 
 
-def value_and_grad(model: TrainLM, batch, mesh=None):
+def value_and_grad(model: TrainLM, batch, mesh: Mesh = None):
     """(loss, grads in the structure of ``model.params_tree()``)."""
     tree = model.params_tree()
     loss = loss_fn(model, batch, mesh)
@@ -173,7 +217,8 @@ def value_and_grad(model: TrainLM, batch, mesh=None):
     return loss.detach(), _map_tree(lambda _: next(grads), tree)
 
 
-def sgd_train_step(model: TrainLM, batch, lr: float = 1e-3, mesh=None):
+def sgd_train_step(model: TrainLM, batch, lr: float = 1e-3,
+                   mesh: Mesh = None):
     """One full training step (forward, backward, update); returns the
     loss. Unlike the JAX step, which returns new parameters, this one
     updates the model's parameters in place, each as ``p - lr * g`` in
@@ -183,6 +228,24 @@ def sgd_train_step(model: TrainLM, batch, lr: float = 1e-3, mesh=None):
         for p, g in zip(_leaves(model.params_tree()), _leaves(grads)):
             p.copy_(p - lr * g.to(p.dtype))
     return loss
+
+
+def make_train_step(cfg: ModelConfig, mesh: Mesh, lr: float = 1e-3):
+    """(step, pshard, batch_shard): ``step(model, batch)`` is one sharded
+    :func:`sgd_train_step` over ``mesh``, updating the model in place and
+    returning the loss; ``pshard`` (:func:`param_shardings`) and
+    ``batch_shard`` (tokens and targets over (dp, sp)) record the JAX
+    step's layout."""
+    pshard = param_shardings(cfg, mesh)
+    batch_shard = (named_sharding(mesh, "dp", "sp"),
+                   named_sharding(mesh, "dp", "sp"))
+
+    def step(model: TrainLM, batch):
+        if model.config != cfg:
+            raise ValueError("the model's config is not the step's")
+        return sgd_train_step(model, batch, lr=lr, mesh=mesh)
+
+    return step, pshard, batch_shard
 
 
 def demo_batch(generator: torch.Generator, cfg: ModelConfig, batch: int,

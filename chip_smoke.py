@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then twelve paths:
+(nvcc, sm_90a, one process per source, all at once). Then fourteen paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -65,6 +65,13 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   4096-token prompt through the ring over sp 2 (tokens equal the
   one-position ring's); the ring's mesh form with its flash lane at
   ``bench_ring_path``'s shape, carry and backward launches counted.
+- The combo channels (phase 4h): a ``ParallelChannel`` of eight
+  ``tpu://localhost/0`` sub-channels (one ordinal: no mesh) takes the RPC
+  path, ``CollectiveService.Apply`` on cuda tensors, for gather and sum,
+  equal to numpy; one sub-channel lowers onto a mesh over the card,
+  equal to its RPC path; a ``Channel`` over the ``tpu://`` naming
+  service and the rr balancer echoes through the device EchoService;
+  the ported ``collective_fanout`` example runs as a fresh interpreter.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm kernel against their plain versions in fp32 and bf16 (in bf16
   all three attention kernels are the tensor-core kernels, held also at
@@ -77,7 +84,20 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   checks that the loss falls and that every step launched each kernel
   the expected number of times; one more, profiled step shows where the
   time goes and names its attention kernels (no FMA kernel for the bf16
-  forward, dQ or dK/dV). Then holds the fused cross-entropy kernel
+  forward, dQ or dK/dV).
+- The sharded flagship (phase 10b): one fp32 ``value_and_grad`` of the
+  sharded step over dp2 x sp2 x tp2 laid on the card, every kernel on,
+  against the single-device step with every kernel off, at phase 9's
+  shape and tolerances; then the flagship as it ships through
+  ``train.make_train_step`` over the same mesh: first one bf16
+  ``value_and_grad`` at the main path's shapes against the fp32 plain
+  step (each gradient block's error within BF16_ERR_RATIO times the
+  plain bf16 step's), then phase 10's steps: losses falling and within
+  rtol 1e-4 of phase 10's, each step's carry, dQ, dK/dV and RMSNorm
+  launches as dp x tp rings of sp (sp + 1) / 2 live hops a layer imply,
+  ms/step, tokens/s and peak memory beside phase 10's, one profiled step
+  whose attention ran tensor-core kernels only.
+- Back on one device: holds the fused cross-entropy kernel
   against its plain version row by row, and runs the flagship's
   ``graft_entry.entry()`` once in bf16 (its forward only: 4/0/0
   forward/dQ/dK-dV launches).
@@ -1754,6 +1774,104 @@ def run_mesh(dev, smi, n_layers, long_prompt):
     return row
 
 
+# ------------------------------------------- phase 4h: the combo channels
+COMBO_SUBS = 8
+COMBO_TIMED = 5              # timed calls after the first, cold one
+
+
+def wall_ms(fn):
+    """(result, the first call's wall ms, the median wall ms of
+    COMBO_TIMED calls after it): the first call pays the set-up (threads,
+    in-process sockets, the device method's registration)."""
+    t0 = time.perf_counter()
+    out = fn()
+    cold = (time.perf_counter() - t0) * 1e3
+    warm = []
+    for _ in range(COMBO_TIMED):
+        t0 = time.perf_counter()
+        fn()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    return out, cold, sorted(warm)[COMBO_TIMED // 2]
+
+
+def combo_scheme(merge):
+    from brpc_tpu_torch.rpc.combo_channels import CollectiveScheme
+    return CollectiveScheme(f"smoke.affine.{merge}",
+                            fn=lambda s: s * 2.0 + 1.0, merge=merge)
+
+
+def parallel_channel(targets):
+    from brpc_tpu_torch.rpc.combo_channels import ParallelChannel
+    pc = ParallelChannel()
+    for target in targets:
+        pc.add_channel(rpc.Channel().init(target))
+    return pc
+
+
+def run_combo(dev, smi):
+    """Phase 4h: the combo channels on the card. A ParallelChannel of
+    eight ``tpu://localhost/0`` sub-channels (one ordinal eight times: no
+    mesh) takes the RPC path, one ``CollectiveService.Apply`` per
+    sub-channel running the fn on a cuda tensor, for gather and sum,
+    equal to numpy; one sub-channel lowers onto a mesh over the card
+    (a cuda tensor back), equal to its RPC path; a Channel over the
+    ``tpu://`` naming service with the rr balancer echoes through the
+    device EchoService (copy launches counted); the ported example runs
+    as a fresh interpreter on the card. Each path's wall time is its
+    first call's and the median of COMBO_TIMED calls after it."""
+    x = np.random.default_rng(5).normal(
+        size=(4 * COMBO_SUBS, 8)).astype(np.float32)
+    y = x * 2.0 + 1.0
+    row = {"card": smi, "subs": COMBO_SUBS, "shape": list(x.shape)}
+    for merge in ("gather", "sum"):
+        scheme = combo_scheme(merge)
+        pc = parallel_channel(["tpu://localhost/0"] * COMBO_SUBS)
+        if pc.device_mesh(scheme.axis_name) is not None:
+            raise AssertionError("one ordinal eight times laid a mesh")
+        out, rpc_cold, rpc_ms = wall_ms(lambda: pc.call_tensor(x, scheme))
+        want = y if merge == "gather" else sum(np.split(y, COMBO_SUBS))
+        if not isinstance(out, np.ndarray):
+            raise AssertionError(f"{merge}: the RPC path returned "
+                                 f"{type(out)}")
+        np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-6)
+        one = parallel_channel(["tpu://localhost/0"])
+        mesh = one.device_mesh(scheme.axis_name)
+        if mesh is None or mesh.device != dev:
+            raise AssertionError(f"one card's sub-channel laid {mesh}")
+        low, low_cold, low_ms = wall_ms(lambda: one.call_tensor(x, scheme))
+        torch.cuda.synchronize()
+        if not isinstance(low, torch.Tensor) or low.device != dev:
+            raise AssertionError(f"{merge}: the lowering returned {low}")
+        one_rpc = one._call_tensor_rpc(x, scheme)
+        np.testing.assert_allclose(low.cpu().numpy(), one_rpc, rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(one_rpc, y, rtol=1e-6, atol=1e-6)
+        row[merge] = {"rpc_ms_median": rpc_ms, "rpc_ms_cold": rpc_cold,
+                      "lowered_ms_median": low_ms,
+                      "lowered_ms_cold": low_cold,
+                      "max_abs_err": float(np.abs(out - want).max())}
+    from brpc_tpu_torch.proto import echo_pb2
+    ch = rpc.Channel(rpc.ChannelOptions(timeout_ms=60000)).init(
+        "tpu://localhost", "rr")
+    stub = rpc.Stub(ch, echo_pb2.DESCRIPTOR.services_by_name["EchoService"])
+    payload = bytes(range(256)) * 16
+    pallas_ops.launches.reset()
+    for i in range(4):
+        resp = stub.Echo(echo_pb2.EchoRequest(message=f"lb{i}",
+                                              payload=payload))
+        if resp.payload != payload or resp.message != f"lb{i}":
+            raise AssertionError("the load-balanced echo came back wrong")
+    row["lb_echo_copy_launches"] = pallas_ops.launches.snapshot()["hbm_copy"]
+    if row["lb_echo_copy_launches"] != 4:
+        raise AssertionError(f"load-balanced echoes launched "
+                             f"{row['lb_echo_copy_launches']} copies")
+    out = run_example_client("collective_fanout.client", [])
+    if "mesh detected: True" not in out or "OK" not in out:
+        raise AssertionError(f"collective_fanout: {out}")
+    row["example"] = out.strip().splitlines()[:2]
+    print(json.dumps({"combo": row}), flush=True)
+
+
 def no_protobuf_or_jax(where):
     bad = sorted(m for m in sys.modules if m.split(".")[0] in
                  ("jax", "jaxlib", "brpc_tpu")
@@ -1959,6 +2077,9 @@ FLAGSHIP = dict(vocab=16384, d_model=1024, n_heads=8, d_ff=4096,
 TRAIN_B, TRAIN_S, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR = 8, 1024, 8, 5, 1e-2
 # fp32 kernels on vs off differ only in the order of the sums
 GRAD_REL_TOL = 1e-4
+# bf16 against fp32: the kernels' error at most this many times the plain
+# bf16 step's (phase 10b)
+BF16_ERR_RATIO = 3.0
 
 
 def row_rel_err(got, want):
@@ -2319,6 +2440,17 @@ def train_parity(dev):
                              "softmax_xent": 1}, "parity step")
     model.config = off
     loss_off, grads_off = train.value_and_grad(model, batch)
+    stats = dict(hold_step(loss_on, grads_on, loss_off, grads_off),
+                 launches=counts)
+    print(json.dumps({"train_parity": stats}), flush=True)
+    del model, grads_on, grads_off
+    torch.cuda.empty_cache()
+
+
+def hold_step(loss_on, grads_on, loss_off, grads_off):
+    """Holds one value_and_grad with kernels (on) against one without
+    (off): loss within rtol 1e-4, every gradient within 5e-4 + 5e-3 |off|
+    and its relative norm within GRAD_REL_TOL. Returns the readings."""
     worst, worst_rel = 0.0, 0.0
     if abs(float(loss_on) - float(loss_off)) > 1e-4 * abs(float(loss_off)):
         raise AssertionError(f"loss kernels on {float(loss_on)} vs off "
@@ -2333,12 +2465,9 @@ def train_parity(dev):
         if not rel <= GRAD_REL_TOL:
             raise AssertionError(f"gradient {tuple(a.shape)}: ||on - off||"
                                  f" / ||off|| {rel} > {GRAD_REL_TOL}")
-    stats = {"loss_on": float(loss_on), "loss_off": float(loss_off),
-             "grad_excess_over_rtol_max": worst,
-             "grad_rel_norm_max": worst_rel, "launches": counts}
-    print(json.dumps({"train_parity": stats}), flush=True)
-    del model, grads_on, grads_off
-    torch.cuda.empty_cache()
+    return {"loss_on": float(loss_on), "loss_off": float(loss_off),
+            "grad_excess_over_rtol_max": worst,
+            "grad_rel_norm_max": worst_rel}
 
 
 def run_trainer(dev, smi):
@@ -2402,6 +2531,191 @@ def run_trainer(dev, smi):
                           "attention_kernels": attention},
     }
     print(json.dumps({"trainer": stats}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+# ------------------------------------- phase 10b: the sharded flagship
+# the flagship's step over the serving mesh's dp2 x sp2 x tp2 laid on the
+# card (make_train_step): attention is the ring over sp in its mesh form,
+# each of dp x tp slices a ring of sp positions whose causal hops skip the
+# block wholly in a position's future: sp (sp + 1) / 2 live hops a ring
+def sharded_launches(n_layers, axes):
+    """Kernel launches of one sharded step (forward and backward)."""
+    rings = axes["dp"] * axes["tp"]
+    hops = axes["sp"] * (axes["sp"] + 1) // 2
+    attn = n_layers * rings * hops
+    return {"flash_carry": attn, "flash_bwd_dq": attn,
+            "flash_bwd_dkv": attn, "rmsnorm": 2 * n_layers + 1}
+
+
+def sharded_parity(dev):
+    """Phase 10b, parity: one value_and_grad of the sharded step over
+    dp2 x sp2 x tp2 laid on the card, every kernel on, against the
+    single-device step with every kernel off, on the same parameters and
+    batch, at phase 9's shape and tolerances (the flagship's widths at 2
+    layers, B 2, S 1024, fp32 with TF32 off). With a mesh the loss is the
+    plain log-softmax, as in the JAX step."""
+    on = train.ModelConfig(**FLAGSHIP, n_layers=2, use_flash_attention=True,
+                           use_pallas_norm=True, use_fused_xent=True)
+    off = dataclasses.replace(on, use_flash_attention=False,
+                              use_pallas_norm=False, use_fused_xent=False)
+    mesh = card_mesh(dev, MESH_AXES)
+    model = train.TrainLM(on, torch.Generator().manual_seed(0), device=dev)
+    batch = train.demo_batch(torch.Generator().manual_seed(1), on, 2, 1024,
+                             device=dev)
+    pallas_ops.launches.reset()
+    loss_on, grads_on = train.value_and_grad(model, batch, mesh)
+    counts = pallas_ops.launches.snapshot()
+    expect_launches(counts, sharded_launches(2, MESH_AXES),
+                    "sharded parity step")
+    model.config = off
+    loss_off, grads_off = train.value_and_grad(model, batch)
+    stats = dict(hold_step(loss_on, grads_on, loss_off, grads_off),
+                 mesh=MESH_AXES, launches=counts)
+    print(json.dumps({"sharded_parity": stats}), flush=True)
+    del model, grads_on, grads_off
+    torch.cuda.empty_cache()
+
+
+def grad_blocks(grads):
+    """{name: fp32 gradient} of a value_and_grad tree, each wqkv split into
+    its q, k and v columns (a wrong dQ shows in the q block, a wrong dK/dV
+    in the k and v blocks)."""
+    flat = {"embed": grads["embed"], "head": grads["head"],
+            "ln_f": grads["ln_f"]}
+    for i, layer in enumerate(grads["layers"]):
+        for key, g in layer.items():
+            if key == "wqkv":
+                for j, part in enumerate(g.float().chunk(3, dim=-1)):
+                    flat[f"layers.{i}.wqkv.{'qkv'[j]}"] = part
+            else:
+                flat[f"layers.{i}.{key}"] = g
+    return {k: g.float() for k, g in flat.items()}
+
+
+def rel_errors(grads, truth):
+    return {k: float((g - truth[k]).norm() / truth[k].norm())
+            for k, g in grads.items()}
+
+
+def hold_sharded_bf16(model, batch, mesh):
+    """Phase 10b, the main path held at its own shapes: one bf16
+    value_and_grad of the sharded step, whose kernels run at the timed
+    steps' shapes, and one of the plain single-device bf16 step (every
+    kernel off), each against the plain step in fp32 on the same
+    parameters, upcast (TF32 off). The sharded step's loss within rtol
+    1e-3 of the fp32 loss, and each gradient block's relative-norm error
+    (``grad_blocks``) at most BF16_ERR_RATIO times the plain bf16 step's,
+    a bound that a wrong hop of any kernel breaks."""
+    cfg = model.config
+    off = dataclasses.replace(cfg, use_flash_attention=False,
+                              use_pallas_norm=False, use_fused_xent=False)
+    loss_on, grads = train.value_and_grad(model, batch, mesh)
+    err_on = grad_blocks(grads)
+    model.config = off
+    loss_plain, grads = train.value_and_grad(model, batch)
+    model.config = cfg
+    err_plain = grad_blocks(grads)
+    ref = train.TrainLM(dataclasses.replace(off, dtype=torch.float32),
+                        torch.Generator().manual_seed(0),
+                        device=model.embed.device)
+    ref.load_params(model.params_tree())
+    loss_ref, grads = train.value_and_grad(ref, batch)
+    truth = grad_blocks(grads)
+    del ref, grads
+    err_on, err_plain = rel_errors(err_on, truth), rel_errors(err_plain,
+                                                              truth)
+    del truth
+    torch.cuda.empty_cache()
+    if not abs(float(loss_on) - float(loss_ref)) <= 1e-3 * float(loss_ref):
+        raise AssertionError(f"sharded bf16 loss {float(loss_on)} vs fp32 "
+                             f"{float(loss_ref)}")
+    ratio = {k: err_on[k] / err_plain[k] for k in err_on}
+    bad = {k: (err_on[k], err_plain[k]) for k in err_on
+           if not err_on[k] <= BF16_ERR_RATIO * err_plain[k]}
+    if bad:
+        raise AssertionError(f"sharded bf16 gradients (error, plain bf16 "
+                             f"error) against fp32 past {BF16_ERR_RATIO}x: "
+                             f"{bad}")
+    worst = max(ratio, key=ratio.get)
+    return {"loss_bf16": float(loss_on), "loss_plain_bf16": float(loss_plain),
+            "loss_fp32": float(loss_ref),
+            "grad_rel_err_max": max(err_on.values()),
+            "grad_rel_err_plain_bf16_max": max(err_plain.values()),
+            "worst_ratio": [worst, ratio[worst]], "blocks": len(ratio)}
+
+
+def run_sharded_trainer(dev, smi, single):
+    """Phase 10b, main path: the flagship as it ships (phase 10's model,
+    batch and step count, bf16) through ``train.make_train_step`` over
+    dp2 x sp2 x tp2 laid on the card. The counts are reset just before
+    the steps and read just after; losses finite and falling, each step's
+    launches as ``sharded_launches`` says; ms/step, tokens/s and peak
+    memory beside phase 10's single-device step (``single``) from this
+    call; then one profiled step. Before the steps the main path is held
+    at its shapes (``hold_sharded_bf16``); after them each loss is held
+    within rtol 1e-4 of phase 10's from the same parameters, batch and
+    lr, and the profiled step's attention ran tensor-core kernels only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = train.ModelConfig(**FLAGSHIP, n_layers=TRAIN_LAYERS,
+                            dtype=torch.bfloat16, use_flash_attention=True,
+                            use_pallas_norm=True, use_fused_xent=True)
+    mesh = card_mesh(dev, MESH_AXES)
+    model = train.TrainLM(cfg, torch.Generator().manual_seed(0), device=dev)
+    batch = train.demo_batch(torch.Generator().manual_seed(1), cfg, TRAIN_B,
+                             TRAIN_S, device=dev)
+    step, _, _ = train.make_train_step(cfg, mesh, lr=TRAIN_LR)
+    held_bf16 = hold_sharded_bf16(model, batch, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pallas_ops.launches.reset()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    counts = pallas_ops.launches.snapshot()
+    per_step = {name: counts[name] / TRAIN_STEPS for name in counts}
+    expect_launches(per_step, sharded_launches(TRAIN_LAYERS, MESH_AXES),
+                    "sharded launches per step")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"sharded losses {losses}: not finite or not "
+                             f"falling")
+    for mine, theirs in zip(losses, single["losses"]):
+        if not abs(mine - theirs) <= 1e-4 * abs(theirs):
+            raise AssertionError(f"sharded losses {losses} vs one device's "
+                                 f"{single['losses']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, busy, top = device_time(prof)
+    attention = attention_kernels(prof)
+    ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3  # median after 1st
+    stats = {
+        "card": smi, "mesh": MESH_AXES, "losses": losses, "step_s": step_s,
+        "held_bf16": held_bf16,
+        "ms_per_step_median": ms, "tokens_per_s": TRAIN_B * TRAIN_S / ms
+        * 1e3, "peak_mem_gib": peak, "launches": counts,
+        "launches_per_step": per_step,
+        "single_device": {k: single[k] for k in (
+            "ms_per_step_median", "tokens_per_s", "peak_mem_gib")},
+        "ms_ratio_to_single": ms / single["ms_per_step_median"],
+        "peak_mem_ratio_to_single": peak / single["peak_mem_gib"],
+        "profiled_step": {"wall_us": wall_us, "device_kernels": kernels,
+                          "device_busy_us": busy,
+                          "device_busy_share": busy / wall_us,
+                          "top_device_us": top,
+                          "attention_kernels": attention},
+    }
+    print(json.dumps({"sharded_trainer": stats}), flush=True)
     del model
     torch.cuda.empty_cache()
     return counts
@@ -3583,8 +3897,9 @@ def main():
     long_prompt = run_long_prompt(dev, smi, n_layers)
     example_launches = run_examples(smi)
     mesh = run_mesh(dev, smi, n_layers, long_prompt)
-    no_protobuf_or_jax("after the disaggregated, long-prompt and mesh "
-                       "paths")
+    run_combo(dev, smi)
+    no_protobuf_or_jax("after the disaggregated, long-prompt, mesh and "
+                       "combo-channel paths")
 
     profile = profile_engine(dev)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -3593,7 +3908,9 @@ def main():
     bwd = check_flash_bwd(dev)
     rms = check_rmsnorm(dev)
     train_parity(dev)
-    counts = run_trainer(dev, smi)
+    counts, single = run_trainer(dev, smi)
+    sharded_parity(dev)
+    sharded_counts = run_sharded_trainer(dev, smi, single)
     xent = check_xent(dev)
     run_graft_entry(dev)
     qgrid = check_qgrid(dev)
@@ -3639,6 +3956,11 @@ def main():
             e["launches_examples"] = example_launches[e["name"]]
         if e["name"] in ("flash_carry", "flash_bwd_dq", "flash_bwd_dkv"):
             e["launches_mesh_ring"] = mesh["ring"]["launches"][e["name"]]
+        if e["name"] in ("rmsnorm", "flash_carry", "flash_bwd_dq",
+                         "flash_bwd_dkv"):
+            e["launches_sharded_train"] = sharded_counts[e["name"]]
+            e["launches_sharded_train_per_step"] = (
+                sharded_counts[e["name"]] / TRAIN_STEPS)
     no_protobuf_or_jax("at the end")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

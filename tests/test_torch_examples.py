@@ -1,5 +1,6 @@
 """The port's copies of the examples of its lanes (brpc_tpu_torch/examples/
-{echo,streaming_echo,device_data,device_stream,tpu_transfer}), run as
+{echo,streaming_echo,device_data,device_stream,tpu_transfer,
+collective_fanout}), run as
 the JAX package's tests/test_examples.py runs the originals: server and
 client pairs as fresh interpreters on random ports, with the device
 examples on ``--device cpu``, their outputs held to the same strings.
@@ -155,6 +156,23 @@ def test_device_data():
     assert rc == 0, sout
     assert "foreign modules []" in sout
     assert _launches(sout)["hbm_copy"] == 0
+
+
+def test_collective_fanout():
+    out = run_client("collective_fanout.client", ["--cpu"])
+    assert "mesh detected: True" in out and "OK" in out
+
+
+def test_collective_fanout_defaults_to_the_cards():
+    """Without ``--cpu`` the sub-channels are the cards': with no card
+    the example raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default resolves to it")
+    proc = subprocess.run(_cmd("collective_fanout.client", []), env=ENV,
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
 
 
 def test_device_examples_default_to_the_card():

@@ -73,6 +73,12 @@ def test_importing_the_port_loads_no_jax():
             " brpc_tpu_torch.tpu.tpusocket, brpc_tpu_torch.tpu.transport,"
             " brpc_tpu_torch.tpu.device_stream, brpc_tpu_torch.tpu.mesh,"
             " brpc_tpu_torch.rpc.circuit_breaker,"
+            " brpc_tpu_torch.rpc.combo_channels,"
+            " brpc_tpu_torch.rpc.health_check,"
+            " brpc_tpu_torch.policy.naming,"
+            " brpc_tpu_torch.policy.load_balancers,"
+            " brpc_tpu_torch.proto.collective_pb2,"
+            " brpc_tpu_torch.graft_entry,"
             " brpc_tpu_torch.analysis.runtime_check\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'brpc_tpu'))\n"

@@ -1,6 +1,6 @@
 """The port's message runtime (brpc_tpu_torch.proto._message) against
 protobuf: for every message of the port's tables (rpc_meta, serving,
-echo, device_lane), the same field values give the same bytes as the JAX package's
+echo, device_lane, collective), the same field values give the same bytes as the JAX package's
 generated ``*_pb2`` classes, byte for byte, and each side parses the
 other's bytes to equal fields. Values come from a numpy seed (with the
 edges: negative int32/int64, int64 at ±(2^63 − 1), uint32 at 2^32 − 1,
@@ -15,16 +15,18 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from brpc_tpu.proto import collective_pb2 as jax_collective
 from brpc_tpu.proto import device_lane_pb2 as jax_device
 from brpc_tpu.proto import echo_pb2 as jax_echo
 from brpc_tpu.proto import rpc_meta_pb2 as jax_meta
 from brpc_tpu.proto import serving_pb2 as jax_serving
 from brpc_tpu_torch.proto import _message as rt
-from brpc_tpu_torch.proto import (device_lane_pb2, echo_pb2, rpc_meta_pb2,
-                                  serving_pb2)
+from brpc_tpu_torch.proto import (collective_pb2, device_lane_pb2,
+                                  echo_pb2, rpc_meta_pb2, serving_pb2)
 
 FILES = [(rpc_meta_pb2, jax_meta), (serving_pb2, jax_serving),
-         (echo_pb2, jax_echo), (device_lane_pb2, jax_device)]
+         (echo_pb2, jax_echo), (device_lane_pb2, jax_device),
+         (collective_pb2, jax_collective)]
 PAIRS = [(mod, jmod, name) for mod, jmod in FILES
          for name in mod.DESCRIPTOR.message_types_by_name]
 IDS = [name for _, _, name in PAIRS]
@@ -42,8 +44,7 @@ UNICODE = "aé✓世\U0001f600"
 
 
 def test_every_message_of_the_reference_protos_is_in_the_tables():
-    for mod, jmod in ((rpc_meta_pb2, jax_meta), (serving_pb2, jax_serving),
-                      (echo_pb2, jax_echo)):
+    for mod, jmod in FILES:
         assert set(mod.DESCRIPTOR.message_types_by_name) == \
             set(jmod.DESCRIPTOR.message_types_by_name)
         for name, desc in mod.DESCRIPTOR.message_types_by_name.items():
@@ -91,8 +92,9 @@ def _spec_from_rng(cls, rng, depth=0):
                 spec[f.name] = _spec_from_rng(f.message_class, rng, depth + 1)
         elif f.repeated:
             n = [0, 1, 7, 1000][rng.integers(4)]
-            lo, hi = ((-(1 << 31), (1 << 31) - 1) if f.kind == rt.INT32
-                      else (0, (1 << 31) - 1))
+            lo, hi = {rt.INT32: (-(1 << 31), (1 << 31) - 1),
+                      rt.UINT32: (0, (1 << 32) - 1)}.get(
+                          f.kind, (0, (1 << 31) - 1))
             spec[f.name] = [int(x) for x in rng.integers(lo, hi, size=n,
                                                          endpoint=True)]
         elif rng.integers(3):
@@ -166,6 +168,9 @@ def test_every_edge_value_of_every_field(mod, jmod, name):
     for f in cls.FIELDS:
         if f.kind == rt.MESSAGE:
             cases = [None, {}]
+        elif f.repeated and f.kind == rt.UINT32:
+            cases = [[], [0], [1, (1 << 31), (1 << 32) - 1],
+                     list(range(1000))]
         elif f.repeated:
             cases = [[], [0], [-1, (1 << 31) - 1, -(1 << 31)],
                      list(range(-500, 500))]
@@ -183,8 +188,9 @@ def _strategy(cls, depth=0):
                      else st.none() | _strategy(f.message_class, depth + 1))
             fields[f.name] = inner
         elif f.repeated:
-            fields[f.name] = st.lists(
-                st.integers(-(1 << 31), (1 << 31) - 1), max_size=50)
+            lo, hi = rt._RANGES[f.kind]
+            fields[f.name] = st.lists(st.integers(max(lo, -(1 << 31)), hi),
+                                      max_size=50)
         elif f.kind in (rt.INT32, rt.INT64, rt.UINT32):
             lo, hi = rt._RANGES[f.kind]
             fields[f.name] = st.integers(lo, hi)

@@ -210,8 +210,6 @@ def test_typed_stub_round_trip_on_the_port():
 
 def test_what_is_not_ported_refuses():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_rpc.Channel().init("list://127.0.0.1:1", "rr")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_rpc.Channel(port_rpc.ChannelOptions(
             native_transport=True)).init("127.0.0.1:1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -232,7 +230,7 @@ def test_what_is_not_ported_refuses():
 # port leaves them undefined, so setting one fails instead of passing
 # silently.
 _UNPORTED_FLAGS = (
-    "health_check_interval_s", "tpu_shard_rebalance_pct",
+    "tpu_shard_rebalance_pct",
     "tpu_shard_respawn_backoff_ms", "tpu_shard_respawn_max",
     "tpu_shard_ring_mb", "tpu_shard_forward_max", "shard_vars_interval_s",
     "serving_qos_starvation_ms")
@@ -287,6 +285,12 @@ def test_flags_of_kv_migration_match_the_reference(name):
 # The shard-skew bound came with the sharded KV cache and its watch rule.
 @pytest.mark.parametrize("name", ["serving_shard_skew_ratio"])
 def test_flags_of_sharded_serving_match_the_reference(name):
+    _flag_matches_the_reference(name)
+
+
+# The health checker's interval came with the load balancers.
+@pytest.mark.parametrize("name", ["health_check_interval_s"])
+def test_flags_of_health_check_match_the_reference(name):
     _flag_matches_the_reference(name)
 
 

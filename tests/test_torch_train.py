@@ -203,15 +203,6 @@ def test_cpu_training_launches_no_kernel(jax_setup):
     assert pallas_ops.launches.snapshot() == before
 
 
-def test_mesh_is_not_ported(jax_setup):
-    params, batch = jax_setup
-    model = _port(params)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        model(_torch_batch(batch)[0], mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train.sgd_train_step(model, _torch_batch(batch), mesh=object())
-
-
 def test_fused_xent_loss_equals_the_plain_loss(jax_setup):
     params, batch = jax_setup
     model = _port(params, "shipping")

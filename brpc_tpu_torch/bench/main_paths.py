@@ -10,12 +10,18 @@ main paths, each printing its JSON line: serving (the flash kernel held
 and timed at every prefill bucket, the same buckets for any checkout; the
 serving flash call timed on identical fused-QKV inputs, per call as a
 caller pays it and in device time; the engine three times; the profiled
-engine run), the trainer (ms/step and the profiled step), the ring lane,
+engine run), RMSNorm (the checkout's phase 8, then its forward,
+backward and both through autograd timed alike beside F.rms_norm's), the
+trainer (ms/step and the profiled step), one more
+profiled trainer step with the RMSNorm backward in a ``rmsnorm_bwd``
+range (``profile_train_step``: the same for any checkout), the ring lane,
 the data plane's probe, the copy ceiling's chain and the copy timings. Run
 parent, change, change, parent in one call: two calls may land on two
 cards.
 """
 
+import contextlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -55,6 +61,110 @@ def time_serving_flash(chip_smoke, dev):
     print(json.dumps({"serving_flash_times": rows}), flush=True)
 
 
+@contextlib.contextmanager
+def labelled_rmsnorm_bwd(ops, name="rmsnorm_bwd"):
+    """``ops._RMSNorm.backward`` inside a ``torch.profiler.record_function``
+    range ``name`` while the block runs (autograd reads the backward when
+    it calls it), so a profile can say what the backward cost."""
+    saved = ops._RMSNorm.__dict__["backward"]
+    inner = saved.__func__
+
+    def backward(ctx, g):
+        with torch.profiler.record_function(name):
+            return inner(ctx, g)
+
+    ops._RMSNorm.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        ops._RMSNorm.backward = saved
+
+
+def range_kernels(prof, name):
+    """The device work launched inside the CPU ranges ``name`` of a
+    torch.profiler run: each range's subtree of host events holds the
+    runtime calls that launched it (``cudaLaunchKernel`` and the like,
+    under an ATen op or, for a ctypes launch, straight under the range),
+    and each runtime call's event id is the correlation id of its kernel
+    or memset. Returns {"ranges",
+    "launch_calls", "kernels", "device_us", "names": {kernel: [count,
+    device µs]}}."""
+    from torch.autograd import DeviceType
+
+    device = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device.setdefault(e.id, []).append(e)
+    out = {"ranges": 0, "launch_calls": 0, "kernels": 0, "device_us": 0.0,
+           "names": {}}
+
+    def walk(event):
+        if event.name.startswith("cu"):  # a CUDA runtime or driver call
+            out["launch_calls"] += 1
+            for k in device.get(event.id, ()):
+                us = k.time_range.elapsed_us()
+                row = out["names"].setdefault(k.name[:80], [0, 0.0])
+                row[0] += 1
+                row[1] += us
+                out["kernels"] += 1
+                out["device_us"] += us
+        for child in event.cpu_children:
+            walk(child)
+
+    for e in prof.events():
+        if e.name == name and e.device_type == DeviceType.CPU:
+            out["ranges"] += 1
+            walk(e)
+    return out
+
+
+def profile_train_step(chip_smoke, dev):
+    """One profiled step of phase 10's trainer (the checkout's flagship,
+    batch and lr; two unprofiled steps first) with the RMSNorm backward in
+    a ``rmsnorm_bwd`` range: the step's device kernels and busy time and
+    the range's kernels and device time, the same for any checkout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cs, train = chip_smoke, chip_smoke.train
+    cfg = train.ModelConfig(**cs.FLAGSHIP, n_layers=cs.TRAIN_LAYERS,
+                            dtype=torch.bfloat16, use_flash_attention=True,
+                            use_pallas_norm=True, use_fused_xent=True)
+    model = train.TrainLM(cfg, torch.Generator().manual_seed(0), device=dev)
+    batch = train.demo_batch(torch.Generator().manual_seed(1), cfg,
+                             cs.TRAIN_B, cs.TRAIN_S, device=dev)
+    for _ in range(2):
+        train.sgd_train_step(model, batch, lr=cs.TRAIN_LR)
+    torch.cuda.synchronize()
+    with labelled_rmsnorm_bwd(cs.pallas_ops), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train.sgd_train_step(model, batch, lr=cs.TRAIN_LR)
+        torch.cuda.synchronize()
+    kernels, busy, top = cs.device_time(prof)
+    row = {"device_kernels": kernels, "device_busy_us": busy,
+           "top_device_us": top,
+           "rmsnorm_bwd": range_kernels(prof, "rmsnorm_bwd")}
+    print(json.dumps({"train_profile": row}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_rmsnorm(chip_smoke, dev):
+    """The checkout's phase 8 (its RMSNorm kernels held and timed), then
+    RMSNorm's forward, backward and forward + backward per call and in
+    device time beside F.rms_norm's, timed alike for any checkout
+    (``rmsnorm_calls`` of this file's ``wrappers.py``)."""
+    chip_smoke.check_rmsnorm(dev)
+    spec = importlib.util.spec_from_file_location(
+        "bench_wrappers", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "wrappers.py"))
+    wrappers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wrappers)
+    row = wrappers.rmsnorm_calls(chip_smoke, chip_smoke.pallas_ops, dev,
+                                 torch.Generator().manual_seed(0), iters=200)
+    print(json.dumps({"rmsnorm_calls": row}), flush=True)
+
+
 def main(argv):
     root = os.path.abspath(argv[1] if len(argv) > 1 else os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -82,7 +192,9 @@ def main(argv):
     for _ in range(ENGINE_RUNS):
         chip_smoke.run_engine(dev, "auto")
     chip_smoke.profile_engine(dev)
+    time_rmsnorm(chip_smoke, dev)
     chip_smoke.run_trainer(dev, smi)
+    profile_train_step(chip_smoke, dev)
     chip_smoke.run_ring(dev)
     chip_smoke.run_probe(dev)
     chip_smoke.run_ceiling(dev)

@@ -20,9 +20,9 @@ forward of ``csrc/flash_fwd.cu`` without lse (at the serving head dim 16,
 ``fwd_f32_mma_kernel`` on the tf32 tensor cores in 3xTF32). Training uses
 :func:`flash_attention_mha`, an autograd function whose forward is the
 same kernel and whose backward is the dQ and dK/dV kernels of
-``csrc/flash_bwd.cu``, and :func:`rmsnorm`, whose forward is
-``csrc/rmsnorm.cu`` and whose backward is plain PyTorch, as it is XLA in
-the JAX package, and :func:`softmax_xent`, the fused cross-entropy of
+``csrc/flash_bwd.cu``, and :func:`rmsnorm`, whose forward and backward
+are ``csrc/rmsnorm.cu`` (the backward is XLA in the JAX package, which
+fuses it; PyTorch eager does not), and :func:`softmax_xent`, the fused cross-entropy of
 ``csrc/xent.cu`` with a plain backward likewise. Ring attention
 (``tpu/ring.py``) runs :func:`flash_attention_carry`, the carry form of
 the forward kernel, and the backward kernels at absolute offsets;
@@ -56,7 +56,8 @@ class LaunchCounts:
         self._n = {name: 0 for name in ("flash_attention", "flash_fwd",
                                         "flash_fwd_qgrid", "flash_carry",
                                         "flash_bwd_dq", "flash_bwd_dkv",
-                                        "rmsnorm", "softmax_xent",
+                                        "rmsnorm", "rmsnorm_bwd",
+                                        "softmax_xent",
                                         # csrc/copy.cu (tpu/bench_kernels.py)
                                         "hbm_copy", "hbm_copy_batched")}
 
@@ -146,6 +147,30 @@ def _check_kernel_inputs(name: str, dtype, **tensors) -> None:
             raise ValueError(f"{name}: {tname} must be 16-byte aligned")
 
 
+def _cuda_ready(name: str, **tensors) -> bool:
+    """One check before a launch, of a wrapper's tensors all at once:
+    True when all lie on one CUDA device in one dtype of _DTYPES,
+    contiguous and 16-byte aligned (the kernel takes them as they are);
+    False when all lie on the CPU (the plain version runs); anything else
+    raises what :func:`_on_cpu` or :func:`_check_kernel_inputs` raise.
+    The common answer costs one pass over flags, without the two
+    helpers' generic loops (a launch's host cost)."""
+    ts = tuple(tensors.values())
+    first = ts[0]
+    if first.is_cuda and first.dtype in _DTYPES:
+        dev, dt = first.get_device(), first.dtype
+        for t in ts:
+            if not (t.is_cuda and t.dtype is dt and t.get_device() == dev
+                    and t.is_contiguous() and not t.data_ptr() % 16):
+                break
+        else:
+            return True
+    if _on_cpu(name, *ts):
+        return False
+    _check_kernel_inputs(name, first.dtype, **tensors)
+    return True
+
+
 def _stream(t):
     """The raw handle of the current stream of ``t``'s CUDA device (no
     Stream object is built)."""
@@ -157,7 +182,7 @@ def _call(fn, t, *args):
     launch through a C entry point; returns its error code. The device is
     switched only when ``t`` is not on the current one."""
     dev = t.get_device()
-    if dev == torch.cuda.current_device():
+    if dev == torch._C._cuda_getDevice():  # torch.cuda.current_device()
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     with torch.cuda.device(dev):
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
@@ -604,24 +629,26 @@ def _rmsnorm_fwd_call(x, w, eps: float = EPS):
     """Fused RMSNorm over the last dim. x: [..., D], w: [D]. A CPU tensor
     runs :func:`rmsnorm_reference`; a CUDA tensor launches the kernel
     (the C function bound once by :func:`_bind`, launched through
-    :func:`_call`)."""
+    :func:`_call`) on x's rows as they lie, after one :func:`_cuda_ready`
+    check."""
     d = x.shape[-1]
     if w.shape != (d,):
         raise ValueError(f"rmsnorm: w {tuple(w.shape)} does not match x "
                          f"{tuple(x.shape)}")
-    if _on_cpu("rmsnorm", x, w):
+    if x.is_cuda and not x.is_contiguous():
+        x = x.contiguous()
+    if not _cuda_ready("rmsnorm", x=x, w=w):
         return rmsnorm_reference(x, w, eps)
-    x2 = x.reshape(-1, d).contiguous()
-    _check_kernel_inputs("rmsnorm", x.dtype, x=x2, w=w)
-    out = torch.empty_like(x2)
-    if x2.shape[0] and d:
+    out = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows:
         fn = _bind("rmsnorm", "brpc_rmsnorm", _RMSNORM_ARGTYPES)
-        rc = _call(fn, x2, x2.data_ptr(), w.data_ptr(), out.data_ptr(),
-                   x2.shape[0], d, _DTYPES[x.dtype], eps)
+        rc = _call(fn, x, x.data_ptr(), w.data_ptr(), out.data_ptr(), rows,
+                   d, _DTYPES[x.dtype], eps)
         if rc:
             _raise_on(rc, "rmsnorm", "rmsnorm")
         launches.add("rmsnorm")
-    return out.reshape(x.shape)
+    return out
 
 
 def _rmsnorm_bwd(x, w, g, eps: float):
@@ -638,7 +665,69 @@ def _rmsnorm_bwd(x, w, g, eps: float):
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
+# csrc/rmsnorm.cu's brpc_rmsnorm_bwd: x, w, g, dx, dw, partials; rows, d,
+# blocks, dtype, eps; the stream
+_RMSNORM_BWD_ARGTYPES = [_ptr] * 6 + [_i64, _i32, _i32, _i32,
+                                      ctypes.c_float, _ptr]
+_RMS_WARPS = 8              # csrc/rmsnorm.cu kWarps: a block's rows in flight
+_RMS_BWD_BLOCKS_PER_SM = 2  # csrc/rmsnorm.cu kBwdBlocksPerSm
+_sms = {}                   # device index -> SM count
+
+
+def _rmsnorm_bwd_blocks(rows: int, sms: int) -> int:
+    """The backward kernel's persistent grid: the blocks the card holds at
+    once, at most one per _RMS_WARPS rows (each block takes a contiguous
+    chunk of ceil(rows / blocks) rows)."""
+    return min(-(-rows // _RMS_WARPS), _RMS_BWD_BLOCKS_PER_SM * sms)
+
+
+def _rmsnorm_bwd_partials(x, rows: int, d: int):
+    """The backward kernel's dw scratch for ``rows`` rows of width ``d`` on
+    x's device: one fp32 row of partial sums per block, [blocks, d]."""
+    dev = x.get_device()
+    sms = _sms.get(dev)
+    if sms is None:
+        sms = _sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return x.new_empty((_rmsnorm_bwd_blocks(rows, sms), d),
+                       dtype=torch.float32)
+
+
+def _rmsnorm_bwd_call(x, w, g, eps: float = EPS):
+    """RMSNorm's backward: (dx, dw) for the output gradient g, x and g
+    [..., D], w [D]. A CPU tensor runs :func:`_rmsnorm_bwd`; a CUDA tensor
+    launches ``brpc_rmsnorm_bwd`` (the row kernel, then the fixed-order sum
+    of dw over the blocks' partials: one count) or raises."""
+    d = x.shape[-1]
+    if w.shape != (d,) or g.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, g {tuple(g.shape)} do not fit")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not g.is_contiguous():
+        g = g.contiguous()
+    if not _cuda_ready("rmsnorm_bwd", x=x, w=w, g=g):
+        return _rmsnorm_bwd(x, w, g, eps)
+    dx = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if not rows:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    partials = _rmsnorm_bwd_partials(x, rows, d)
+    fn = _bind("rmsnorm", "brpc_rmsnorm_bwd", _RMSNORM_BWD_ARGTYPES)
+    rc = _call(fn, x, x.data_ptr(), w.data_ptr(), g.data_ptr(),
+               dx.data_ptr(), dw.data_ptr(), partials.data_ptr(), rows, d,
+               partials.shape[0], _DTYPES[x.dtype], eps)
+    if rc:
+        _raise_on(rc, "rmsnorm", "rmsnorm_bwd")
+    launches.add("rmsnorm_bwd")
+    return dx, dw
+
+
 class _RMSNorm(torch.autograd.Function):
+    """The kernel forward and the kernel backward; the residuals are
+    (x, w), as in the JAX package's custom VJP."""
+
     @staticmethod
     def forward(ctx, x, w, eps):
         ctx.save_for_backward(x, w)
@@ -648,13 +737,13 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx, dw = _rmsnorm_bwd(x, w, g, ctx.eps)
+        dx, dw = _rmsnorm_bwd_call(x, w, g, ctx.eps)
         return dx, dw, None
 
 
 def rmsnorm(x, w, eps: float = EPS):
-    """Fused RMSNorm over the last dim, differentiable: the kernel
-    forward, the plain backward. x: [..., D], w: [D]."""
+    """Fused RMSNorm over the last dim, differentiable: the kernel forward
+    and the kernel backward. x: [..., D], w: [D]."""
     return _RMSNorm.apply(x, w, eps)
 
 

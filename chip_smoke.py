@@ -73,7 +73,9 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   service and the rr balancer echoes through the device EchoService;
   the ported ``collective_fanout`` example runs as a fresh interpreter.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
-  RMSNorm kernel against their plain versions in fp32 and bf16 (in bf16
+  RMSNorm forward and backward kernels against their plain versions in
+  fp32 and bf16 (the RMSNorm pair also at its rows' edges and widths past
+  its register cap, the backward's bits equal run to run; in bf16
   all three attention kernels are the tensor-core kernels, held also at
   their tile edges: S in EDGE_S, every head dim, causal or not, the
   ring's key offsets), prints their ``-Xptxas -v`` registers and spills
@@ -84,7 +86,8 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   checks that the loss falls and that every step launched each kernel
   the expected number of times; one more, profiled step shows where the
   time goes and names its attention kernels (no FMA kernel for the bf16
-  forward, dQ or dK/dV).
+  forward, dQ or dK/dV) and that each RMSNorm backward ran the two
+  kernels of ``csrc/rmsnorm.cu`` and nothing else.
 - The sharded flagship (phase 10b): one fp32 ``value_and_grad`` of the
   sharded step over dp2 x sp2 x tp2 laid on the card, every kernel on,
   against the single-device step with every kernel off, at phase 9's
@@ -158,6 +161,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from brpc_tpu_torch import fault, flags, graft_entry, rpc  # noqa: E402
+from brpc_tpu_torch.bench.main_paths import (  # noqa: E402
+    labelled_rmsnorm_bwd, range_kernels)
 from brpc_tpu_torch.examples.llm_server import client  # noqa: E402
 from brpc_tpu_torch.proto import serving_pb2  # noqa: E402
 from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,  # noqa: E402
@@ -217,6 +222,11 @@ SPEC_K = 4
 # and the FMA kernels they replaced for bf16, by symbol
 WGMMA_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel")
 FMA_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+
+
+# csrc/rmsnorm.cu's kernels, by symbol: their -Xptxas -v rows are printed
+RMS_KERNELS = ("rmsnorm_fwd_regs", "rmsnorm_fwd_loop", "rmsnorm_bwd_regs",
+               "rmsnorm_bwd_loop", "rmsnorm_bwd_finish")
 
 
 def ptxas_rows(logs, kernels):
@@ -1931,6 +1941,23 @@ def device_time(prof):
                               for k, t, c in top]
 
 
+def rmsnorm_bwd_kernels(prof, calls):
+    """What the RMSNorm backward ran in a profiled training step (its calls
+    in ``rmsnorm_bwd`` ranges, ``labelled_rmsnorm_bwd``): the kernels and
+    their device time. Raises unless there were ``calls`` ranges, each
+    ran the row kernel and the finishing sum of csrc/rmsnorm.cu, and
+    nothing else ran on the device (no eager ATen op)."""
+    out = range_kernels(prof, "rmsnorm_bwd")
+    others = [k for k in out["names"]
+              if not any(o in k for o in RMS_KERNELS[2:])]
+    if (out["ranges"] != calls or out["kernels"] != 2 * calls
+            or others):
+        raise AssertionError(f"RMSNorm backward in the profiled step: "
+                             f"{out}; want {calls} ranges of 2 kernels of "
+                             f"csrc/rmsnorm.cu")
+    return out
+
+
 def attention_kernels(prof):
     """The attention kernels a profiled bf16 training step ran, by symbol:
     {name: {"us", "calls"}}. Raises if an FMA kernel ran the forward, dQ
@@ -2069,6 +2096,13 @@ EDGE_D = (32, 64, 128)
 EDGE_N = 3
 RMS_SHAPES = [(8192, 1024), (1000, 1024), (256, 32),
               (7, 50)]  # ragged: fewer rows than a block, odd width
+# the RMSNorm kernels' other paths and edges, forward and backward: rows
+# that are not a multiple of the backward's chunk on 132 SMs (3001 rows
+# over 264 blocks of 12: a last chunk of 1 row and 13 empty blocks; 2053
+# over 257 blocks of 8: a last chunk of 5), D 2048 (phase 19's width: the
+# forward's widest rows in registers, the backward's looped kernel) and
+# D 4096 (both kernels looped, with 16-byte loads)
+RMS_EDGES = [(3001, 1024), (2053, 1024), (1000, 2048), (64, 4096)]
 RMS_MAIN = (8192, 1024)     # B 8 x S 1024 rows of d_model 1024
 # the flagship of tools/kernel_bench.py:395-398; it ships with every
 # kernel on (flash attention, RMSNorm, fused cross-entropy)
@@ -2371,39 +2405,111 @@ def check_flash_bwd(dev):
 
 
 def check_rmsnorm(dev):
-    """Phase 8: the RMSNorm kernel against rmsnorm_reference, fp32 and
-    bf16, then timed at the trainer's shape in bf16 beside the plain
-    version and F.rms_norm."""
-    import torch.nn.functional as F
-
+    """Phase 8: the RMSNorm kernels against their plain versions, fp32 and
+    bf16 (the forward against rmsnorm_reference, the backward's dx and dw
+    against _rmsnorm_bwd, both on the inputs upcast), at RMS_SHAPES and
+    RMS_EDGES; the backward's bits equal run to run; then both timed at
+    the trainer's shape in bf16 beside the plain versions and F.rms_norm
+    (``time_rmsnorm``)."""
     gen = torch.Generator().manual_seed(3)
-    worst = new_worst()
-    for shape in RMS_SHAPES:
+    worst, worst_bwd = new_worst(), new_worst()
+    for shape in RMS_SHAPES + RMS_EDGES:
         for dtype in TOL:
             x = randn(gen, shape, dtype, dev)
             w = (1 + 0.1 * torch.randn(shape[1], generator=gen)).to(
                 device=dev, dtype=dtype)
+            g = randn(gen, shape, dtype, dev)
             y = pallas_ops._rmsnorm_fwd_call(x, w)
+            dx, dw = pallas_ops._rmsnorm_bwd_call(x, w, g)
             want = pallas_ops.rmsnorm_reference(x.float(), w.float())
+            want_dx, want_dw = pallas_ops._rmsnorm_bwd(
+                x.float(), w.float(), g.float(), pallas_ops.EPS)
             torch.cuda.synchronize()
-            if y.dtype != dtype:
-                raise AssertionError(f"rmsnorm {shape}: out {y.dtype}")
+            if {y.dtype, dx.dtype, dw.dtype} != {dtype}:
+                raise AssertionError(f"rmsnorm {shape}: out {y.dtype}, dx "
+                                     f"{dx.dtype}, dw {dw.dtype}")
             held(f"rmsnorm {shape} {dtype}", y, want, dtype, worst)
-    # bound by bytes, and x (16 MB) fits the L2: back-to-back calls take
-    # x in turn from copies twice the L2's size, so each reads it from HBM
-    x_bytes = 2 * RMS_MAIN[0] * RMS_MAIN[1]
-    nxt = itertools.cycle([randn(gen, RMS_MAIN, torch.bfloat16, dev) for _
-                           in range(math.ceil(2 * L2_BYTES / x_bytes))]
-                          ).__next__
-    w = torch.ones(RMS_MAIN[1], device=dev, dtype=torch.bfloat16)
-    row = timings({
-        "kernel": lambda: pallas_ops._rmsnorm_fwd_call(nxt(), w),
-        "plain": lambda: pallas_ops.rmsnorm_reference(nxt(), w),
-        "library": lambda: F.rms_norm(nxt(), (RMS_MAIN[1],), w,
-                                      eps=pallas_ops.EPS),
-    }, iters=50)
+            held(f"rmsnorm_bwd dx {shape} {dtype}", dx, want_dx, dtype,
+                 worst_bwd)
+            held(f"rmsnorm_bwd dw {shape} {dtype}", dw, want_dw, dtype,
+                 worst_bwd)
+            if shape == RMS_MAIN:  # no atomics: the same bits again
+                dx2, dw2 = pallas_ops._rmsnorm_bwd_call(x, w, g)
+                if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                    raise AssertionError(f"rmsnorm_bwd {dtype}: two runs "
+                                         f"differ")
+    row = time_rmsnorm(dev, gen)
     row.update(readings(worst))
+    row["bwd"].update(readings(worst_bwd))
     print(json.dumps({"rmsnorm": row}), flush=True)
+    return row
+
+
+def time_rmsnorm(dev, gen):
+    """Both RMSNorm kernels at RMS_MAIN in bf16, each call taking x and g
+    in turn from copies twice the L2's size (so each reads them from HBM,
+    as the trainer does), beside the plain versions and F.rms_norm: the
+    forward's row (``timings``: per call and CUDA-graph device time); the
+    backward's (``bwd``: the kernel and the plain version likewise, and
+    F.rms_norm's backward through autograd per call and queued, which a
+    graph cannot capture); forward + backward through autograd
+    (``autograd``: ``rmsnorm`` against ``F.rms_norm``, per call and
+    queued)."""
+    import torch.nn.functional as F
+
+    d = RMS_MAIN[1]
+    copies = math.ceil(2 * L2_BYTES / (2 * RMS_MAIN[0] * d))
+    xs = [randn(gen, RMS_MAIN, torch.bfloat16, dev).requires_grad_()
+          for _ in range(copies)]
+    gs = [randn(gen, RMS_MAIN, torch.bfloat16, dev) for _ in range(copies)]
+    w = torch.ones(d, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    nxt = itertools.cycle(range(copies)).__next__
+    eps = pallas_ops.EPS
+    xd, wd = [x.detach() for x in xs], w.detach()
+
+    def lib(i):
+        return F.rms_norm(xs[i], (d,), w, eps=eps)
+
+    row = timings({
+        "kernel": lambda: pallas_ops._rmsnorm_fwd_call(xd[nxt()], wd),
+        "plain": lambda: pallas_ops.rmsnorm_reference(xd[nxt()], wd),
+        "library": lambda: F.rms_norm(xd[nxt()], (d,), wd, eps=eps),
+    }, iters=50)
+
+    def bwd(fn):
+        def call():
+            i = nxt()
+            return fn(xd[i], wd, gs[i], eps)
+        return call
+
+    outs = [lib(i) for i in range(copies)]  # graphs kept for the backward
+
+    def lib_bwd():
+        i = nxt()
+        return torch.autograd.grad(outs[i], (xs[i], w), gs[i],
+                                   retain_graph=True)
+
+    bwd_row = timings({"kernel": bwd(pallas_ops._rmsnorm_bwd_call),
+                       "plain": bwd(pallas_ops._rmsnorm_bwd)}, iters=50)
+    bwd_row.update(library_ms=time_ms(lib_bwd, 50), library_graph_ms=None,
+                   library_queued_ms=queued_ms(lib_bwd, 50),
+                   kernel_queued_ms=queued_ms(bwd(
+                       pallas_ops._rmsnorm_bwd_call), 50))
+    del outs
+
+    def autograd(fwd):
+        def call():
+            i = nxt()
+            return torch.autograd.grad(fwd(i), (xs[i], w), gs[i])
+        return call
+
+    calls = {"kernel": autograd(lambda i: pallas_ops.rmsnorm(xs[i], w)),
+             "library": autograd(lib)}
+    row["bwd"] = bwd_row
+    row["autograd"] = {f"{k}_{unit}": timer(fn, 50)
+                       for k, fn in calls.items()
+                       for unit, timer in (("ms", time_ms),
+                                           ("queued_ms", queued_ms))}
     return row
 
 
@@ -2437,7 +2543,8 @@ def train_parity(dev):
     counts = pallas_ops.launches.snapshot()
     expect_launches(counts, {"flash_fwd": 2, "flash_bwd_dq": 2,
                              "flash_bwd_dkv": 2, "rmsnorm": 5,
-                             "softmax_xent": 1}, "parity step")
+                             "rmsnorm_bwd": 5, "softmax_xent": 1},
+                    "parity step")
     model.config = off
     loss_off, grads_off = train.value_and_grad(model, batch)
     stats = dict(hold_step(loss_on, grads_on, loss_off, grads_off),
@@ -2496,20 +2603,21 @@ def run_trainer(dev, smi):
     counts = pallas_ops.launches.snapshot()
     want = {"flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
             "flash_bwd_dkv": TRAIN_LAYERS, "rmsnorm": 2 * TRAIN_LAYERS + 1,
-            "softmax_xent": 1}
+            "rmsnorm_bwd": 2 * TRAIN_LAYERS + 1, "softmax_xent": 1}
     per_step = {name: counts[name] / TRAIN_STEPS for name in counts}
     expect_launches(per_step, want, "launches per step")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"losses {losses}: not finite or not falling")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with labelled_rmsnorm_bwd(pallas_ops), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train.sgd_train_step(model, batch, lr=TRAIN_LR)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, busy, top = device_time(prof)
     attention = attention_kernels(prof)
+    norm_bwd = rmsnorm_bwd_kernels(prof, want["rmsnorm_bwd"])
     step = sorted(step_s[1:])[len(step_s[1:]) // 2]  # median after the 1st
     # the FLOP count of tools/kernel_bench.py:386-391
     d, f, s = cfg.d_model, cfg.d_ff, TRAIN_S
@@ -2528,7 +2636,8 @@ def run_trainer(dev, smi):
                           "device_busy_us": busy,
                           "device_busy_share": busy / wall_us,
                           "top_device_us": top,
-                          "attention_kernels": attention},
+                          "attention_kernels": attention,
+                          "rmsnorm_bwd": norm_bwd},
     }
     print(json.dumps({"trainer": stats}), flush=True)
     del model
@@ -2547,7 +2656,8 @@ def sharded_launches(n_layers, axes):
     hops = axes["sp"] * (axes["sp"] + 1) // 2
     attn = n_layers * rings * hops
     return {"flash_carry": attn, "flash_bwd_dq": attn,
-            "flash_bwd_dkv": attn, "rmsnorm": 2 * n_layers + 1}
+            "flash_bwd_dkv": attn, "rmsnorm": 2 * n_layers + 1,
+            "rmsnorm_bwd": 2 * n_layers + 1}
 
 
 def sharded_parity(dev):
@@ -3803,6 +3913,11 @@ def kernel_rows(fwd, bwd, rms, counts):
     rows_, cols = RMS_MAIN
     bounds["rmsnorm"] = bound(2 * (2 * rows_ * cols + cols),
                               4 * rows_ * cols, torch.bfloat16)
+    # x and g read, dx written, w read and dw written (bf16; the fp32
+    # partials are the kernel's own traffic, not the function's); about 12
+    # fp32 FLOP an element, outside the tensor cores
+    bounds["rmsnorm_bwd"] = bound(2 * (3 * rows_ * cols + 2 * cols),
+                                  12 * rows_ * cols, torch.float32)
     pallas = "brpc_tpu/tpu/pallas_ops.py"
     spec = [
         ("flash_fwd", "flash_fwd.cu", f"{pallas}:535 (and :282)", fwd,
@@ -3812,6 +3927,8 @@ def kernel_rows(fwd, bwd, rms, counts):
         ("flash_bwd_dkv", "flash_bwd.cu", f"{pallas}:387", bwd, "dkv",
          MHA_MAIN),
         ("rmsnorm", "rmsnorm.cu", f"{pallas}:43", rms, "kernel", RMS_MAIN),
+        ("rmsnorm_bwd", "rmsnorm.cu", f"{pallas}:95 (XLA; no Pallas kernel)",
+         rms["bwd"], "kernel", RMS_MAIN),
     ]
     out = [kernel_entry(name, src, replaces, row, key, shape, counts[name],
                         bounds[name])
@@ -3820,6 +3937,10 @@ def kernel_rows(fwd, bwd, rms, counts):
         # SDPA's backward as device time beside the kernel's, queued alike
         e.update(queued_ms=bwd[f"{key}_queued_ms"],
                  library="SDPA backward (dq, dk, dv in one call)")
+    out[4].update(queued_ms=rms["bwd"]["kernel_queued_ms"],
+                  library_queued_ms=rms["bwd"]["library_queued_ms"],
+                  library="F.rms_norm's backward through autograd",
+                  autograd=rms["autograd"])
     return out
 
 
@@ -3871,6 +3992,7 @@ def main():
     ptxas = ptxas_report(built)
     if not any(SERVING_KERNEL in k for k in ptxas):
         raise AssertionError(f"no -Xptxas -v report of {SERVING_KERNEL}")
+    ptxas.update(ptxas_rows(built, RMS_KERNELS))
     print(json.dumps({"ptxas": ptxas}), flush=True)
 
     flash = check_flash(dev)
@@ -3956,8 +4078,8 @@ def main():
             e["launches_examples"] = example_launches[e["name"]]
         if e["name"] in ("flash_carry", "flash_bwd_dq", "flash_bwd_dkv"):
             e["launches_mesh_ring"] = mesh["ring"]["launches"][e["name"]]
-        if e["name"] in ("rmsnorm", "flash_carry", "flash_bwd_dq",
-                         "flash_bwd_dkv"):
+        if e["name"] in ("rmsnorm", "rmsnorm_bwd", "flash_carry",
+                         "flash_bwd_dq", "flash_bwd_dkv"):
             e["launches_sharded_train"] = sharded_counts[e["name"]]
             e["launches_sharded_train_per_step"] = (
                 sharded_counts[e["name"]] / TRAIN_STEPS)

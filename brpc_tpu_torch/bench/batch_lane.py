@@ -1,0 +1,279 @@
+"""Adaptive batching against per-request dispatch: the port's counterpart
+of ``bench.py``'s ``bench_batch_lane`` and ``tools/bench_server.py``'s
+``BatchBenchService``.
+
+    python3 brpc_tpu_torch/bench/batch_lane.py [--cpu]
+    python3 brpc_tpu_torch/bench/batch_lane.py --serve [--cpu]
+
+``--serve`` is the server: a fresh interpreter that owns the card and
+serves ``BatchBench`` on ``127.0.0.1:0``, prints ``LISTEN <endpoint>``
+and serves until its standard input closes; it then prints ``SERVED
+<json>``: its forward calls and the items they carried by method, and
+``g_batch_size`` / ``g_batch_queue_delay_us`` read from its own exposed
+variables (the port has no HTTP ``/vars`` yet).
+
+``BatchBench`` serves one model two ways. The model is the reference's:
+a 32-layer MLP 256 wide, ``h = relu(h @ W[l] + b[l])``, float32, W and b
+drawn from a ``torch.Generator`` seeded 0 (W scaled by 1/sqrt(256), b by
+0.01), on ``cuda`` unless ``--cpu``. ``Infer`` makes one forward call
+per RPC (B = 1); ``InferBatched`` (``batch.make_batched``, buckets
+1 / 8 / 32, ``flush_on_poll_batch=False``) coalesces concurrent RPCs
+into one padded forward call per flush. Requests reuse EchoRequest:
+``payload`` carries 256 float32 features; a response's ``payload`` is
+the output row and its message the row's sum.
+
+Without ``--serve`` the script is the client: it starts that server
+(``subprocess``, never a fork of a process with CUDA up), warms both
+methods, then drives each from a pipelined async client (a call's
+``done`` issues the next; 16 in flight per-request, 32 batched) and
+prints one JSON line, ``{"batch_lane": ...}``: QPS and p50 / p99 latency
+of each, their ratio (batched over per-request), the largest relative
+difference (by row norm) between a batched and a per-request answer to
+the same request, and the server's ``SERVED`` numbers. ``--cpu`` is a
+dry run on the CPU, with a quarter of the calls.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(
+    os.path.abspath(__file__)), "..", ".."))
+sys.path.insert(0, ROOT)
+
+from brpc_tpu_torch.proto import echo_pb2  # noqa: E402
+from brpc_tpu_torch.rpc import (Channel, ChannelOptions,  # noqa: E402
+                                MethodDescriptor, Server, Service, errors)
+
+DIM = 256
+LAYERS = 32
+BUCKETS = (1, 8, 32)
+# (in flight, calls): the reference's warm-ups and timed runs
+WARM = {"Infer": (4, 30), "InferBatched": (8, 60)}
+TIMED = {"Infer": (16, 600), "InferBatched": (32, 4000)}
+
+
+class BatchBenchService(Service):
+    """The same MLP behind a per-request and a batched method."""
+
+    def __init__(self, device):
+        import torch
+
+        from brpc_tpu_torch.batch import make_batched
+
+        super().__init__()
+        self._torch = torch
+        self.device = device
+        gen = torch.Generator().manual_seed(0)
+        scale = 1.0 / np.sqrt(DIM)
+        self.W = (torch.randn((LAYERS, DIM, DIM), generator=gen)
+                  * scale).to(device)
+        self.b = (torch.randn((LAYERS, DIM), generator=gen)
+                  * 0.01).to(device)
+        self._lock = threading.Lock()
+        self.calls = {"Infer": [0, 0], "InferBatched": [0, 0]}
+        self.add_method("Infer", self.Infer,
+                        echo_pb2.EchoRequest, echo_pb2.EchoResponse)
+        self.add_method(
+            "InferBatched",
+            make_batched("BatchBench.InferBatched", self.InferBatched,
+                         max_batch_size=BUCKETS[-1], max_delay_us=2000,
+                         bucket_shapes=BUCKETS,
+                         # steady pipelined load: size and deadline shape
+                         # the batches; boundary flushes would fragment
+                         # them (each readable event admits only a few)
+                         flush_on_poll_batch=False),
+            echo_pb2.EchoRequest, echo_pb2.EchoResponse)
+        for bb in BUCKETS:  # every bucket's first call before any request
+            self.forward(np.zeros((bb, DIM), np.float32))
+
+    @property
+    def service_name(self) -> str:
+        return "BatchBench"
+
+    def forward(self, x: np.ndarray) -> np.ndarray:
+        """[B, DIM] -> [B, DIM]: one forward call (2 x LAYERS launches on
+        the card, whatever B)."""
+        torch = self._torch
+        with torch.no_grad():
+            h = torch.from_numpy(x).to(self.device)
+            for l in range(LAYERS):
+                h = torch.relu(h @ self.W[l] + self.b[l])
+            return h.cpu().numpy()
+
+    def _note(self, method, items):
+        with self._lock:
+            self.calls[method][0] += 1
+            self.calls[method][1] += items
+
+    @staticmethod
+    def _row(request):
+        x = np.frombuffer(request.payload, np.float32)
+        if x.shape != (DIM,):
+            raise ValueError(f"want {DIM} float32 features, got {x.size}")
+        return x.copy()  # the wire buffer is read-only
+
+    @staticmethod
+    def _response(y):
+        return echo_pb2.EchoResponse(message=f"{float(y.sum()):.4f}",
+                                     payload=y.tobytes())
+
+    def Infer(self, cntl, request, done):
+        y = self.forward(self._row(request)[None])
+        self._note("Infer", 1)
+        return self._response(y[0])
+
+    def InferBatched(self, batch):
+        rows = []
+        for i, r in enumerate(batch.requests):
+            try:
+                rows.append(self._row(r))
+            except ValueError as e:
+                batch.fail(i, errors.EREQUEST, str(e))
+                rows.append(np.zeros(DIM, np.float32))
+        y = self.forward(batch.stack(rows))  # ONE call for the whole batch
+        self._note("InferBatched", batch.size)
+        return [self._response(y[i]) for i in range(batch.size)]
+
+
+def serve(cpu: bool) -> int:
+    from brpc_tpu_torch.batch import metrics as bmetrics
+    from brpc_tpu_torch.tpu.device_lane import resolve_device
+
+    device = resolve_device("cpu" if cpu else None)
+    svc = BatchBenchService(device)
+    server = Server().add_service(svc).start("127.0.0.1:0")
+    print(f"LISTEN {server.listen_endpoint()}", flush=True)
+    sys.stdin.read()  # the parent holds the pipe
+    server.stop()
+    server.join()
+    print("SERVED " + json.dumps({
+        "device": str(device),
+        "calls": {m: {"forward_calls": c, "items": n}
+                  for m, (c, n) in svc.calls.items()},
+        "g_batch_size": bmetrics.g_batch_size.describe(),
+        "g_batch_queue_delay_us": bmetrics.g_batch_queue_delay_us.describe(),
+        "g_batch_size_avg": bmetrics.g_batch_size.get_value(),
+        "g_batch_queue_delay_us_avg":
+            bmetrics.g_batch_queue_delay_us.get_value()}), flush=True)
+    return 0
+
+
+def pipelined(ch, method, req, depth, total, timeout=300.0):
+    """``total`` calls of ``method`` with ``depth`` in flight (each done
+    issues the next). Returns (QPS, sorted latencies in s, the last
+    response)."""
+    md = MethodDescriptor("BatchBench", method, echo_pb2.EchoRequest,
+                          echo_pb2.EchoResponse)
+    done_ev = threading.Event()
+    lock = threading.Lock()
+    state = {"issued": 0, "completed": 0, "errors": [], "resp": None}
+    lats = []
+
+    def issue():
+        ch.call_method(md, req, done=make_done(time.perf_counter()))
+
+    def make_done(t0):
+        def done(cntl):
+            again = False
+            with lock:
+                lats.append(time.perf_counter() - t0)
+                if cntl.failed():
+                    state["errors"].append((cntl.error_code,
+                                            cntl.error_text()))
+                else:
+                    state["resp"] = cntl._response
+                state["completed"] += 1
+                if state["issued"] < total:
+                    state["issued"] += 1
+                    again = True
+                elif state["completed"] >= total:
+                    done_ev.set()
+            if again:
+                issue()
+        return done
+
+    t_start = time.perf_counter()
+    with lock:
+        n0 = min(depth, total)
+        state["issued"] = n0
+    for _ in range(n0):
+        issue()
+    if not done_ev.wait(timeout):
+        raise RuntimeError(f"{method} stalled: {state['completed']}/"
+                           f"{total}")
+    if state["errors"]:
+        raise RuntimeError(f"{len(state['errors'])} {method} calls failed: "
+                           f"{state['errors'][:3]}")
+    wall = time.perf_counter() - t_start
+    lats.sort()
+    return len(lats) / wall, lats, state["resp"]
+
+
+def pct(xs, q):
+    return float(xs[min(len(xs) - 1, int(q * len(xs)))])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--cpu", action="store_true")
+    args = ap.parse_args(argv)
+    if args.serve:
+        return serve(args.cpu)
+
+    cmd = [sys.executable, os.path.abspath(__file__), "--serve"]
+    if args.cpu:
+        cmd.append("--cpu")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    served = None
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("LISTEN "):
+            raise RuntimeError(f"server never came up: {line!r}")
+        ch = Channel(ChannelOptions(timeout_ms=30000)).init(
+            line.split()[1])
+        rng = np.random.default_rng(7)
+        req = echo_pb2.EchoRequest(
+            message="b",
+            payload=rng.standard_normal(DIM, dtype=np.float32).tobytes())
+        for method, (depth, total) in WARM.items():
+            pipelined(ch, method, req, depth, total)
+        out = {}
+        rows = {}
+        div = 4 if args.cpu else 1
+        for method, (depth, total) in TIMED.items():
+            qps, lats, resp = pipelined(ch, method, req, depth,
+                                        total // div)
+            rows[method] = np.frombuffer(resp.payload, np.float32)
+            out[method] = {"in_flight": depth, "calls": total // div,
+                           "qps": qps, "p50_ms": pct(lats, 0.5) * 1e3,
+                           "p99_ms": pct(lats, 0.99) * 1e3}
+        a, b = rows["InferBatched"], rows["Infer"]
+        out["batched_over_per_request"] = (out["InferBatched"]["qps"]
+                                           / out["Infer"]["qps"])
+        out["max_rel_diff"] = float(np.linalg.norm(a - b)
+                                    / max(np.linalg.norm(b), 1e-30))
+    finally:
+        proc.stdin.close()
+        rest = proc.stdout.read()
+        proc.wait(timeout=60)
+        for line in rest.splitlines():
+            if line.startswith("SERVED "):
+                served = json.loads(line.split(" ", 1)[1])
+    if served is None:
+        raise RuntimeError(f"the server printed no SERVED line: {rest!r}")
+    out["server"] = served
+    print(json.dumps({"batch_lane": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -292,3 +292,10 @@ serving_migrate_backlog_max = define(
     "KV migrations are in flight at once: prefill engines ship chains "
     "faster than decode engines adopt them (reloadable: the rule reads "
     "the flag at every tick)", validator=_positive)
+serving_qos_starvation_ms = define(
+    "serving_qos_starvation_ms", 2000.0,
+    "serving_qos_starvation watch rule fires when the oldest queued "
+    "request across the QoS tenant lanes has waited more than this many "
+    "milliseconds: fair-share weights (or the limiter ceiling) are "
+    "starving a lane (reloadable: the rule reads the flag at every "
+    "tick)", validator=_positive)

@@ -307,3 +307,12 @@ def _add_default_rules() -> None:
         "serving_spec_collapse", "g_serving_spec_accept_rate",
         KIND_THRESHOLD, "<", 0.2, window_s=10, for_ticks=2, clear_ticks=5,
         value_fn=lambda: _flags.get("serving_spec_accept_rate_min")))
+    # multi-tenant QoS: the oldest queued request sitting past the bound
+    # means a tenant lane is starving (the fair-share weights, the
+    # limiter ceiling, or a protected flood locks a lane out faster than
+    # the governor sheds). Bound: the reloadable serving_qos_starvation_ms
+    # flag
+    w.add(WatchRule(
+        "serving_qos_starvation", "g_serving_qos_max_wait_ms",
+        KIND_THRESHOLD, ">", 2000, window_s=10, for_ticks=2, clear_ticks=5,
+        value_fn=lambda: _flags.get("serving_qos_starvation_ms")))

@@ -87,6 +87,18 @@ def _device_collective_apply(device, meta, payload: bytes,
     return errors.OK, resp.SerializeToString(), b""
 
 
+def _sub_controller(cntl: Controller) -> Controller:
+    """A sub-call's controller: the caller's deadline and its QoS identity
+    (``tenant_id`` / ``priority``), so a routed call bills the tenant's
+    lane on the server it lands on. The JAX package's sub-controllers
+    carry the deadline only (ROADMAP Queue 3)."""
+    sub = Controller()
+    sub.timeout_ms = cntl.timeout_ms
+    sub.tenant_id = cntl.tenant_id
+    sub.priority = cntl.priority
+    return sub
+
+
 class CollectiveScheme:
     """How a tensor fan-out should execute: the fn (registered by name so
     BOTH paths — the shard_map program and the per-device RPC — resolve
@@ -421,8 +433,7 @@ class ParallelChannel:
                 # already "canceled" (they were never in sub_cntls)
                 if state["finished"]:
                     break
-                sub_cntl = Controller()
-                sub_cntl.timeout_ms = cntl.timeout_ms
+                sub_cntl = _sub_controller(cntl)
                 state["sub_cntls"].append(sub_cntl)
             channel.call_method(sub.method, sub.request,
                                 response=sub.response,
@@ -493,8 +504,7 @@ class SelectiveChannel:
                 if idx is None:
                     cntl.set_failed(errors.EHOSTDOWN, "no sub-channels")
                     break
-                sub_cntl = Controller()
-                sub_cntl.timeout_ms = cntl.timeout_ms
+                sub_cntl = _sub_controller(cntl)
                 # each attempt gets an ISOLATED response: a failed attempt
                 # that partially filled its response must not leak state
                 # into the next attempt or the caller's object (reference

@@ -35,6 +35,12 @@ from brpc_tpu_torch.rpc.socket import Socket
 
 log = logging.getLogger("brpc_tpu_torch.input_messenger")
 
+# Poll-batch boundary hook (brpc_tpu_torch.batch installs flush_poll_batch
+# here): called after each cut loop so request batchers can flush
+# everything the last read batch admitted. None until a BatchQueue first
+# registers.
+poll_batch_hook = None
+
 
 def _inline_cut_max() -> int:
     return int(flags.get("inline_cut_max_bytes"))
@@ -170,6 +176,9 @@ class InputMessenger:
             if batch_hook is not None:
                 batch_hook.cut_batch_end()
             _prof.set_phase(prev_ph)
+            hook = poll_batch_hook
+            if hook is not None:
+                hook()
         return count
 
     def _cut_one(self, sock: Socket) -> Optional[ParsedMessage]:

@@ -33,6 +33,15 @@
   decode-role engine; a stopping engine drains its live chains to a
   survivor. Loaded on first use (``KVMigrator`` / ``MigrationReceiver``
   below), so co-located deployments never load it.
+- :mod:`brpc_tpu_torch.serving.qos` — multi-tenant QoS: weighted
+  fair-share lanes (``TenantScheduler``), the AIMD admission ceiling
+  (``QosLimiter``) and the sampler-tick governor that sheds best-effort
+  work (``QosGovernor``), under ``EngineConfig(qos=QosConfig(...))``.
+- :mod:`brpc_tpu_torch.serving.router` — ``ShardedLlmChannel``, the
+  client of a shard-per-server fleet: each Generate goes to its one
+  owner partition (``GenerateRouter`` over a ``PartitionChannel``),
+  Stats fans out and sums, a two-stage fleet's handoff is followed and
+  stitched. Loaded on first use.
 - :mod:`brpc_tpu_torch.serving.service` — ``LlmServingService``
   (``Generate`` with per-token streams and ``resume_seq_id``,
   ``MigrateOpen`` / ``MigrateCommit``, ``Stats``) for a
@@ -50,6 +59,8 @@ from brpc_tpu_torch.serving.prefix_cache import (PrefixCache,
                                                  ShardedPrefixCache,
                                                  build_prefix_cache,
                                                  prefix_route_key)
+from brpc_tpu_torch.serving.qos import (QosConfig, QosGovernor, QosLimiter,
+                                        TenantScheduler)
 from brpc_tpu_torch.serving.speculative import (AdaptiveK,
                                                 accept_longest_prefix,
                                                 draft_tokens)
@@ -57,11 +68,15 @@ from brpc_tpu_torch.serving.speculative import (AdaptiveK,
 
 
 def __getattr__(name):
-    # the mesh model and the migration plane load on first use: plain
-    # single-device and co-located deployments never import them
+    # the mesh model, the router and the migration plane load on first
+    # use: plain single-device and co-located deployments never import
+    # them
     if name == "MeshTransformer":
         from brpc_tpu_torch.serving.mesh_model import MeshTransformer
         return MeshTransformer
+    if name == "ShardedLlmChannel":
+        from brpc_tpu_torch.serving.router import ShardedLlmChannel
+        return ShardedLlmChannel
     if name == "KVMigrator":
         from brpc_tpu_torch.serving.migration import KVMigrator
         return KVMigrator
@@ -76,7 +91,8 @@ __all__ = [
     "ShardTable",
     "ModelConfig", "TinyTransformer", "MeshTransformer",
     "EngineConfig", "GenerateResult", "ServingEngine", "active_engines",
-    "KVMigrator", "MigrationReceiver",
+    "KVMigrator", "MigrationReceiver", "ShardedLlmChannel",
+    "QosConfig", "QosGovernor", "QosLimiter", "TenantScheduler",
     "PrefixCache", "ShardedPrefixCache", "build_prefix_cache",
     "prefix_route_key",
     "AdaptiveK", "accept_longest_prefix", "draft_tokens",

@@ -65,7 +65,19 @@ Over a :class:`~brpc_tpu_torch.serving.kv_cache.ShardedKVCache` (a
 shards), a prompt is placed on its prefix-hash shard at submit and at
 allocation, the watermark is the owning shard's, and ``snapshot()``'s
 ``shard_steps`` attributes each decode step to the shards whose
-sequences it ran. Still to port: QoS (ROADMAP Queue 1 item 5).
+sequences it ran.
+
+Multi-tenant QoS, as in the reference: ``EngineConfig(qos=QosConfig(...))``
+replaces the FIFO queue with ``serving/qos.TenantScheduler``'s weighted
+fair-share lanes (a request bills ``tenant_id``'s lane, from ``cntl`` or
+passed to ``submit``; ``priority`` at or above ``protected_priority``
+rides the protected lane), re-checks the deadline, the lane's cap and
+the closed loop's ceiling at every enqueue (EOVERCROWDED, retriable),
+and installs ``QosGovernor`` on the series sampler's post-tick hooks,
+which shrinks the ceiling under rising queue wait and sheds queued
+best-effort work down to it. The ``serving.qos.burst`` fault point
+clones a tenant's submits. ``qos=None`` (the default) keeps the FIFO
+path as it was.
 """
 
 from __future__ import annotations
@@ -86,6 +98,7 @@ from brpc_tpu_torch.metrics.reducer import Adder
 from brpc_tpu_torch.metrics.status import PassiveStatus
 from brpc_tpu_torch.profiling import registry as _prof
 from brpc_tpu_torch.proto import serving_pb2
+from brpc_tpu_torch.serving import qos as _qos
 from brpc_tpu_torch.serving import speculative as _spec
 from brpc_tpu_torch.serving.kv_cache import KVCacheFull, PagedKVCache
 from brpc_tpu_torch.tpu.device_lane import step_dispatch
@@ -145,7 +158,7 @@ class EngineConfig:
                  scheduling: str = SCHED_CONTINUOUS,
                  idle_wait_s: float = 0.05, role: str = ROLE_BOTH,
                  spec_k: int = 0, spec_ngram: int = 3,
-                 spec_collapse_after: int = 4):
+                 spec_collapse_after: int = 4, qos=None):
         if scheduling not in (SCHED_CONTINUOUS, SCHED_STATIC):
             raise ValueError(f"unknown scheduling {scheduling!r}")
         if role not in (ROLE_PREFILL, ROLE_DECODE, ROLE_BOTH):
@@ -173,6 +186,10 @@ class EngineConfig:
         self.spec_k = spec_k
         self.spec_ngram = spec_ngram
         self.spec_collapse_after = spec_collapse_after
+        # multi-tenant QoS: a serving.qos.QosConfig turns admission into
+        # weighted fair share and the closed-loop overload governor; None
+        # keeps the single-tenant FIFO path
+        self.qos = qos
 
 
 @dataclasses.dataclass
@@ -206,7 +223,8 @@ class Sequence:
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
                  stop_token: int = 0, done: Optional[Callable] = None,
-                 cntl=None, stream_id: int = 0):
+                 cntl=None, stream_id: int = 0, tenant_id: str = "",
+                 priority: int = 0):
         with Sequence._ids_lock:
             Sequence._ids[0] += 1
             self.seq_id = Sequence._ids[0]
@@ -216,6 +234,10 @@ class Sequence:
         self.done = done
         self.cntl = cntl
         self.stream_id = stream_id
+        # QoS identity: which fair-share lane this bills, and how
+        # protected it is under shedding
+        self.tenant_id = tenant_id
+        self.priority = priority
         self.state = STATE_WAITING
         self.out_tokens: List[int] = []
         # tokens covered by a forked prefix-cache chain (block-aligned);
@@ -293,6 +315,13 @@ class ServingEngine:
         # per-shard decode attribution: shard -> [steps, total_us,
         # last_us, seq_steps] (only shards with live sequences tick)
         self._shard_step: Dict[int, List[float]] = {}
+        # multi-tenant QoS: the fair-share scheduler replaces _waiting as
+        # the queue and the governor closes the overload loop from the
+        # sampler tick (installed in start())
+        self.qos = (_qos.TenantScheduler(self.config.qos, engine=self)
+                    if self.config.qos is not None else None)
+        self._qos_governor = (_qos.QosGovernor(self)
+                              if self.qos is not None else None)
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "ServingEngine":
@@ -300,6 +329,16 @@ class ServingEngine:
             if self.running:
                 return self
             self.running = True
+        if self._qos_governor is not None:
+            # the governor rides the 1 Hz sampler tick, sampling the
+            # queue-wait series ring the sweep just filled
+            from brpc_tpu_torch.metrics.series import (
+                ensure_series_installed, global_series)
+
+            ensure_series_installed()
+            hooks = global_series().post_tick_hooks
+            if self._qos_governor not in hooks:
+                hooks.append(self._qos_governor)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="brpc-torch-serving-engine")
         self._thread.start()
@@ -321,6 +360,13 @@ class ServingEngine:
                 return
             self.running = False
             self._cv.notify_all()
+        if self._qos_governor is not None:
+            from brpc_tpu_torch.metrics.series import global_series
+
+            try:
+                global_series().post_tick_hooks.remove(self._qos_governor)
+            except ValueError:
+                pass
         if self._thread is not None:
             self._thread.join(timeout=10.0)
             self._thread = None
@@ -330,14 +376,7 @@ class ServingEngine:
         if self.migrator is not None:
             self._drain_migrate()
         # fail anything still in flight, then the pool is whole again
-        with self._cv:
-            pending = (list(self._waiting) + list(self._running)
-                       + list(self._adopted_pending))
-            self._waiting.clear()
-            self._running = []
-            self._adopted_pending.clear()
-        for seq in pending:
-            self._finish(seq, abort_code, "engine stopped")
+        self._abort_all_locked_out(abort_code, "engine stopped")
         with self._cv:
             self._adopted.clear()
             self._recover_index.clear()
@@ -351,7 +390,9 @@ class ServingEngine:
     # ------------------------------------------------------------ admission
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
                stop_token: int = 0, done: Optional[Callable] = None,
-               cntl=None, stream_id: int = 0, resume_seq_id: int = 0
+               cntl=None, stream_id: int = 0, resume_seq_id: int = 0,
+               tenant_id: Optional[str] = None,
+               priority: Optional[int] = None, _synthetic: bool = False
                ) -> "tuple[int, Optional[Sequence]]":
         """Admission front door (runs on the RPC thread). Returns
         (error_code, seq): 0 and the queued sequence, or a reject code
@@ -362,7 +403,12 @@ class ServingEngine:
         ``stream_id`` is the server-side stream accepted for the request,
         0 for none. ``resume_seq_id`` attaches to a migrated-in sequence
         (the handoff reply named it): no admission, no allocation, the
-        chain is already here."""
+        chain is already here.
+
+        ``tenant_id`` / ``priority`` default to the wire identity on
+        ``cntl``; pass them when no controller carries them.
+        ``_synthetic`` marks the clones of the ``serving.qos.burst``
+        fault point, so they do not fire it again."""
         if resume_seq_id:
             with self._cv:
                 seq = self._adopted.get(resume_seq_id)
@@ -399,10 +445,25 @@ class ServingEngine:
             self.rejected += 1
             g_serving_rejected.put(1)
             return errors.EOVERCROWDED, None
+        if tenant_id is None:
+            tenant_id = getattr(cntl, "tenant_id", "") if cntl else ""
+        if priority is None:
+            priority = getattr(cntl, "priority", 0) if cntl else 0
+        if self.qos is not None and not _synthetic:
+            # chaos: inflate this tenant's arrival rate at admission;
+            # each real submit fans out factor - 1 synthetic clones that
+            # bill the same lane (and shed the same way)
+            burst = _fault.hit("serving.qos.burst", tenant=tenant_id)
+            if burst is not None:
+                for _ in range(max(0, int(burst.get("factor", 2)) - 1)):
+                    self.submit(prompt, max_new_tokens,
+                                stop_token=stop_token, tenant_id=tenant_id,
+                                priority=priority, _synthetic=True)
         with self._cv:
             if not self.running:
                 return errors.ELOGOFF, None
-            if len(self._waiting) >= self.config.max_queue:
+            if self.qos is None \
+                    and len(self._waiting) >= self.config.max_queue:
                 self.rejected += 1
                 g_serving_rejected.put(1)
                 return errors.EOVERCROWDED, None
@@ -410,8 +471,8 @@ class ServingEngine:
             # tokens too, else a burst overcommits the pool before the
             # step loop catches up
             seq = Sequence(prompt, max_new_tokens, stop_token, done, cntl,
-                           stream_id)
-            queued = sum(s.context_len() for s in self._waiting)
+                           stream_id, tenant_id=tenant_id, priority=priority)
+            queued = sum(s.context_len() for s in self._iter_waiting())
             need = queued + len(prompt)
             shard = None
             if self.prefix is not None:
@@ -435,12 +496,33 @@ class ServingEngine:
                     self.rejected += 1
                     g_serving_rejected.put(1)
                     return errors.EOVERCROWDED, None
-            self._waiting.append(seq)
+            if self.qos is not None:
+                # the tenant's fair-share lane: enqueue re-evaluates the
+                # QoS predicate (deadline, lane cap, ceiling) under the
+                # lock, so the check and the append are one decision
+                code = self.qos.enqueue(seq)
+                if code != 0:
+                    if code == errors.ERPCTIMEDOUT:
+                        g_serving_deadline_rejects.put(1)
+                    self.rejected += 1
+                    g_serving_rejected.put(1)
+                    return code, None
+            else:
+                self._waiting.append(seq)
             self._cv.notify()
         return 0, seq
 
+    def _iter_waiting(self):
+        """Every queued, not yet admitted sequence (lock held): the FIFO
+        deque, or the fair-share lanes with QoS on."""
+        if self.qos is not None:
+            return self.qos.iter_waiting()
+        return iter(self._waiting)
+
     @property
     def queue_depth(self) -> int:
+        if self.qos is not None:
+            return self.qos.total_depth()
         return len(self._waiting)
 
     @property
@@ -541,7 +623,9 @@ class ServingEngine:
                 with self._cv:
                     while (self.running and not self._waiting
                            and not self._running
-                           and not self._adopted_pending):
+                           and not self._adopted_pending
+                           and (self.qos is None
+                                or self.qos.total_depth() == 0)):
                         self._cv.wait(self.config.idle_wait_s)
                     if not self.running:
                         return
@@ -581,6 +665,8 @@ class ServingEngine:
         # it reserves that many budget slots, not one
         budget = cfg.token_budget - sum(self._decode_cost(s)
                                         for s in self._running)
+        if self.qos is not None:
+            return self._admit_qos_locked(admitted, budget)
         while (self._waiting and len(self._running) < cfg.max_batch
                and budget >= self._prefill_cost(self._waiting[0])):
             seq = self._waiting[0]
@@ -608,6 +694,46 @@ class ServingEngine:
                     break
             self._waiting.popleft()
             budget -= self._prefill_cost(seq)
+            seq.state = STATE_RUNNING
+            self._running.append(seq)
+            admitted.append(seq)
+            g_serving_admitted.put(1)
+        return admitted
+
+    def _admit_qos_locked(self, admitted: List[Sequence],
+                          budget: int) -> List[Sequence]:
+        """Fair-share admission: each pull serves the backlogged tenant
+        with the smallest virtual clock (stride scheduling meters the
+        step's token budget by weight); the deadline is re-checked per
+        sequence as the FIFO path does, and a head the pool cannot take
+        keeps its turn for the next step's full budget."""
+        cfg = self.config
+        while len(self._running) < cfg.max_batch:
+            seq = self.qos.peek(budget, self._prefill_cost)
+            if seq is None:
+                break
+            deadline = (getattr(seq.cntl, "deadline_mono", 0.0)
+                        if seq.cntl else 0.0)
+            if deadline and time.monotonic() >= deadline:
+                self.qos.drop(seq)
+                g_serving_deadline_rejects.put(1)
+                self._finish(seq, errors.ERPCTIMEDOUT,
+                             "deadline expired in serving queue")
+                continue
+            try:
+                self._alloc_for(seq)
+            except KVCacheFull:
+                if not (self.prefix is not None
+                        and self.prefix.evict_for_admission(
+                            seq.context_len(), route_key=seq.seq_id)):
+                    break
+                try:
+                    self._alloc_for(seq)
+                except KVCacheFull:
+                    break
+            cost = self._prefill_cost(seq)
+            self.qos.commit(seq, cost)
+            budget -= cost
             seq.state = STATE_RUNNING
             self._running.append(seq)
             admitted.append(seq)
@@ -1040,6 +1166,23 @@ class ServingEngine:
         except Exception:  # a caller's callback must not kill the engine
             _log.exception("completion of sequence %d raised", seq.seq_id)
 
+    def _abort_all_locked_out(self, code: int, reason: str) -> None:
+        """Fail every queued, running and pending-adoption sequence with
+        ``code`` (takes the lock itself; the completions run outside
+        it)."""
+        with self._cv:
+            pending = (list(self._waiting) + list(self._running)
+                       + list(self._adopted_pending))
+            self._waiting.clear()
+            self._running = []
+            self._adopted_pending.clear()
+            if self.qos is not None:
+                for seq in list(self.qos.iter_waiting()):
+                    self.qos.drop(seq)
+                    pending.append(seq)
+        for seq in pending:
+            self._finish(seq, code, reason)
+
     # ------------------------------------------------------------ visibility
     def snapshot(self) -> Dict[str, object]:
         def pct(samples, q):
@@ -1085,4 +1228,6 @@ class ServingEngine:
             "spec": (dict(self.spec_stats.snapshot(),
                           k_max=self.config.spec_k)
                      if self.spec_stats is not None else None),
+            "qos": (self.qos.snapshot()
+                    if self.qos is not None else None),
         }

@@ -35,9 +35,10 @@ a :class:`~brpc_tpu_torch.serving.kv_cache.ShardedKVCache`, each over its
 shard's ledger. Placement is prefix-hash routed: ``prefix_route_key``
 folds the first block of token ids, and the shard plane's ``shard_for``
 maps it to a shard, so same-prefix traffic lands on the shard that holds
-the chain. The client-side half of that routing (the reference's
-``GenerateRouter`` over a ``PartitionChannel``) waits for the serving
-router, ROADMAP Queue 1 item 7(c).
+the chain. The client-side half of that routing is
+``serving/router.GenerateRouter`` over a ``PartitionChannel``
+(``ShardedLlmChannel(..., block_size=)``): the client computes the same
+shard for a prompt as this cache does.
 """
 
 from __future__ import annotations

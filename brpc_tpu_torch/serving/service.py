@@ -31,8 +31,11 @@ receiver is built at the first call), and a ``Generate`` carrying
 ``resume_seq_id`` attaches to the sequence a handoff named: no prompt,
 no admission, EREQUEST when no such sequence is parked here.
 
-Not ported yet: QoS (ROADMAP Queue 1 item 5), so ``tenant_id`` and
-``priority`` are accepted and ignored.
+Multi-tenant QoS: ``Generate`` passes the request's ``tenant_id`` and
+``priority`` (``RequestMeta``, decoded onto ``cntl`` by the dispatch
+path) to the engine, which bills the tenant's fair-share lane and sheds
+the best-effort lanes first under overload when it runs with
+``EngineConfig(qos=)``.
 """
 
 from __future__ import annotations
@@ -79,7 +82,9 @@ class LlmServingService(Service):
         code, _seq = self.engine.submit(
             prompt, request.max_new_tokens or 16,
             stop_token=request.stop_token, cntl=cntl, done=done,
-            stream_id=self._accept_stream(cntl))
+            stream_id=self._accept_stream(cntl),
+            tenant_id=getattr(cntl, "tenant_id", ""),
+            priority=getattr(cntl, "priority", 0))
         if code != 0:
             cntl.set_failed(code, "serving admission rejected")
             return serving_pb2.GenerateResponse()

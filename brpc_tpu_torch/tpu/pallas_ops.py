@@ -49,10 +49,13 @@ _MAX_GRID_Y = 65535                # batch * heads ride the grid's y axis
 
 class LaunchCounts:
     """Per-kernel launch counts, bumped by each wrapper right where it
-    launches its kernel and nowhere else."""
+    launches its kernel and nowhere else; also kept per launching thread,
+    so two engines in one process (each stepping on its own thread) can
+    each read their own."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._by_thread: dict = {}
         self._n = {name: 0 for name in ("flash_attention", "flash_fwd",
                                         "flash_fwd_qgrid", "flash_carry",
                                         "flash_bwd_dq", "flash_bwd_dkv",
@@ -62,12 +65,21 @@ class LaunchCounts:
                                         "hbm_copy", "hbm_copy_batched")}
 
     def add(self, name: str) -> None:
+        ident = threading.get_ident()
         with self._lock:
             self._n[name] += 1
+            mine = self._by_thread.setdefault(ident, {})
+            mine[name] = mine.get(name, 0) + 1
 
     def __getitem__(self, name: str) -> int:
         with self._lock:
             return self._n[name]
+
+    def of_thread(self, ident: int, name: str) -> int:
+        """``name``'s launches made on thread ``ident`` since the last
+        reset."""
+        with self._lock:
+            return self._by_thread.get(ident, {}).get(name, 0)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -77,6 +89,7 @@ class LaunchCounts:
         with self._lock:
             for name in self._n:
                 self._n[name] = 0
+            self._by_thread.clear()
 
 
 launches = LaunchCounts()

@@ -72,6 +72,32 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   equal to its RPC path; a ``Channel`` over the ``tpu://`` naming
   service and the rr balancer echoes through the device EchoService;
   the ported ``collective_fanout`` example runs as a fresh interpreter.
+- The sharded router (phase 4i): two llm_server engines on the card,
+  each behind its own Server in this process, under
+  ``ShardedLlmChannel("list://... 0/2,... 1/2", 2)``: PROMPT_LENS and the
+  corpus schedule routed, tokens equal phase 4's and a single engine's
+  on the same windows, each request on ``shard_for(route key, 2)``, the
+  serving kernel launched layers x the shard's prefills on each shard's
+  engine thread, ``stats()`` the sum of the shards' Stats; the owner of
+  a long Generate killed mid-decode (a retriable EFAILEDSOCKET naming
+  the shard, no block held after); the two-stage fleet (prefill shard ->
+  decode shard) stitching phase 4's tokens; tokens/s and TTFT beside the
+  single engine's.
+- Multi-tenant QoS (phase 4j): the committed overload corpus
+  (``tests/data/serving_corpus_overload``) through the port's replayer
+  and RPC front, three times at each of 0.25x, 1x and 2x its recorded
+  rate (latencies pooled per rate), against an engine
+  with the reference's closed-loop ``QosConfig`` and one with
+  ``qos=None``: prod sheds nothing, every failure a best-effort
+  EOVERCROWDED shed, completed tokens equal the ``qos=None`` engine's,
+  the kernel launched layers x completed requests; prod's p99 ratio at
+  2x over 0.25x with and without QoS beside the 1.5x bound.
+- Request batching (phase 4k): the batched_inference example's service
+  on the card, a 65-request burst with one poisoned (answers within 1e-5
+  of per-request forwards, ``g_batch_size`` above 1, the poisoned one
+  failing alone), the example's server and client as fresh
+  interpreters, ``bench/batch_lane.py`` (batched and per-request QPS and
+  p50), and the five host-only examples.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm forward and backward kernels against their plain versions in
   fp32 and bf16 (the RMSNorm pair also at its rows' edges and widths past
@@ -422,13 +448,15 @@ def check_against_cpu(dev):
           flush=True)
 
 
-def build_engine(dev, attn, prefix_cache=False, spec_k=0, role="both"):
+def build_engine(dev, attn, prefix_cache=False, spec_k=0, role="both",
+                 qos=None, engine_cfg=None):
     """The llm_server example's engine at full width. The prefix cache is
     off unless ``prefix_cache=None`` (the engine's default) is passed:
     the serving phases before the prefix-cache phase count one flash
     launch per layer and prefill, and their numbers stay comparable with
     the runs before the cache was ported. ``role`` places it in a
-    disaggregated pair."""
+    disaggregated pair; ``qos`` and ``engine_cfg`` (EngineConfig fields
+    over max_batch 8 and TOKEN_BUDGET) are phase 4j's."""
     cfg = ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=2,
                       max_context=1024, seed=0, attn=attn)
     kv = PagedKVCache(KVCacheConfig(block_size=16, num_blocks=256,
@@ -436,9 +464,11 @@ def build_engine(dev, attn, prefix_cache=False, spec_k=0, role="both"):
                       cfg.n_layers, cfg.kv_dim, device=dev)
     kv._check = True  # audit the ledger and the (1, 1) step contract
     model = TinyTransformer(cfg, kv)
+    knobs = dict(max_batch=8, token_budget=TOKEN_BUDGET)
+    knobs.update(engine_cfg or {})
     engine = ServingEngine(model, kv, EngineConfig(
-        max_batch=8, token_budget=TOKEN_BUDGET, idle_wait_s=0.001,
-        spec_k=spec_k, role=role), prefix_cache=prefix_cache)
+        idle_wait_s=0.001, spec_k=spec_k, role=role, qos=qos, **knobs),
+        prefix_cache=prefix_cache)
     return engine.start()
 
 
@@ -1392,6 +1422,14 @@ def run_example_pair(server, server_args, client_name, client_args):
     return out, rest
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def run_examples(smi):
     """Phase 4f: the ported examples as users start them, each server and
     client a fresh interpreter on the card (``--device`` left at its
@@ -1399,12 +1437,6 @@ def run_examples(smi):
     tests/test_examples.py holds the reference's, none loading JAX, the
     JAX package or protobuf. The device servers and tpu_transfer print
     their copy kernels' launches, which are read back here."""
-    def free_port():
-        import socket
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
     p_echo, p_stream = free_port(), free_port()
     jobs = {
         "echo": lambda: run_example_pair(
@@ -1880,6 +1912,554 @@ def run_combo(dev, smi):
         raise AssertionError(f"collective_fanout: {out}")
     row["example"] = out.strip().splitlines()[:2]
     print(json.dumps({"combo": row}), flush=True)
+
+
+# ------------------------------------------ phase 4i: the sharded router
+ROUTER_KILL = (100, 400)     # the doomed Generate: it outlives the kill
+
+
+def build_shard(dev, role="both", qos=None, engine_cfg=None):
+    """One shard of a fleet: phase 4's engine (``build_engine``) behind
+    its own Server."""
+    engine = build_engine(dev, "auto", role=role, qos=qos,
+                          engine_cfg=engine_cfg)
+    server = rpc.Server().add_service(LlmServingService(engine)) \
+        .start("127.0.0.1:0")
+    return server, engine
+
+
+def close_shard(server, engine, what):
+    server.stop()
+    server.join(timeout=5)
+    engine.stop()
+    engine.kv.assert_idle(what)
+    engine.model.close()
+    engine.kv.close()
+
+
+def routed_window(call, requests):
+    """(prompt_len, max_new) requests as concurrent non-streamed
+    Generates, one thread each, through ``call(request)``. Returns (the
+    responses in order, {tokens/s from the first call to the last answer,
+    TTFT p50 / max as the engines report it (submit to first token),
+    client latency p50})."""
+    out = [None] * len(requests)
+    lat = [0.0] * len(requests)
+    errs = []
+
+    def run(i, plen, max_new):
+        t0 = time.perf_counter()
+        try:
+            out[i] = call(serving_pb2.GenerateRequest(
+                prompt_len=plen, max_new_tokens=max_new))
+        except Exception as e:  # reported below, all at once
+            errs.append((plen, max_new, repr(e)))
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run, args=(i, p, m))
+               for i, (p, m) in enumerate(requests)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errs or any(r is None for r in out):
+        raise AssertionError(f"routed Generates failed: {errs}")
+    for (plen, max_new), r in zip(requests, out):
+        if len(r.tokens) != max_new or r.finish_reason != "length":
+            raise AssertionError(f"Generate({plen}, {max_new}) ended "
+                                 f"{r.finish_reason} with {len(r.tokens)}")
+    tokens = sum(len(r.tokens) for r in out)
+    ttft = [r.ttft_us for r in out]
+    return out, {"requests": len(out), "tokens": tokens, "wall_s": wall,
+                 "tokens_per_s": tokens / wall,
+                 "ttft_us_p50": pct(ttft, 50), "ttft_us_max": max(ttft),
+                 "latency_us_p50": pct([x * 1e6 for x in lat], 50)}
+
+
+def same_tokens(what, got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if list(g.tokens) != list(w.tokens):
+            raise AssertionError(f"{what}, request {i}: {list(g.tokens)} "
+                                 f"!= {list(w.tokens)}")
+
+
+def kill_when_decoding(server, engine, tokens_before):
+    """Stop ``server`` and force-close its connections once ``engine``
+    has decoded past ``tokens_before``: the owner dies mid-Generate."""
+    def run():
+        deadline = time.monotonic() + 120
+        while (engine.tokens_generated <= tokens_before + 2
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        server.stop()
+        server.join(timeout=0)
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def kill_owner(ch, fleet):
+    """The owner of a long Generate dies mid-decode (the decode step
+    stalled 2 ms by ``serving.decode.stall`` so it cannot finish first):
+    the caller must get a retriable EFAILEDSOCKET naming the shard, and
+    the owner's armed ledger must get every block back."""
+    plen, max_new = ROUTER_KILL
+    req = serving_pb2.GenerateRequest(prompt_len=plen,
+                                      max_new_tokens=max_new)
+    owner = ch.shard_of(req)
+    server, engine = fleet[owner]
+    flags.set_flag("fault_injection_enabled", True)
+    fault.arm("serving.decode.stall", mode="always", delay_ms=2)
+    err = None
+    try:
+        killer = kill_when_decoding(server, engine, engine.tokens_generated)
+        try:
+            ch.generate(req)
+        except rpc.RpcError as e:
+            err = e
+        killer.join(30)
+    finally:
+        fault.disarm_all()
+        flags.set_flag("fault_injection_enabled", False)
+    if err is None:
+        raise AssertionError("the Generate survived its owner's death")
+    text = str(err)
+    if err.error_code != rpc.errors.EFAILEDSOCKET \
+            or f"shard {owner}/2" not in text or "retriable" not in text:
+        raise AssertionError(f"shard death surfaced as {err.error_code}: "
+                             f"{text}")
+    deadline = time.monotonic() + 30
+    while engine.running_count and time.monotonic() < deadline:
+        time.sleep(0.005)
+    used = engine.kv.snapshot()["blocks_used"]
+    if engine.running_count or used:
+        raise AssertionError(f"after the owner's death {engine.running_count}"
+                             f" sequences run and {used} blocks are held")
+    return {"owner": owner, "error_code": err.error_code,
+            "error": text[:160], "blocks_used_after": used}
+
+
+def run_router(dev, smi, n_layers, direct):
+    """Phase 4i: the sharded Generate router on the card. The same
+    window (PROMPT_LENS together, then the corpus schedule) goes first
+    through one engine behind its Server, then through
+    ``ShardedLlmChannel("list://... 0/2,... 1/2", 2)`` over two engines
+    on the card, each behind its own Server in this process: tokens equal
+    phase 4's and the single engine's, each request on ``shard_for(route
+    key, 2)``, the kernel launched layers x (the shard's prefills) on each
+    shard's engine thread, ``stats()`` the sum of the shards' Stats;
+    then the owner of a long Generate dies mid-decode; then the two-stage
+    fleet (prefill shard -> decode shard) stitches phase 4's tokens."""
+    from brpc_tpu_torch.serving import ShardedLlmChannel
+    from brpc_tpu_torch.serving.router import (StatsMerger,
+                                               generate_route_key)
+    from brpc_tpu_torch.shard.plane import shard_for
+
+    row = {"card": smi}
+    requests = list(zip(PROMPT_LENS, MAX_NEW))
+    opts = rpc.ChannelOptions(protocol="trpc_std", timeout_ms=600000)
+    server, engine = build_shard(dev)
+    try:
+        stub = rpc.Stub(rpc.Channel(opts).init(
+            str(server.listen_endpoint())), client.DESC)
+        routed_window(stub.Generate, [(16, 2)])  # warm-up
+        single, row["single"] = routed_window(stub.Generate, requests)
+        single_corpus, row["single_corpus"] = routed_window(
+            stub.Generate, CORPUS_SCHEDULE)
+    finally:
+        close_shard(server, engine, "the single engine of phase 4i")
+    same_tokens("single engine against phase 4", single, direct)
+
+    fleet = [build_shard(dev) for _ in range(2)]
+    url = (f"list://{fleet[0][0].listen_endpoint()} 0/2,"
+           f"{fleet[1][0].listen_endpoint()} 1/2")
+    try:
+        ch = ShardedLlmChannel(url, 2, options=opts)
+        owners = []
+        for plen, _ in requests:
+            req = serving_pb2.GenerateRequest(prompt_len=plen)
+            owners.append(ch.shard_of(req))
+            if owners[-1] != shard_for(generate_route_key(req), 2):
+                raise AssertionError(f"prompt {plen} routed off its shard")
+        if set(owners) != {0, 1}:
+            raise AssertionError(f"PROMPT_LENS all route to {owners}")
+        for s in (0, 1):  # warm each shard, uncounted
+            plen = next(p for p in range(1, 64)
+                        if ch.shard_of(serving_pb2.GenerateRequest(
+                            prompt_len=p)) == s)
+            routed_window(ch.generate, [(plen, 2)])
+        before = [e.tokens_generated for _, e in fleet]
+        pallas_ops.launches.reset()
+        routed, row["routed"] = routed_window(ch.generate, requests)
+        fleet[0][1].kv.store.fence()
+        per_shard = [pallas_ops.launches.of_thread(e._thread.ident,
+                                                   "flash_attention")
+                     for _, e in fleet]
+        total = pallas_ops.launches["flash_attention"]
+        want = [n_layers * owners.count(s) for s in (0, 1)]
+        if per_shard != want or total != n_layers * len(requests):
+            raise AssertionError(f"flash_attention launched {per_shard} "
+                                 f"(total {total}) on the shards, want "
+                                 f"{want}")
+        same_tokens("routed against phase 4", routed, direct)
+        served = [e.tokens_generated - b for (_, e), b in zip(fleet, before)]
+        if served != [sum(m for (_, m), o in zip(requests, owners)
+                          if o == s) for s in (0, 1)]:
+            raise AssertionError(f"the shards served {served} tokens")
+        corpus_owners = [ch.shard_of(serving_pb2.GenerateRequest(
+            prompt_len=p)) for p, _ in CORPUS_SCHEDULE]
+        pallas_ops.launches.reset()
+        corpus, row["routed_corpus"] = routed_window(ch.generate,
+                                                     CORPUS_SCHEDULE)
+        fleet[0][1].kv.store.fence()
+        corpus_launches = [pallas_ops.launches.of_thread(
+            e._thread.ident, "flash_attention") for _, e in fleet]
+        if corpus_launches != [n_layers * corpus_owners.count(s)
+                               for s in (0, 1)]:
+            raise AssertionError(f"corpus launches {corpus_launches}")
+        same_tokens("routed corpus against the single engine", corpus,
+                    single_corpus)
+        merged = ch.stats()
+        shard_stats = [rpc.Stub(rpc.Channel(opts).init(
+            str(s.listen_endpoint())), client.DESC).Stats(
+            serving_pb2.ServingStatsRequest()) for s, _ in fleet]
+        for f in StatsMerger.FIELDS:
+            if getattr(merged, f) != sum(getattr(s, f) for s in shard_stats):
+                raise AssertionError(f"stats().{f} = {getattr(merged, f)}, "
+                                     f"the shards' sum is "
+                                     f"{[getattr(s, f) for s in shard_stats]}")
+        row["stats"] = {f: getattr(merged, f) for f in StatsMerger.FIELDS}
+        row["kill"] = kill_owner(ch, fleet)
+    finally:
+        for i, (s, e) in enumerate(fleet):
+            close_shard(s, e, f"router shard {i}")
+    row["launches"] = {"per_shard": per_shard, "total": total,
+                       "corpus_per_shard": corpus_launches,
+                       "owners": owners}
+
+    pre = build_shard(dev, role="prefill")
+    dec = build_shard(dev, role="decode")
+    pre[1].set_migrator(KVMigrator(str(dec[0].listen_endpoint()),
+                                   dest_shard=1))
+    try:
+        ch2 = ShardedLlmChannel(
+            f"list://{pre[0].listen_endpoint()} 0/2,"
+            f"{dec[0].listen_endpoint()} 1/2", 2, options=opts,
+            prefill_partitions=[0])
+        staged, row["two_stage"] = routed_window(ch2.generate, requests)
+        same_tokens("two-stage against co-located", staged, direct)
+        if dec[1].prefill_tokens:
+            raise AssertionError(f"the decode shard prefilled "
+                                 f"{dec[1].prefill_tokens} tokens")
+    finally:
+        close_shard(pre[0], pre[1], "the prefill shard")
+        close_shard(dec[0], dec[1], "the decode shard")
+    for k in ("routed", "two_stage"):
+        row[f"{k}_over_single_tokens_per_s"] = (
+            row[k]["tokens_per_s"] / row["single"]["tokens_per_s"])
+    print(json.dumps({"router": row}), flush=True)
+    return row["launches"]
+
+
+# ------------------------------------------------- phase 4j: multi-tenant QoS
+# the reference's closed-loop settings (tests/test_serving_qos.py:571-586,
+# :546-556), at the llm_server example's widths on the card
+QOS_CFG = dict(tenants={"prod": 8.0, "batch": 1.0}, queue_cap=8,
+               protected_priority=1, ceiling_start=3.0, ceiling_min=2.0,
+               ceiling_max=3.0)
+QOS_ENGINE = dict(max_batch=5, token_budget=64, max_queue=256)
+QOS_RATES = (0.25, 1, 2)
+QOS_REPEATS = 3              # replays pooled per rate: 60 prod samples
+QOS_BOUND = 1.5              # prod's p99 at 2x over its 0.25x baseline
+QOS_SWEEP = (4, 8, 16, 32)   # where the QoS-off run breaks the bound
+CORPUS_OVERLOAD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "data", "serving_corpus_overload")
+
+
+def qos_replays(dev, qos, recs, rates):
+    """One engine (``qos``) behind its Server: a discarded 2x warm-up,
+    then the corpus QOS_REPEATS times at each rate multiple. Returns
+    ({rate: [replay, ...]}, flash launches over the measured replays, the
+    engine's QoS snapshot)."""
+    from brpc_tpu_torch.bench import qos_replay
+
+    server, engine = build_shard(dev, qos=qos, engine_cfg=QOS_ENGINE)
+    try:
+        ep = str(server.listen_endpoint())
+        qos_replay.replay(ep, recs, 2)
+        pallas_ops.launches.reset()
+        out = {m: [qos_replay.replay(ep, recs, m)
+                   for _ in range(QOS_REPEATS)] for m in rates}
+        engine.kv.store.fence()
+        launches = pallas_ops.launches.of_thread(engine._thread.ident,
+                                                 "flash_attention")
+        snap = engine.qos.snapshot() if engine.qos is not None else None
+    finally:
+        close_shard(server, engine, f"qos={qos is not None}")
+    return out, launches, snap
+
+
+def pooled(replays, recs):
+    """rpc_replay's per-tenant fields over every replay of one rate, and
+    each replay's own prod p99."""
+    from brpc_tpu_torch.bench import qos_replay
+
+    out = {}
+    for t in sorted({r.tenant for r in recs}):
+        idx = [i for i, r in enumerate(recs) if r.tenant == t]
+        out[t] = qos_replay.tenant_row(
+            [res["latency_us"][i] for res in replays for i in idx],
+            [res["records"][i][0] for res in replays for i in idx])
+        out[t]["p99_us_each"] = [res["tenants"][t]["p99_us"]
+                                 for res in replays]
+    return out
+
+
+def run_qos(dev, smi, n_layers):
+    """Phase 4j: multi-tenant QoS on the card. The committed overload
+    corpus, through the port's replayer (each record restamped with its
+    tenant and priority) and the port's RPC front, at 0.25x, 1x and 2x
+    its recorded rate, against one engine with the reference's
+    closed-loop QosConfig and one with ``qos=None``. Gated: prod sheds
+    nothing, every failure is a best-effort EOVERCROWDED shed, every
+    completed request gets the ``qos=None`` engine's tokens, the kernel
+    launched layers x completed requests, the starvation rule is
+    installed. Printed: prod's p99 at 2x over 0.25x with and without
+    QoS beside the 1.5x bound, and where the QoS-off run breaks it."""
+    from brpc_tpu_torch.bench import qos_replay
+    from brpc_tpu_torch.metrics.watch import (global_watch,
+                                              install_default_rules)
+    from brpc_tpu_torch.serving import QosConfig
+
+    recs = qos_replay.load_corpus(CORPUS_OVERLOAD)
+    row = {"card": smi, "records": len(recs), "bound": QOS_BOUND,
+           "qos": QOS_CFG, "engine": QOS_ENGINE}
+    off, _, _ = qos_replays(dev, None, recs, QOS_RATES)
+    want = off[0.25][0]["records"]
+    if any(code != 0 for res in off[0.25] for code, _ in res["records"]):
+        raise AssertionError("the qos=None engine failed at 0.25x")
+    install_default_rules()
+    rule = {r.name: r for r in global_watch().rules()}.get(
+        "serving_qos_starvation")
+    if rule is None or rule.var != "g_serving_qos_max_wait_ms":
+        raise AssertionError("the serving_qos_starvation rule is missing")
+    on, launches, snap = qos_replays(dev, QosConfig(**QOS_CFG), recs,
+                                     QOS_RATES)
+    completed = 0
+    for mult, replays in on.items():
+        for res in replays:
+            prod, batch = res["tenants"]["prod"], res["tenants"]["batch"]
+            if prod["fail"] or prod["shed"]:
+                raise AssertionError(f"prod failed at {mult}x: {prod}")
+            if batch["fail"] != batch["shed"]:
+                raise AssertionError(f"a best-effort failure at {mult}x "
+                                     f"was not a shed: {batch}")
+            for i, ((code, toks), (_, ref)) in enumerate(
+                    zip(res["records"], want)):
+                if code == 0 and toks != ref:
+                    raise AssertionError(f"record {i} at {mult}x: {toks} "
+                                         f"!= the qos=None engine's {ref}")
+                if code not in (0, rpc.errors.EOVERCROWDED):
+                    raise AssertionError(f"record {i} at {mult}x failed "
+                                         f"{code}")
+            completed += sum(1 for code, _ in res["records"] if code == 0)
+    if launches != n_layers * completed:
+        raise AssertionError(f"flash_attention launched {launches} times "
+                             f"for {completed} completed requests")
+
+    row["on"] = {m: pooled(r, recs) for m, r in on.items()}
+    row["off"] = {m: pooled(r, recs) for m, r in off.items()}
+    row["on_wall_s"] = {m: [x["wall_s"] for x in r] for m, r in on.items()}
+
+    def ratio(rows, mult=2):
+        return (rows[mult]["prod"]["p99_us"]
+                / rows[0.25]["prod"]["p99_us"])
+
+    row["prod_p99_ratio_qos"] = ratio(row["on"])
+    row["prod_p99_ratio_no_qos"] = ratio(row["off"])
+    row["saturated_at_2x"] = row["prod_p99_ratio_no_qos"] > QOS_BOUND
+    row["no_qos_breaks_bound_at"] = 2 if row["saturated_at_2x"] else None
+    if not row["saturated_at_2x"]:
+        sweep, _, _ = qos_replays(dev, None, recs, QOS_SWEEP)
+        base = row["off"][0.25]["prod"]["p99_us"]
+        row["no_qos_sweep"] = {m: pooled(r, recs)["prod"]["p99_us"] / base
+                               for m, r in sweep.items()}
+        row["no_qos_breaks_bound_at"] = next(
+            (m for m in QOS_SWEEP if row["no_qos_sweep"][m] > QOS_BOUND),
+            None)
+    row["snapshot"] = {"limiter": snap["limiter"],
+                       "tenants": snap["tenants"]}
+    row["flash_launches"] = launches
+    print(json.dumps({"qos": row}), flush=True)
+    return launches
+
+
+# --------------------------------------------- phase 4k: request batching
+BATCH_BURST = 64
+BATCH_TOL = 1e-5             # relative, fp32 with TF32 off
+
+
+def batch_burst(stub, payloads, timeout=120):
+    """Every payload as an async Echo at once; returns the controllers in
+    order."""
+    from brpc_tpu_torch.proto import echo_pb2
+
+    out = [None] * len(payloads)
+    lock = threading.Lock()
+    ev = threading.Event()
+
+    def done_for(i):
+        def done(cntl):
+            with lock:
+                out[i] = cntl
+                if all(c is not None for c in out):
+                    ev.set()
+        return done
+
+    for i, p in enumerate(payloads):
+        stub.Echo(echo_pb2.EchoRequest(message="infer", payload=p),
+                  done=done_for(i))
+    if not ev.wait(timeout):
+        raise AssertionError(f"batched burst: "
+                             f"{sum(c is not None for c in out)}"
+                             f"/{len(out)} answered")
+    return out
+
+
+def run_host_examples():
+    """The five host-only examples as fresh interpreters, at once, held
+    to tests/test_examples.py's strings."""
+    port = free_port()
+    jobs = {
+        "parallel_echo": (lambda: run_example_client(
+            "parallel_echo.client", ["-n", "2"]),
+            ("[srv0]", "[srv1]", "[srv2]")),
+        "selective_echo": (lambda: run_example_client(
+            "selective_echo.client", ["-n", "6"]), ("killed srv0",)),
+        "partition_echo": (lambda: run_example_client(
+            "partition_echo.client", ["-n", "2"]), ("p0", "p2")),
+        "backup_request": (lambda: run_example_client(
+            "backup_request.client", ["-n", "4"]), ("backup=yes", "fast")),
+        "multi_threaded_echo": (lambda: run_example_pair(
+            "echo.server", ["--port", str(port), "--run_seconds", "120"],
+            "multi_threaded_echo.client",
+            ["--server", f"127.0.0.1:{port}", "--threads", "4",
+             "--seconds", "2"])[0], ("qps=", "final:")),
+    }
+    results, errs = {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        try:
+            results[name] = (fn(), time.perf_counter() - t0)
+        except Exception as e:  # reported below, all at once
+            errs[name] = e
+
+    threads = [threading.Thread(target=run, args=(n, j[0]))
+               for n, j in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errs or len(results) != len(jobs):
+        raise AssertionError(f"host examples failed: {errs}")
+    for name, (out, _) in results.items():
+        if not all(s in out for s in jobs[name][1]):
+            raise AssertionError(f"example {name}: {out}")
+    return {name: secs for name, (_, secs) in results.items()}
+
+
+def run_batching(dev, smi):
+    """Phase 4k: adaptive request batching on the card. The
+    batched_inference example's service (``relu(x @ W)``, W from a
+    Generator seeded 0) behind a Server in this process takes a burst of
+    BATCH_BURST requests with one poisoned: each answer equals the
+    per-request forward of its row within BATCH_TOL relative error (fp32,
+    TF32 off), the burst rides batches (g_batch_size above 1, fewer
+    forward calls than requests), the poisoned request fails alone with
+    EREQUEST. Then the example's server and client as fresh interpreters
+    on the card, ``bench/batch_lane.py`` (batched and per-request QPS,
+    p50, their ratio), and the five host-only examples."""
+    from brpc_tpu_torch.batch import metrics as bmetrics
+    from brpc_tpu_torch.examples.batched_inference.server import (
+        DIM, BatchedInferenceService)
+    from brpc_tpu_torch.proto import echo_pb2
+
+    row = {"card": smi, "burst": BATCH_BURST, "tol": BATCH_TOL}
+    svc = BatchedInferenceService(dev)
+    if svc.W.device != dev:
+        raise AssertionError(f"the example's W is on {svc.W.device}")
+    for b in (1, 4, 16):
+        svc.forward(np.zeros((b, DIM), np.float32))
+    server = rpc.Server().add_service(svc).start("127.0.0.1:0")
+    try:
+        stub = rpc.Stub(rpc.Channel(rpc.ChannelOptions(
+            timeout_ms=60000)).init(str(server.listen_endpoint())),
+            echo_pb2.DESCRIPTOR.services_by_name["EchoService"])
+        xs = np.random.default_rng(11).standard_normal(
+            (BATCH_BURST, DIM)).astype(np.float32)
+        payloads = [x.tobytes() for x in xs]
+        bad = BATCH_BURST // 2
+        payloads.insert(bad, xs[0][:DIM - 1].tobytes())
+        s0, n0 = bmetrics.batch_size_recorder.get_value()
+        calls0 = svc.calls
+        out = batch_burst(stub, payloads)
+        s1, n1 = bmetrics.batch_size_recorder.get_value()
+    finally:
+        server.stop()
+        server.join(timeout=5)
+    if out[bad].error_code != rpc.errors.EREQUEST:
+        raise AssertionError(f"the poisoned request ended "
+                             f"{out[bad].error_code}")
+    good = out[:bad] + out[bad + 1:]
+    worst = 0.0
+    for i, (x, cntl) in enumerate(zip(xs, good)):
+        if cntl.failed():
+            raise AssertionError(f"request {i} failed {cntl.error_code}")
+        got = np.frombuffer(cntl._response.payload, np.float32)
+        ref = svc.forward(x[None])[0]
+        worst = max(worst, float(np.linalg.norm(got - ref)
+                                 / max(np.linalg.norm(ref), 1e-30)))
+    batch_size = (s1 - s0) / max(n1 - n0, 1)
+    calls = svc.calls - calls0
+    if worst > BATCH_TOL or batch_size <= 1 or calls >= len(payloads):
+        raise AssertionError(f"batched answers off by {worst} (tol "
+                             f"{BATCH_TOL}), g_batch_size {batch_size}, "
+                             f"{calls} calls for {len(payloads)} requests")
+    row.update(max_rel_err=worst, g_batch_size=batch_size,
+               forward_calls=calls, requests=len(payloads))
+    port = free_port()
+    cout, sout = run_example_pair(
+        "batched_inference.server", ["--port", str(port)],
+        "batched_inference.client",
+        ["--server", f"127.0.0.1:{port}", "-n", "32", "--poison", "1"])
+    rep = [l for l in sout.splitlines() if l.startswith("batch ")]
+    report = json.loads(rep[-1].split(" ", 1)[1]) if rep else {}
+    if ("poisoned requests failed alone: 1/1 EREQUEST" not in cout
+            or report.get("g_batch_size", 0) <= 1
+            or report["calls"] >= report["items"]):
+        raise AssertionError(f"batched_inference example: {cout}\n{sout}")
+    row["example"] = report
+    root, env = example_env()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "brpc_tpu_torch", "bench",
+                                      "batch_lane.py")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith('{"batch_lane"')]
+    if proc.returncode or not lines:
+        raise AssertionError(f"batch_lane exited {proc.returncode}:\n"
+                             f"{proc.stdout}{proc.stderr[-4000:]}")
+    lane = json.loads(lines[-1])["batch_lane"]
+    if lane["server"]["device"].split(":")[0] != dev.type \
+            or lane["server"]["g_batch_size_avg"] <= 1:
+        raise AssertionError(f"batch_lane: {lane}")
+    row["batch_lane"] = lane
+    row["host_examples_s"] = run_host_examples()
+    print(json.dumps({"batching": row}), flush=True)
+    return row
 
 
 def no_protobuf_or_jax(where):
@@ -4020,8 +4600,11 @@ def main():
     example_launches = run_examples(smi)
     mesh = run_mesh(dev, smi, n_layers, long_prompt)
     run_combo(dev, smi)
-    no_protobuf_or_jax("after the disaggregated, long-prompt, mesh and "
-                       "combo-channel paths")
+    router = run_router(dev, smi, n_layers, auto)
+    qos_launches = run_qos(dev, smi, n_layers)
+    run_batching(dev, smi)
+    no_protobuf_or_jax("after the disaggregated, long-prompt, mesh, "
+                       "combo-channel, router, QoS and batching paths")
 
     profile = profile_engine(dev)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -4061,6 +4644,7 @@ def main():
         "launches_mesh": mesh["prompt_lens"]["flash_launches"],
         "launches_mesh_corpus": [mesh["corpus_1"]["flash_launches"],
                                  mesh["corpus_2"]["flash_launches"]],
+        "launches_router": router, "launches_qos": qos_launches,
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

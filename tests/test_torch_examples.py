@@ -1,6 +1,8 @@
 """The port's copies of the examples of its lanes (brpc_tpu_torch/examples/
 {echo,streaming_echo,device_data,device_stream,tpu_transfer,
-collective_fanout}), run as
+collective_fanout,batched_inference}) and of the host-only examples
+({parallel_echo,selective_echo,partition_echo,backup_request,
+multi_threaded_echo}), run as
 the JAX package's tests/test_examples.py runs the originals: server and
 client pairs as fresh interpreters on random ports, with the device
 examples on ``--device cpu``, their outputs held to the same strings.
@@ -184,3 +186,82 @@ def test_device_examples_default_to_the_card():
         pytest.skip("a card is present: the default resolves to it")
     with pytest.raises(RuntimeError):
         device_store()
+
+
+def test_multi_threaded_echo():
+    port = free_port()
+    srv = Server("echo.server", ["--port", str(port), "--run_seconds", "30"])
+    try:
+        out = run_client("multi_threaded_echo.client",
+                         ["--server", f"127.0.0.1:{port}", "--threads", "4",
+                          "--seconds", "2"])
+        assert "qps=" in out and "final:" in out
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("example,args,expect", [
+    ("parallel_echo", ["-n", "2"], ("[srv0]", "[srv1]", "[srv2]")),
+    ("selective_echo", ["-n", "6"], ("killed srv0",)),
+    ("partition_echo", ["-n", "2"], ("p0", "p2")),
+    ("backup_request", ["-n", "4"], ("backup=yes", "fast")),
+], ids=["parallel_echo", "selective_echo", "partition_echo",
+        "backup_request"])
+def test_host_example(example, args, expect):
+    """The single-file host examples, held to the JAX package's
+    tests/test_examples.py strings."""
+    out = run_client(f"{example}.client", args)
+    for text in expect:
+        assert text in out, out
+
+
+def _batch_report(out):
+    lines = [l for l in out.splitlines() if l.startswith("batch ")]
+    assert lines, out
+    return json.loads(lines[-1].split(" ", 1)[1])
+
+
+def test_batched_inference(tmp_path):
+    """The batched-inference pair on the CPU, the server holding the JAX
+    example's W (``--weights``): a 32-request burst with one poisoned
+    request coalesces (fewer forward calls than requests, g_batch_size
+    above 1) and the poisoned request fails alone."""
+    import numpy as np
+
+    from examples.batched_inference.server import \
+        BatchedInferenceService as JaxInference
+
+    w = tmp_path / "W.npy"
+    np.save(w, np.asarray(JaxInference()._W, np.float32))
+    port = free_port()
+    srv = Server("batched_inference.server",
+                 ["--port", str(port), "--device", "cpu",
+                  "--weights", str(w)])
+    try:
+        out = run_client("batched_inference.client",
+                         ["--server", f"127.0.0.1:{port}", "-n", "32",
+                          "--poison", "1"])
+        assert "33 responses" in out
+        assert "poisoned requests failed alone: 1/1 EREQUEST" in out
+        assert "rode a multi-request batch" in out
+    finally:
+        rc, sout = srv.stop()
+    assert rc == 0, sout
+    assert "foreign modules []" in sout
+    report = _batch_report(sout)
+    assert report["items"] >= 33
+    assert report["calls"] < report["items"]
+    assert report["g_batch_size"] > 1
+
+
+def test_batched_inference_defaults_to_the_card():
+    """Without ``--device`` the model is on the card: with no card the
+    server raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default resolves to it")
+    proc = subprocess.run(_cmd("batched_inference.server",
+                               ["--port", str(free_port())]),
+                          env=ENV, cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr

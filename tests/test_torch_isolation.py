@@ -79,7 +79,10 @@ def test_importing_the_port_loads_no_jax():
             " brpc_tpu_torch.policy.load_balancers,"
             " brpc_tpu_torch.proto.collective_pb2,"
             " brpc_tpu_torch.graft_entry,"
-            " brpc_tpu_torch.analysis.runtime_check\n"
+            " brpc_tpu_torch.analysis.runtime_check,"
+            " brpc_tpu_torch.serving.router, brpc_tpu_torch.serving.qos,"
+            " brpc_tpu_torch.batch, brpc_tpu_torch.policy.retry,"
+            " brpc_tpu_torch.bench.qos_replay\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'brpc_tpu'))\n"
             "assert not bad, bad\n")
@@ -209,3 +212,67 @@ def test_the_tpu_lane_answers_over_the_tunnel_with_no_protobuf_or_jax():
         "assert not bad, bad\n"
         "served = [x for x in out.splitlines() if x.startswith('SERVED ')]\n"
         "assert '\"foreign_modules\": []' in served[0], served\n")
+
+
+def test_the_walk_reaches_this_slices_modules():
+    """The import checks above walk every module of the package: the
+    router, QoS, the batcher, the retry policies and their examples and
+    benches among them."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    want = {"serving/router.py", "serving/qos.py", "batch/__init__.py",
+            "batch/policy.py", "batch/metrics.py", "batch/queue.py",
+            "batch/runtime.py", "policy/retry.py", "bench/batch_lane.py",
+            "bench/qos_replay.py", "examples/batched_inference/server.py",
+            "examples/batched_inference/client.py",
+            "examples/parallel_echo/client.py",
+            "examples/selective_echo/client.py",
+            "examples/partition_echo/client.py",
+            "examples/backup_request/client.py",
+            "examples/multi_threaded_echo/client.py"}
+    assert want <= rel, sorted(want - rel)
+
+
+def test_routed_qos_generate_and_a_batched_call_load_no_protobuf_or_jax():
+    """A Generate through ShardedLlmChannel onto a QoS engine, and a
+    batched echo through the batcher, with neither protobuf nor JAX
+    loaded."""
+    _run(
+        "import sys\n"
+        "import brpc_tpu_torch.rpc as rpc\n"
+        "import brpc_tpu_torch.serving.service as service\n"
+        "from brpc_tpu_torch.batch import make_batched\n"
+        "from brpc_tpu_torch.proto import echo_pb2, serving_pb2\n"
+        "from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,"
+        " ModelConfig, PagedKVCache, QosConfig, ServingEngine,"
+        " ShardedLlmChannel, TinyTransformer)\n"
+        "cfg = ModelConfig(vocab=64, d_model=16, n_heads=2, n_layers=1)\n"
+        "kv = PagedKVCache(KVCacheConfig(16, 16), cfg.n_layers, cfg.kv_dim,"
+        " device='cpu')\n"
+        "eng = ServingEngine(TinyTransformer(cfg, kv), kv,"
+        " EngineConfig(idle_wait_s=0.005, qos=QosConfig("
+        "tenants={'prod': 2.0}))).start()\n"
+        "srv = rpc.Server().add_service(service.LlmServingService(eng))"
+        ".start('127.0.0.1:0')\n"
+        "ch = ShardedLlmChannel(f'list://{srv.listen_endpoint()} 0/1', 1)\n"
+        "c = rpc.Controller(); c.tenant_id = 'prod'; c.priority = 1\n"
+        "resp = ch.generate(serving_pb2.GenerateRequest(prompt_len=20,"
+        " max_new_tokens=4), controller=c, timeout_ms=30000)\n"
+        "assert len(resp.tokens) == 4, resp\n"
+        "assert eng.qos.snapshot()['tenants']['prod']['admitted'] == 1\n"
+        "class Svc(rpc.Service):\n"
+        "    pass\n"
+        "svc = Svc()\n"
+        "svc.add_method('Echo', make_batched('t', lambda b: ["
+        "echo_pb2.EchoResponse(message=r.message) for r in b.requests]),"
+        " echo_pb2.EchoRequest, echo_pb2.EchoResponse)\n"
+        "bsrv = rpc.Server().add_service(svc).start('127.0.0.1:0')\n"
+        "md = rpc.MethodDescriptor('Svc', 'Echo', echo_pb2.EchoRequest,"
+        " echo_pb2.EchoResponse)\n"
+        "out = rpc.Channel(rpc.ChannelOptions(timeout_ms=30000)).init("
+        "str(bsrv.listen_endpoint())).call_method(md,"
+        " echo_pb2.EchoRequest(message='b'))\n"
+        "assert out.message == 'b', out\n"
+        "bsrv.stop(); bsrv.join(); srv.stop(); srv.join(); eng.stop()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n")

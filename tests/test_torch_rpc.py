@@ -232,8 +232,7 @@ def test_what_is_not_ported_refuses():
 _UNPORTED_FLAGS = (
     "tpu_shard_rebalance_pct",
     "tpu_shard_respawn_backoff_ms", "tpu_shard_respawn_max",
-    "tpu_shard_ring_mb", "tpu_shard_forward_max", "shard_vars_interval_s",
-    "serving_qos_starvation_ms")
+    "tpu_shard_ring_mb", "tpu_shard_forward_max", "shard_vars_interval_s")
 
 
 @pytest.mark.parametrize("name", _UNPORTED_FLAGS)
@@ -288,6 +287,12 @@ def test_flags_of_sharded_serving_match_the_reference(name):
     _flag_matches_the_reference(name)
 
 
+# The starvation bound came with multi-tenant QoS and its watch rule.
+@pytest.mark.parametrize("name", ["serving_qos_starvation_ms"])
+def test_flags_of_qos_match_the_reference(name):
+    _flag_matches_the_reference(name)
+
+
 # The health checker's interval came with the load balancers.
 @pytest.mark.parametrize("name", ["health_check_interval_s"])
 def test_flags_of_health_check_match_the_reference(name):
@@ -331,6 +336,7 @@ def test_default_watch_rules_read_exported_variables():
         assert [r.name for r in rules] == ["deadline_expiry_rate",
                                            "serving_migrate_backlog",
                                            "serving_prefix_thrash",
+                                           "serving_qos_starvation",
                                            "serving_shard_skew",
                                            "serving_spec_collapse"]
         for r in rules:

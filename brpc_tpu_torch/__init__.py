@@ -27,3 +27,5 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (for ``tpu://`` ordinals, ``tpu.mesh.use_cpu()``), and raise when there
 is no card.
 """
+
+__version__ = "0.1.0"

@@ -8,9 +8,8 @@ of ``bench.py``'s ``bench_batch_lane`` and ``tools/bench_server.py``'s
 ``--serve`` is the server: a fresh interpreter that owns the card and
 serves ``BatchBench`` on ``127.0.0.1:0``, prints ``LISTEN <endpoint>``
 and serves until its standard input closes; it then prints ``SERVED
-<json>``: its forward calls and the items they carried by method, and
-``g_batch_size`` / ``g_batch_queue_delay_us`` read from its own exposed
-variables (the port has no HTTP ``/vars`` yet).
+<json>``: its device, and its forward calls and the items they carried
+by method.
 
 ``BatchBench`` serves one model two ways. The model is the reference's:
 a 32-layer MLP 256 wide, ``h = relu(h @ W[l] + b[l])``, float32, W and b
@@ -29,7 +28,10 @@ methods, then drives each from a pipelined async client (a call's
 prints one JSON line, ``{"batch_lane": ...}``: QPS and p50 / p99 latency
 of each, their ratio (batched over per-request), the largest relative
 difference (by row norm) between a batched and a per-request answer to
-the same request, and the server's ``SERVED`` numbers. ``--cpu`` is a
+the same request, ``g_batch_size`` and ``g_batch_queue_delay_us`` as the
+server's ``/vars`` page renders them (fetched over HTTP from the same
+port, as ``bench.py``'s batch lane reads them) with their averages, and
+the server's ``SERVED`` numbers. ``--cpu`` is a
 dry run on the CPU, with a quarter of the calls.
 """
 
@@ -143,7 +145,6 @@ class BatchBenchService(Service):
 
 
 def serve(cpu: bool) -> int:
-    from brpc_tpu_torch.batch import metrics as bmetrics
     from brpc_tpu_torch.tpu.device_lane import resolve_device
 
     device = resolve_device("cpu" if cpu else None)
@@ -156,13 +157,28 @@ def serve(cpu: bool) -> int:
     print("SERVED " + json.dumps({
         "device": str(device),
         "calls": {m: {"forward_calls": c, "items": n}
-                  for m, (c, n) in svc.calls.items()},
-        "g_batch_size": bmetrics.g_batch_size.describe(),
-        "g_batch_queue_delay_us": bmetrics.g_batch_queue_delay_us.describe(),
-        "g_batch_size_avg": bmetrics.g_batch_size.get_value(),
-        "g_batch_queue_delay_us_avg":
-            bmetrics.g_batch_queue_delay_us.get_value()}), flush=True)
+                  for m, (c, n) in svc.calls.items()}}), flush=True)
     return 0
+
+
+BATCH_VARS = ("g_batch_size", "g_batch_queue_delay_us")
+
+
+def read_vars(endpoint: str) -> dict:
+    """The batching counters from the server's ``/vars/<name>`` pages
+    over HTTP: each page's line (``name : avg (count=n)``) and its
+    average."""
+    from brpc_tpu_torch.policy.http_protocol import http_fetch
+
+    out = {}
+    for name in BATCH_VARS:
+        resp = http_fetch(endpoint, "GET", f"/vars/{name}", timeout=10)
+        if resp.status != 200:
+            raise RuntimeError(f"/vars/{name}: HTTP {resp.status}")
+        line = resp.body.decode().splitlines()[0]
+        out[name] = line
+        out[f"{name}_avg"] = float(line.split(" : ", 1)[1].split()[0])
+    return out
 
 
 def pipelined(ch, method, req, depth, total, timeout=300.0):
@@ -238,8 +254,8 @@ def main(argv=None) -> int:
         line = proc.stdout.readline()
         if not line.startswith("LISTEN "):
             raise RuntimeError(f"server never came up: {line!r}")
-        ch = Channel(ChannelOptions(timeout_ms=30000)).init(
-            line.split()[1])
+        endpoint = line.split()[1]
+        ch = Channel(ChannelOptions(timeout_ms=30000)).init(endpoint)
         rng = np.random.default_rng(7)
         req = echo_pb2.EchoRequest(
             message="b",
@@ -261,6 +277,7 @@ def main(argv=None) -> int:
                                            / out["Infer"]["qps"])
         out["max_rel_diff"] = float(np.linalg.norm(a - b)
                                     / max(np.linalg.norm(b), 1e-30))
+        out["vars"] = read_vars(endpoint)
     finally:
         proc.stdin.close()
         rest = proc.stdout.read()

@@ -4,9 +4,14 @@ The port's continuous-batching engine (paged KV over DeviceStore,
 iteration-level scheduling, the flash prefill kernel on the card) behind
 LlmService, with token streaming over the Stream API. The flags and their
 defaults are the JAX package's ``examples/llm_server/server.py``'s.
+Browse http://<host>:<port>/serving while the client runs to watch batch
+occupancy and the KV watermark; the same port answers Generate over JSON:
 
     python -m brpc_tpu_torch.examples.llm_server.server [--port 8011] \\
         [--scheduling continuous] [--device cpu]
+    curl localhost:8011/LlmService/Generate \\
+        -d '{"prompt_len": 16, "max_new_tokens": 8}'
+    curl localhost:8011/serving
 
 The engine runs on ``cuda`` unless ``--device cpu`` is given, and raises
 with no card.
@@ -68,7 +73,7 @@ def main(argv=None):
     print(f"LlmServer on {server.listen_endpoint()} "
           f"({args.scheduling} batching, "
           f"{args.num_blocks}x{args.block_size}-token KV blocks, "
-          f"{engine.kv.store.device})", flush=True)
+          f"{engine.kv.store.device}) — see /serving", flush=True)
     try:
         time.sleep(args.run_seconds or 1e9)
     except KeyboardInterrupt:

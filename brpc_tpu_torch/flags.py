@@ -239,7 +239,7 @@ tpu_shard_workers = define(
     "tpu_shard_workers", 0,
     "spread the Python service lane over this many worker OS processes; "
     "the sharded dispatch plane is not ported, so Server.start refuses "
-    "any value above 0 (ROADMAP Queue 1 item 2(b))",
+    "any value above 0 (ROADMAP Queue 1 item 2(b)9)",
     validator=_non_negative)
 serving_shard_skew_ratio = define(
     "serving_shard_skew_ratio", 0.25,

@@ -4,13 +4,14 @@ Counterpart of the reference's ``src/brpc/policy`` + the registration moment
 ``GlobalInitializeOrDie`` (global.cpp:370-626): ``ensure_registered()`` is
 idempotent and wires the ported protocols into the registry.
 
-The port registers trpc_std, trpc_stream and the TPUC control protocol
-of the ``tpu://`` tunnel (``tpu/transport.py``), and has no C++ core to
-install (crc32c runs in Python, as the reference's fallback does). HTTP,
-h2, gRPC, redis, mongo, rtmp, thrift, memcache and nshead wait in ROADMAP
-Queue 1 item 2(b). The load balancers (``load_balancers.py``), naming
-services (``naming.py``) and the cluster-recover policy
-(``cluster_recover.py``) are looked up by name and need no registration.
+The port registers trpc_std, trpc_stream, the TPUC control protocol of
+the ``tpu://`` tunnel (``tpu/transport.py``) and HTTP/1.1, probed last as
+the reference probes it, and has no C++ core to install (crc32c runs in
+Python, as the reference's fallback does). h2, gRPC, redis, mongo, rtmp,
+thrift, memcache and nshead wait in ROADMAP Queue 1 item 2(b)6. The
+load balancers (``load_balancers.py``), naming services (``naming.py``)
+and the cluster-recover policy (``cluster_recover.py``) are looked up by
+name and need no registration.
 """
 
 from __future__ import annotations
@@ -29,10 +30,12 @@ def ensure_registered() -> None:
         from brpc_tpu_torch.rpc.protocol import register_protocol
         from brpc_tpu_torch.policy.trpc_std import TrpcStdProtocol
         from brpc_tpu_torch.policy.trpc_stream import TrpcStreamProtocol
+        from brpc_tpu_torch.policy.http_protocol import HttpProtocol
         from brpc_tpu_torch.tpu.transport import TpuCtrlProtocol
 
         register_protocol(TrpcStdProtocol())
         register_protocol(TrpcStreamProtocol())
         # early: TPUC magic must never reach text-probing protocols
         register_protocol(TpuCtrlProtocol())
+        register_protocol(HttpProtocol())  # probed last: magic-less
         _done = True

@@ -1,30 +1,41 @@
-"""A message runtime with no protobuf: proto3 wire messages from field tables.
+"""A message runtime with no protobuf: wire messages from field tables.
 
-The port's wire messages (``rpc_meta.proto``, ``serving.proto``,
-``echo.proto``, ``device_lane.proto`` beside this file) are declared as :class:`Message`
-subclasses with a ``FIELDS`` table: one :class:`Field` per ``.proto``
-field, giving its number, name, kind, whether it repeats, and the class of
-a sub-message. The runtime writes and reads the same bytes as protobuf's
-proto3 encoding of those fields:
+The port's wire messages (the ``.proto`` files beside this file) are
+declared as :class:`Message` subclasses with a ``FIELDS`` table: one
+:class:`Field` per ``.proto`` field, giving its number, name, kind,
+whether it repeats, the class of a sub-message or the :class:`EnumType`
+of an enum, and for the kinds that have one its oneof, presence, map key
+and value. The runtime writes and reads the same bytes as protobuf's
+encoding of those fields:
 
-- fields are written in field-number order; a scalar at its default
-  (0, false, "", b"") is not written; an empty repeated field is not
-  written;
-- varints: a negative int32 or int64 is its 64-bit two's complement (a
-  10-byte varint); uint32 is masked to 32 bits;
-- ``repeated int32`` is written packed; parsing takes packed and unpacked
-  forms;
+- fields are written in field-number order; a scalar without presence at
+  its default (0, 0.0, false, "", b"") is not written; an empty repeated
+  field is not written;
+- a scalar with presence (a oneof member, proto3 ``optional``, any proto2
+  singular scalar) is written once set, even at its default; setting a
+  oneof member clears the others;
+- varints: a negative int32, int64 or enum is its 64-bit two's complement
+  (a 10-byte varint); uint32 is masked to 32 bits; double and float are
+  little-endian fixed64 / fixed32 (a float stores its float32 value);
+- repeated scalars are written packed in proto3 and unpacked in proto2;
+  parsing takes both forms;
+- a map is a repeated entry message (key 1, value 2), each entry with
+  both its key and its value, written in key order (protobuf's Python
+  runtime writes a map of several entries in an order of its own, even
+  when asked to be deterministic; each side parses the other's bytes);
 - a sub-message that is present is written even when empty (length 0);
   a sub-message is present once any of its fields was assigned (reading
   an unset one returns an empty message and leaves it unset);
 - strings are UTF-8; unknown fields, and known numbers with a wire type
   their kind never has, are skipped when parsing (protobuf keeps them as
-  unknown fields; this runtime drops them).
+  unknown fields; this runtime drops them); a proto2 message missing a
+  required field refuses to serialize.
 
-The API is the subset of protobuf's Python API the RPC core uses:
-``SerializeToString``, ``ParseFromString``, ``FromString``, ``HasField``
-(message fields), ``CopyFrom``, ``MergeFrom``, ``ByteSize``, ``Clear``,
-``__eq__`` and keyword construction. Each module of tables builds a
+The API is the subset of protobuf's Python API the port uses:
+``SerializeToString``, ``ParseFromString``, ``FromString``, ``HasField``,
+``WhichOneof``, ``CopyFrom``, ``MergeFrom``, ``ByteSize``, ``Clear``,
+``__eq__``, keyword construction, ``add()`` on repeated messages and
+item access on maps. Each module of tables builds a
 :class:`FileDescriptor` whose ``services_by_name`` gives
 :class:`ServiceDescriptor` / :class:`MethodDescriptor` objects with the
 fields ``rpc.server.Service`` and ``rpc.channel.Stub`` read, and the
@@ -35,46 +46,118 @@ file's ``serialized_pb`` as protoc writes it;
 
 from __future__ import annotations
 
+import math
 import operator
+import struct
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 INT32 = "int32"
 INT64 = "int64"
 UINT32 = "uint32"
+UINT64 = "uint64"
 BOOL = "bool"
+ENUM = "enum"
+DOUBLE = "double"
+FLOAT = "float"
 STRING = "string"
 BYTES = "bytes"
 MESSAGE = "message"
 
-_VARINT_KINDS = (INT32, INT64, UINT32, BOOL)
+_VARINT_KINDS = (INT32, INT64, UINT32, UINT64, BOOL, ENUM)
 _WT_VARINT, _WT_I64, _WT_LEN, _WT_I32 = 0, 1, 2, 5
+_WIRE = {DOUBLE: _WT_I64, FLOAT: _WT_I32}
 _U64 = (1 << 64) - 1
 _RANGES = {INT32: (-(1 << 31), (1 << 31) - 1),
            INT64: (-(1 << 63), (1 << 63) - 1),
-           UINT32: (0, (1 << 32) - 1)}
-_DEFAULTS = {INT32: 0, INT64: 0, UINT32: 0, BOOL: False, STRING: "",
-             BYTES: b""}
+           UINT32: (0, (1 << 32) - 1),
+           UINT64: (0, (1 << 64) - 1),
+           ENUM: (-(1 << 31), (1 << 31) - 1)}
+_DEFAULTS = {INT32: 0, INT64: 0, UINT32: 0, UINT64: 0, BOOL: False,
+             ENUM: 0, DOUBLE: 0.0, FLOAT: 0.0, STRING: "", BYTES: b""}
 
 
 class DecodeError(ValueError):
     """Bytes that are not a valid encoding of the message."""
 
 
+class EncodeError(ValueError):
+    """A message that cannot be serialized (a proto2 required field is
+    missing)."""
+
+
+class EnumType:
+    """An enum of a ``.proto`` file: its values by name and by number.
+    :class:`FileDescriptor` sets ``full_name``."""
+
+    def __init__(self, name: str, values: Sequence[Tuple[str, int]]):
+        self.name = name
+        self.full_name = name
+        self.values = tuple(values)
+        self.values_by_name = dict(self.values)
+        self.values_by_number = {}
+        for vname, number in self.values:
+            self.values_by_number.setdefault(number, vname)
+
+    def Name(self, number: int) -> str:
+        return self.values_by_number[number]
+
+
+def _wire_type(kind: str) -> int:
+    if kind in _VARINT_KINDS:
+        return _WT_VARINT
+    return _WIRE.get(kind, _WT_LEN)
+
+
+def _varint_bytes(v: int) -> bytes:
+    out = bytearray()
+    _put_varint(out, v)
+    return bytes(out)
+
+
 class Field:
-    __slots__ = ("number", "name", "kind", "repeated", "message_class")
+    __slots__ = ("number", "name", "kind", "repeated", "message_class",
+                 "enum_type", "oneof", "optional", "required", "default",
+                 "key_kind", "is_map", "json_name", "has_presence",
+                 "packed", "wire", "tag", "len_tag", "_entry")
 
     def __init__(self, number: int, name: str, kind: str,
-                 repeated: bool = False, message_class=None):
+                 repeated: bool = False, message_class=None, *,
+                 enum_type: Optional[EnumType] = None,
+                 oneof: Optional[str] = None, optional: bool = False,
+                 required: bool = False, default=None,
+                 map_key: Optional[str] = None):
         if kind == MESSAGE and message_class is None:
             raise ValueError(f"field {name!r}: a message field needs a class")
-        if repeated and kind not in _VARINT_KINDS:
-            raise ValueError(f"field {name!r}: only repeated varint fields "
-                             f"are supported")
+        if kind == ENUM and enum_type is None:
+            raise ValueError(f"field {name!r}: an enum field needs its type")
+        if map_key is not None and (repeated or oneof or optional):
+            raise ValueError(f"field {name!r}: a map is neither repeated, "
+                             f"a oneof member nor optional")
         self.number = number
         self.name = name
         self.kind = kind
-        self.repeated = repeated
+        self.repeated = repeated or map_key is not None
         self.message_class = message_class
+        self.enum_type = enum_type
+        self.oneof = oneof
+        self.optional = optional
+        self.required = required
+        self.default = _DEFAULTS.get(kind) if default is None else default
+        self.key_kind = map_key
+        self.is_map = map_key is not None
+        # the key bytes of one value of this kind, and of a
+        # length-delimited record (a message, an entry, a packed run)
+        self.wire = _wire_type(kind)
+        self.tag = _varint_bytes(number << 3 | self.wire)
+        self.len_tag = _varint_bytes(number << 3 | _WT_LEN)
+        # protobuf's ToJsonName: drop each '_', upper-case what follows
+        parts = name.split("_")
+        self.json_name = parts[0] + "".join(p[:1].upper() + p[1:]
+                                            for p in parts[1:])
+        # set by the message class: proto2 singular scalars have presence
+        self.has_presence = oneof is not None or optional or required
+        self.packed = True
+        self._entry = None
 
 
 # ------------------------------------------------------------------ varints
@@ -108,18 +191,24 @@ def _signed(v: int, bits: int) -> int:
 
 
 def _from_varint(kind: str, v: int):
-    if kind == INT32:
+    if kind in (INT32, ENUM):
         return _signed(v, 32)
     if kind == INT64:
         return _signed(v, 64)
     if kind == UINT32:
         return v & 0xFFFFFFFF
+    if kind == UINT64:
+        return v
     return v != 0
 
 
-def _check_scalar(f: Field, value):
+def _f32(v: float) -> float:
+    return struct.unpack("<f", struct.pack("<f", v))[0]
+
+
+def _check_scalar(f: Field, value, kind: Optional[str] = None):
     """Coerce and range-check one scalar as protobuf's setters do."""
-    kind = f.kind
+    kind = kind or f.kind
     if kind == BOOL:
         if not isinstance(value, (bool, int)) or isinstance(value, float):
             raise TypeError(f"{f.name}: expected bool, got "
@@ -133,6 +222,12 @@ def _check_scalar(f: Field, value):
         if not lo <= v <= hi:
             raise ValueError(f"{f.name}: value {v} out of range for {kind}")
         return v
+    if kind in (DOUBLE, FLOAT):
+        if isinstance(value, (str, bytes)) or value is None:
+            raise TypeError(f"{f.name}: expected float, got "
+                            f"{type(value).__name__}")
+        v = float(value)
+        return _f32(v) if kind == FLOAT else v
     if kind == STRING:
         if isinstance(value, bytes):
             value = value.decode("utf-8")
@@ -163,16 +258,127 @@ def _skip(data, pos: int, wire_type: int) -> int:
     return pos
 
 
+def _put_scalar(out: bytearray, kind: str, v) -> None:
+    """One scalar's value bytes, no key."""
+    if kind == DOUBLE:
+        out += struct.pack("<d", v)
+    elif kind == FLOAT:
+        out += struct.pack("<f", v)
+    elif kind in (STRING, BYTES):
+        raw = v.encode("utf-8") if kind == STRING else v
+        _put_varint(out, len(raw))
+        out += raw
+    elif kind == UINT32:
+        _put_varint(out, v & 0xFFFFFFFF)
+    else:
+        _put_varint(out, int(v))
+
+
+def _get_scalar(data, pos: int, end: int, kind: str, name: str):
+    """One scalar's value at ``pos`` (its key already read)."""
+    if kind in _VARINT_KINDS:
+        v, pos = _get_varint(data, pos)
+        return _from_varint(kind, v), pos
+    if kind in _WIRE:
+        width = 8 if kind == DOUBLE else 4
+        if pos + width > end:
+            raise DecodeError(f"field {name}: truncated")
+        (v,) = struct.unpack_from("<d" if kind == DOUBLE else "<f",
+                                  bytes(data[pos:pos + width]))
+        return v, pos + width
+    n, pos = _get_varint(data, pos)
+    stop = pos + n
+    if stop > end:
+        raise DecodeError(f"field {name}: truncated")
+    raw = bytes(data[pos:stop])
+    if kind == STRING:
+        try:
+            return raw.decode("utf-8"), stop
+        except UnicodeDecodeError as e:
+            raise DecodeError(f"field {name}: {e}") from None
+    return raw, stop
+
+
+# --------------------------------------------------------------- containers
+class _RepeatedMessages(list):
+    """A repeated message field: ``add(**fields)`` appends a new element."""
+
+    __slots__ = ("_owner", "_cls")
+
+    def __init__(self, owner: "Message", cls):
+        super().__init__()
+        self._owner = owner
+        self._cls = cls
+
+    def add(self, **kwargs) -> "Message":
+        msg = self._cls(**kwargs)
+        super().append(msg)
+        self._owner._touch()
+        return msg
+
+    def append(self, msg) -> None:
+        self.add().CopyFrom(msg)
+
+    def extend(self, msgs) -> None:
+        for m in msgs:
+            self.append(m)
+
+
+class _Map(dict):
+    """A map field. Scalar values are checked on assignment; a message
+    value is created on first access, as protobuf's message maps do."""
+
+    __slots__ = ("_owner", "_field")
+
+    def __init__(self, owner: "Message", field: Field):
+        super().__init__()
+        self._owner = owner
+        self._field = field
+
+    def __setitem__(self, key, value):
+        f = self._field
+        if f.kind == MESSAGE:
+            raise ValueError(f"{f.name}: assign to a message map's fields, "
+                             f"not to its entries")
+        super().__setitem__(_check_scalar(f, key, f.key_kind),
+                            _check_scalar(f, value))
+        self._owner._touch()
+
+    def __getitem__(self, key):
+        f = self._field
+        key = _check_scalar(f, key, f.key_kind)
+        if key not in self:
+            if f.kind != MESSAGE:
+                return f.default
+            super().__setitem__(key, f.message_class())
+            self._owner._touch()
+        return super().__getitem__(key)
+
+    def update(self, other=(), **kw):
+        for k, v in dict(other, **kw).items():
+            if self._field.kind == MESSAGE:
+                self[k].CopyFrom(v)
+            else:
+                self[k] = v
+
+
 # ------------------------------------------------------------------ message
 class Message:
-    """Base of every table-built message. Subclasses set ``FIELDS``."""
+    """Base of every table-built message. Subclasses set ``FIELDS``;
+    ``SYNTAX = "proto2"`` gives every singular scalar presence and writes
+    repeated scalars unpacked. Nested enums are class attributes listed in
+    ``ENUMS``, with their values as class constants."""
 
     FIELDS: Tuple[Field, ...] = ()
+    SYNTAX = "proto3"
+    ENUMS: Tuple[EnumType, ...] = ()
     DESCRIPTOR: "Descriptor" = None
     # class-level tables, built by __init_subclass__
     _by_name: Dict[str, Field] = {}
     _by_number: Dict[int, Field] = {}
     _ordered: Tuple[Field, ...] = ()
+    _oneofs: Dict[str, Tuple[str, ...]] = {}
+    _required: Tuple[str, ...] = ()
 
     __slots__ = ("_values", "_present", "_parent")
 
@@ -185,6 +391,18 @@ class Message:
                 len(cls._by_number) != len(cls.FIELDS):
             raise ValueError(f"{cls.__name__}: duplicate field name or "
                              f"number")
+        oneofs: Dict[str, List[str]] = {}
+        for f in cls.FIELDS:
+            if f.oneof is not None:
+                oneofs.setdefault(f.oneof, []).append(f.name)
+            if cls.SYNTAX == "proto2":
+                f.packed = False
+                if not f.repeated and f.kind != MESSAGE:
+                    f.has_presence = True
+            if f.is_map:
+                f._entry = _map_entry(f)
+        cls._oneofs = {k: tuple(v) for k, v in oneofs.items()}
+        cls._required = tuple(f.name for f in cls.FIELDS if f.required)
 
     def __init__(self, **kwargs):
         object.__setattr__(self, "_values", {})
@@ -195,7 +413,11 @@ class Message:
             if f is None:
                 raise ValueError(f"{type(self).__name__} has no field "
                                  f"{name!r}")
-            if f.kind == MESSAGE:
+            if f.is_map:
+                getattr(self, name).update(value)
+            elif f.kind == MESSAGE and f.repeated:
+                getattr(self, name).extend(value)
+            elif f.kind == MESSAGE:
                 getattr(self, name).CopyFrom(value)
                 self._mark(name)
             else:
@@ -211,7 +433,11 @@ class Message:
         v = values.get(name)
         if v is not None:
             return v
-        if f.repeated:
+        if f.is_map:
+            v = values[name] = _Map(self, f)
+        elif f.repeated and f.kind == MESSAGE:
+            v = values[name] = _RepeatedMessages(self, f.message_class)
+        elif f.repeated:
             v = values[name] = []
         elif f.kind == MESSAGE:
             # unset: an empty child that marks this field present the
@@ -219,7 +445,7 @@ class Message:
             v = values[name] = f.message_class()
             object.__setattr__(v, "_parent", (self, name))
         else:
-            v = _DEFAULTS[f.kind]
+            v = f.default
         return v
 
     def __setattr__(self, name, value):
@@ -227,14 +453,24 @@ class Message:
         if f is None:
             raise AttributeError(f"{type(self).__name__} has no field "
                                  f"{name!r}")
-        if f.kind == MESSAGE:
-            raise AttributeError(f"assignment to message field {name!r}: "
+        if f.kind == MESSAGE or f.is_map:
+            raise AttributeError(f"assignment to {f.kind} field {name!r}: "
                                  f"set its fields or use CopyFrom")
         if f.repeated:
             self._values[name] = [_check_scalar(f, v) for v in value]
         else:
             self._values[name] = _check_scalar(f, value)
+            if f.has_presence:
+                self._set_present(f)
         self._touch()
+
+    def _set_present(self, f: Field) -> None:
+        if f.oneof is not None:
+            for other in self._oneofs[f.oneof]:
+                if other != f.name:
+                    self._values.pop(other, None)
+                    self._present.discard(other)
+        self._present.add(f.name)
 
     def _touch(self) -> None:
         parent = self._parent
@@ -243,15 +479,25 @@ class Message:
 
     def _mark(self, name: str) -> None:
         if name not in self._present:
-            self._present.add(name)
+            self._set_present(self._by_name[name])
             self._touch()
 
     def HasField(self, name: str) -> bool:
+        if name in self._oneofs:
+            return self.WhichOneof(name) is not None
         f = type(self)._by_name.get(name)
-        if f is None or f.kind != MESSAGE:
-            raise ValueError(f"{type(self).__name__}: HasField is for "
-                             f"message fields, not {name!r}")
+        if f is None or f.repeated or not (f.kind == MESSAGE
+                                           or f.has_presence):
+            raise ValueError(f"{type(self).__name__}: field {name!r} has "
+                             f"no presence")
         return name in self._present
+
+    def WhichOneof(self, oneof: str) -> Optional[str]:
+        members = self._oneofs.get(oneof)
+        if members is None:
+            raise ValueError(f"{type(self).__name__} has no oneof "
+                             f"{oneof!r}")
+        return next((m for m in members if m in self._present), None)
 
     def SetInParent(self) -> None:
         """Mark this (empty) sub-message present in its parent."""
@@ -261,6 +507,9 @@ class Message:
         self._values.clear()
         self._present.clear()
 
+    def _missing(self) -> List[str]:
+        return [n for n in self._required if n not in self._present]
+
     # --------------------------------------------------------------- copies
     def MergeFrom(self, other: "Message") -> None:
         if type(other) is not type(self):
@@ -268,20 +517,25 @@ class Message:
                             f"{type(self).__name__}")
         for f in self._ordered:
             name = f.name
-            if f.repeated:
-                vals = other._values.get(name)
+            vals = other._values.get(name)
+            if f.is_map:
+                if vals:
+                    getattr(self, name).update(vals)
+            elif f.repeated:
                 if vals:
                     getattr(self, name).extend(vals)
                     self._touch()
             elif f.kind == MESSAGE:
                 if name in other._present:
-                    getattr(self, name).MergeFrom(other._values[name])
+                    getattr(self, name).MergeFrom(vals)
                     self._mark(name)
-            else:
-                v = other._values.get(name, _DEFAULTS[f.kind])
-                if v != _DEFAULTS[f.kind]:
-                    self._values[name] = v
-                    self._touch()
+            elif f.has_presence:
+                if name in other._present:
+                    setattr(self, name, vals if vals is not None
+                            else f.default)
+            elif vals is not None and vals != f.default:
+                self._values[name] = vals
+                self._touch()
 
     def CopyFrom(self, other: "Message") -> None:
         if other is self:
@@ -291,38 +545,70 @@ class Message:
 
     # ----------------------------------------------------------------- wire
     def _encode(self, out: bytearray) -> None:
+        if self._required:
+            missing = self._missing()
+            if missing:
+                raise EncodeError(f"Message {self.DESCRIPTOR.full_name} is "
+                                  f"missing required fields: "
+                                  f"{','.join(missing)}")
         values = self._values
+        present = self._present
         for f in self._ordered:
-            name = f.name
-            if f.kind == MESSAGE:
-                if name not in self._present:
-                    continue
-                body = values[name].SerializeToString()
-                _put_varint(out, (f.number << 3) | _WT_LEN)
-                _put_varint(out, len(body))
-                out += body
-                continue
-            v = values.get(name)
-            if not v:
-                continue  # default scalar or empty repeated
+            v = values.get(f.name)
+            if v is None:
+                continue  # never set: nothing to write
+            kind = f.kind
             if f.repeated:
-                packed = bytearray()
-                mask32 = f.kind == UINT32
-                for x in v:
-                    x = int(x)
-                    _put_varint(packed, x & 0xFFFFFFFF if mask32 else x)
-                _put_varint(out, (f.number << 3) | _WT_LEN)
-                _put_varint(out, len(packed))
-                out += packed
-            elif f.kind in _VARINT_KINDS:
-                _put_varint(out, f.number << 3)
-                _put_varint(out, v & 0xFFFFFFFF if f.kind == UINT32
-                            else int(v))
-            else:
-                raw = v.encode("utf-8") if f.kind == STRING else v
-                _put_varint(out, (f.number << 3) | _WT_LEN)
-                _put_varint(out, len(raw))
-                out += raw
+                if not v:
+                    continue
+                if f.is_map:
+                    for key, value in sorted(v.items()):
+                        entry = bytearray()
+                        _put_varint(entry, 1 << 3 | _wire_type(f.key_kind))
+                        _put_scalar(entry, f.key_kind, key)
+                        if kind == MESSAGE:
+                            _put_bytes(entry, 2, value.SerializeToString())
+                        else:
+                            _put_varint(entry, 2 << 3 | f.wire)
+                            _put_scalar(entry, kind, value)
+                        out += f.len_tag
+                        _put_varint(out, len(entry))
+                        out += entry
+                elif kind == MESSAGE:
+                    for m in v:
+                        body = m.SerializeToString()
+                        out += f.len_tag
+                        _put_varint(out, len(body))
+                        out += body
+                elif f.packed and kind not in (STRING, BYTES):
+                    packed = bytearray()
+                    for x in v:
+                        _put_scalar(packed, kind, x)
+                    out += f.len_tag
+                    _put_varint(out, len(packed))
+                    out += packed
+                else:
+                    for x in v:
+                        out += f.tag
+                        _put_scalar(out, kind, x)
+                continue
+            if kind == MESSAGE:
+                if f.name in present:
+                    body = v.SerializeToString()
+                    out += f.len_tag
+                    _put_varint(out, len(body))
+                    out += body
+                continue
+            if not v:
+                # a default scalar is written only with presence (and
+                # proto3 writes -0.0)
+                if f.has_presence:
+                    if f.name not in present:
+                        continue
+                elif kind not in _WIRE or math.copysign(1.0, v) > 0:
+                    continue
+            out += f.tag
+            _put_scalar(out, kind, v)
 
     def SerializeToString(self) -> bytes:
         out = bytearray()
@@ -341,51 +627,54 @@ class Message:
             if number == 0:
                 raise DecodeError("field number 0")
             f = by_number.get(number)
-            if f is None or wt != (_WT_VARINT if f.kind in _VARINT_KINDS
-                                   and not (f.repeated and wt == _WT_LEN)
-                                   else _WT_LEN):
+            if f is None or not (wt == f.wire and not f.is_map
+                                 or wt == _WT_LEN and (f.repeated
+                                                       or f.kind == MESSAGE)):
                 # unknown field, or a known number with a wire type its
                 # kind never has: protobuf keeps both as unknown fields
                 pos = _skip(data, pos, wt)
                 if pos > end:
                     raise DecodeError("truncated field")
                 continue
-            if f.kind in _VARINT_KINDS:
-                if wt == _WT_VARINT:
-                    v, pos = _get_varint(data, pos)
-                    v = _from_varint(f.kind, v)
-                    if f.repeated:
-                        getattr(self, f.name).append(v)
-                    else:
-                        values[f.name] = v
-                elif wt == _WT_LEN and f.repeated:
-                    n, pos = _get_varint(data, pos)
-                    stop = pos + n
-                    if stop > end:
-                        raise DecodeError("truncated packed field")
-                    lst = getattr(self, f.name)
-                    while pos < stop:
-                        v, pos = _get_varint(data, pos)
-                        lst.append(_from_varint(f.kind, v))
-                    if pos != stop:
-                        raise DecodeError("packed field overruns its length")
-            else:
+            if f.kind == MESSAGE or f.is_map:
                 n, pos = _get_varint(data, pos)
                 stop = pos + n
                 if stop > end:
                     raise DecodeError(f"field {f.name}: truncated")
-                if f.kind == MESSAGE:
-                    child = getattr(self, f.name)
-                    child._merge_bytes(data, pos, stop)
-                    self._present.add(f.name)
-                elif f.kind == STRING:
-                    try:
-                        values[f.name] = bytes(data[pos:stop]).decode("utf-8")
-                    except UnicodeDecodeError as e:
-                        raise DecodeError(f"field {f.name}: {e}") from None
+                if f.is_map:
+                    entry = f._entry()
+                    entry._merge_bytes(data, pos, stop)
+                    target = getattr(self, f.name)
+                    if f.kind == MESSAGE:
+                        target[entry.key].CopyFrom(entry.value)
+                    else:
+                        target[entry.key] = entry.value
+                elif f.repeated:
+                    getattr(self, f.name).add()._merge_bytes(data, pos, stop)
                 else:
-                    values[f.name] = bytes(data[pos:stop])
+                    getattr(self, f.name)._merge_bytes(data, pos, stop)
+                    self._set_present(f)
                 pos = stop
+            elif f.repeated and wt == _WT_LEN and f.kind not in (STRING,
+                                                                 BYTES):
+                n, pos = _get_varint(data, pos)
+                stop = pos + n
+                if stop > end:
+                    raise DecodeError("truncated packed field")
+                lst = getattr(self, f.name)
+                while pos < stop:
+                    v, pos = _get_scalar(data, pos, stop, f.kind, f.name)
+                    lst.append(v)
+                if pos != stop:
+                    raise DecodeError("packed field overruns its length")
+            else:
+                v, pos = _get_scalar(data, pos, end, f.kind, f.name)
+                if f.repeated:
+                    getattr(self, f.name).append(v)
+                else:
+                    values[f.name] = v
+                    if f.has_presence:
+                        self._set_present(f)
         if pos != end:
             raise DecodeError("message overruns its length")
 
@@ -411,13 +700,24 @@ class Message:
         out = []
         for f in self._ordered:
             name = f.name
-            if f.kind == MESSAGE:
-                out.append(self._values[name]._fields_tuple()
+            v = self._values.get(name)
+            if f.is_map:
+                items = sorted((v or {}).items())
+                out.append(tuple(
+                    (k, x._fields_tuple() if f.kind == MESSAGE else x)
+                    for k, x in items))
+            elif f.repeated and f.kind == MESSAGE:
+                out.append(tuple(m._fields_tuple() for m in v or ()))
+            elif f.kind == MESSAGE:
+                out.append(v._fields_tuple()
                            if name in self._present else None)
             elif f.repeated:
-                out.append(tuple(self._values.get(name, ())))
+                out.append(tuple(v or ()))
+            elif f.has_presence:
+                out.append((name in self._present,
+                            f.default if v is None else v))
             else:
-                out.append(self._values.get(name, _DEFAULTS[f.kind]))
+                out.append(f.default if v is None else v)
         return tuple(out)
 
     def __eq__(self, other):
@@ -431,23 +731,34 @@ class Message:
         parts = []
         for f in self._ordered:
             name = f.name
-            if f.kind == MESSAGE:
+            if f.kind == MESSAGE and not f.repeated:
                 if name in self._present:
                     parts.append(f"{name}={self._values[name]!r}")
             else:
                 v = self._values.get(name)
-                if v:
+                if v or name in self._present:
                     parts.append(f"{name}={v!r}")
         return f"{type(self).__name__}({', '.join(parts)})"
+
+
+def _map_entry(f: Field) -> type:
+    """The entry message of a map field, ``<Name>Entry`` (key 1, value
+    2), as protoc nests it."""
+    name = "".join(p[:1].upper() + p[1:] for p in f.name.split("_"))
+    value = Field(2, "value", f.kind, message_class=f.message_class,
+                  enum_type=f.enum_type)
+    return type(f"{name}Entry", (Message,), {
+        "FIELDS": (Field(1, "key", f.key_kind), value),
+        "__slots__": ()})
 
 
 # --------------------------------------------------------------- descriptors
 class Descriptor:
     """A message type: its names and its concrete class."""
 
-    def __init__(self, cls, package: str):
+    def __init__(self, cls, prefix: str):
         self.name = cls.__name__
-        self.full_name = f"{package}.{cls.__name__}" if package \
+        self.full_name = f"{prefix}.{cls.__name__}" if prefix \
             else cls.__name__
         self.fields = cls._ordered
         self._concrete_class = cls
@@ -475,23 +786,37 @@ class ServiceDescriptor:
 
 
 class FileDescriptor:
-    """One ``.proto`` file's tables: sets each class's DESCRIPTOR and
-    builds the services, ``services`` maps a service name to its
-    ``(method, request class, response class)`` list. ``serialized_pb``
-    is the ``FileDescriptorProto`` protoc writes for such a file (no
-    json names), encoded from the tables: messages and services in the
-    order given, fields in ``FIELDS`` order."""
+    """One ``.proto`` file's tables: sets each class's DESCRIPTOR and each
+    enum's full name, and builds the services; ``services`` maps a
+    service name to its ``(method, request class, response class)`` list.
+    ``serialized_pb`` is the ``FileDescriptorProto`` protoc writes for
+    such a file (no json names), encoded from the tables: messages, enums
+    and services in the order given, fields in ``FIELDS`` order, each
+    map's entry type and each message's enums nested in it."""
 
     def __init__(self, name: str, package: str,
                  messages: Iterable[type],
                  services: Optional[Dict[str, Sequence[Tuple[str, type,
-                                                             type]]]] = None):
+                                                             type]]]] = None,
+                 enums: Sequence[EnumType] = (), syntax: str = "proto3"):
         self.name = name
         self.package = package
+        self.syntax = syntax
         self.message_types_by_name = {}
+        self.enum_types_by_name = {}
+        for enum in enums:
+            enum.full_name = f"{package}.{enum.name}" if package \
+                else enum.name
+            self.enum_types_by_name[enum.name] = enum
         for cls in messages:
             cls.DESCRIPTOR = Descriptor(cls, package)
             self.message_types_by_name[cls.__name__] = cls.DESCRIPTOR
+            for enum in cls.ENUMS:
+                enum.full_name = f"{cls.DESCRIPTOR.full_name}.{enum.name}"
+            for f in cls.FIELDS:
+                if f.is_map:
+                    f._entry.DESCRIPTOR = Descriptor(
+                        f._entry, cls.DESCRIPTOR.full_name)
         self.services_by_name = {
             sname: ServiceDescriptor(sname, package, methods)
             for sname, methods in (services or {}).items()}
@@ -499,30 +824,18 @@ class FileDescriptor:
 
     def _file_proto(self) -> bytes:
         # descriptor.proto: FileDescriptorProto name 1, package 2,
-        # message_type 4, service 6, syntax 12; DescriptorProto name 1,
-        # field 2; FieldDescriptorProto name 1, number 3, label 4, type 5,
-        # type_name 6; ServiceDescriptorProto name 1, method 2;
-        # MethodDescriptorProto name 1, input_type 2, output_type 3
+        # message_type 4, enum_type 5, service 6, syntax 12 (proto3 only)
         out = bytearray()
         _put_text(out, 1, self.name)
         if self.package:
             _put_text(out, 2, self.package)
         for desc in self.message_types_by_name.values():
-            msg = bytearray()
-            _put_text(msg, 1, desc.name)
-            for f in desc._concrete_class.FIELDS:
-                field = bytearray()
-                _put_text(field, 1, f.name)
-                _put_number(field, 3, f.number)
-                _put_number(field, 4, _LABEL_REPEATED if f.repeated
-                            else _LABEL_OPTIONAL)
-                _put_number(field, 5, _TYPE_CODES[f.kind])
-                if f.kind == MESSAGE:
-                    _put_text(field, 6,
-                              "." + f.message_class.DESCRIPTOR.full_name)
-                _put_bytes(msg, 2, field)
-            _put_bytes(out, 4, msg)
+            _put_bytes(out, 4, _message_proto(desc._concrete_class))
+        for enum in self.enum_types_by_name.values():
+            _put_bytes(out, 5, _enum_proto(enum))
         for svc in self.services_by_name.values():
+            # ServiceDescriptorProto name 1, method 2; MethodDescriptorProto
+            # name 1, input_type 2, output_type 3
             sb = bytearray()
             _put_text(sb, 1, svc.name)
             for m in svc.methods:
@@ -532,14 +845,97 @@ class FileDescriptor:
                 _put_text(mb, 3, "." + m.output_type.full_name)
                 _put_bytes(sb, 2, mb)
             _put_bytes(out, 6, sb)
-        _put_text(out, 12, "proto3")
+        if self.syntax == "proto3":
+            _put_text(out, 12, "proto3")
         return bytes(out)
 
 
 # FieldDescriptorProto's Label and Type values (descriptor.proto)
-_LABEL_OPTIONAL, _LABEL_REPEATED = 1, 3
-_TYPE_CODES = {INT64: 3, INT32: 5, BOOL: 8, STRING: 9, MESSAGE: 11,
-               BYTES: 12, UINT32: 13}
+_LABEL_OPTIONAL, _LABEL_REQUIRED, _LABEL_REPEATED = 1, 2, 3
+_TYPE_CODES = {DOUBLE: 1, FLOAT: 2, INT64: 3, UINT64: 4, INT32: 5, BOOL: 8,
+               STRING: 9, MESSAGE: 11, BYTES: 12, UINT32: 13, ENUM: 14}
+
+
+def _message_proto(cls) -> bytearray:
+    # DescriptorProto name 1, field 2, nested_type 3, enum_type 4,
+    # options 7 (MessageOptions map_entry 7), oneof_decl 8 (name 1);
+    # FieldDescriptorProto name 1, number 3, label 4, type 5, type_name 6,
+    # default_value 7, oneof_index 9, proto3_optional 17
+    msg = bytearray()
+    _put_text(msg, 1, cls.__name__)
+    full = cls.DESCRIPTOR.full_name
+    # a proto3 ``optional`` field sits in a synthetic oneof named
+    # _<field>, declared after the real ones
+    decls = list(cls._oneofs) + [f"_{f.name}" for f in cls.FIELDS
+                                 if f.optional]
+    for f in cls.FIELDS:
+        field = bytearray()
+        _put_text(field, 1, f.name)
+        _put_number(field, 3, f.number)
+        _put_number(field, 4, _LABEL_REPEATED if f.repeated
+                    else _LABEL_REQUIRED if f.required else _LABEL_OPTIONAL)
+        if f.is_map:
+            _put_number(field, 5, _TYPE_CODES[MESSAGE])
+            _put_text(field, 6, f".{full}.{f._entry.__name__}")
+        else:
+            _put_number(field, 5, _TYPE_CODES[f.kind])
+            if f.kind == MESSAGE:
+                _put_text(field, 6,
+                          "." + f.message_class.DESCRIPTOR.full_name)
+            elif f.kind == ENUM:
+                _put_text(field, 6, "." + f.enum_type.full_name)
+        if cls.SYNTAX == "proto2" and f.default != _DEFAULTS.get(f.kind):
+            _put_text(field, 7, str(f.default))
+        if f.oneof is not None or f.optional:
+            _put_number(field, 9, decls.index(f.oneof if f.oneof is not None
+                                              else f"_{f.name}"))
+        if f.optional:
+            _put_number(field, 17, 1)
+        _put_bytes(msg, 2, field)
+    for f in cls.FIELDS:
+        if f.is_map:
+            entry = _message_proto_of_entry(f._entry, full)
+            _put_bytes(msg, 3, entry)
+    for enum in cls.ENUMS:
+        _put_bytes(msg, 4, _enum_proto(enum))
+    for decl in decls:
+        ob = bytearray()
+        _put_text(ob, 1, decl)
+        _put_bytes(msg, 8, ob)
+    return msg
+
+
+def _message_proto_of_entry(entry, parent: str) -> bytearray:
+    msg = bytearray()
+    _put_text(msg, 1, entry.__name__)
+    for f in entry.FIELDS:
+        field = bytearray()
+        _put_text(field, 1, f.name)
+        _put_number(field, 3, f.number)
+        _put_number(field, 4, _LABEL_OPTIONAL)
+        _put_number(field, 5, _TYPE_CODES[f.kind])
+        if f.kind == MESSAGE:
+            _put_text(field, 6, "." + f.message_class.DESCRIPTOR.full_name)
+        elif f.kind == ENUM:
+            _put_text(field, 6, "." + f.enum_type.full_name)
+        _put_bytes(msg, 2, field)
+    options = bytearray()
+    _put_number(options, 7, 1)
+    _put_bytes(msg, 7, options)
+    return msg
+
+
+def _enum_proto(enum: EnumType) -> bytearray:
+    # EnumDescriptorProto name 1, value 2; EnumValueDescriptorProto
+    # name 1, number 2
+    eb = bytearray()
+    _put_text(eb, 1, enum.name)
+    for vname, number in enum.values:
+        vb = bytearray()
+        _put_text(vb, 1, vname)
+        _put_number(vb, 2, number)
+        _put_bytes(eb, 2, vb)
+    return eb
 
 
 def _put_number(out: bytearray, number: int, v: int) -> None:

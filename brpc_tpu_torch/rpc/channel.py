@@ -17,7 +17,7 @@ branch: every call takes the full Controller pipeline (the reference's
 target runs the call in process on card n (``tpu/tpusocket.py``); a
 ``tpu://host:port/n`` target dials the cross-process tunnel
 (``tpu/transport.py``). ``native_transport`` is not ported and raises,
-naming its ROADMAP item (Queue 1 item 2(b)).
+naming its ROADMAP item (Queue 1 item 2(b)7).
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ class ChannelOptions:
     # transports.
     enable_checksum: bool = False
     # the reference's C++ engine for trpc_std traffic; the port has no C++
-    # core yet (ROADMAP Queue 1 item 2(b)), so True raises at init()
+    # core yet (ROADMAP Queue 1 item 2(b)7), so True raises at init()
     native_transport: bool = False
     # TLS to the server (rpc/ssl_helper.ClientSslOptions). None = plaintext.
     ssl: object = None
@@ -128,7 +128,7 @@ class Channel:
         if self.options.native_transport:
             raise NotImplementedError(
                 "native_transport: the C++ core is not ported (ROADMAP "
-                "Queue 1 item 2(b))")
+                "Queue 1 item 2(b)7)")
         self._socket_map = global_socket_map()
 
     # ------------------------------------------------------------ call stack
@@ -200,9 +200,12 @@ class Channel:
             if call_ms and call_ms > 0:
                 connect_s = min(connect_s, call_ms / 1000.0)
             return get_tpu_socket(ep, connect_timeout=connect_s)
-        # the frame protocols share one connection per endpoint (the
-        # reference keys connection-scoped protocols apart; none is ported)
-        signature = ""
+        # connection-scoped protocols (grpc/redis/thrift/..., none ported
+        # yet) can't share a socket with each other or with frame
+        # protocols: key the shared map by the protocol itself. HTTP is
+        # not connection-scoped and shares the endpoint's connection.
+        signature = (self._protocol.name
+                     if hasattr(self._protocol, "issue_request") else "")
         sm = self._socket_map
         if ctype == "pooled":
             return self._tag_return(

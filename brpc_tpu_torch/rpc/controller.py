@@ -68,6 +68,7 @@ class Controller:
         self._srv_meta = None
         self._srv_socket = None
         self._response_sent = False
+        self.http_request = None  # HttpMessage when the call arrived via http
         self.auth_context = None  # AuthContext from the server Authenticator
         # streaming
         self.stream_id = 0            # client: stream created before call
@@ -359,11 +360,20 @@ class Controller:
 
     # ============================================================ server role
     def create_progressive_attachment(self):
-        """Server-side, HTTP only (reference
-        Controller::CreateProgressiveAttachment); the port serves no HTTP
-        yet (ROADMAP Queue 1 item 2(b)), so every request refuses."""
-        raise ValueError("progressive attachments are HTTP-only "
-                         "(this request arrived via a binary protocol)")
+        """Server-side, HTTP only: stream the response body in chunks after
+        the RPC completes (reference Controller::CreateProgressiveAttachment,
+        progressive_attachment.cpp). The pb response is not serialized into
+        the body; chunks written to the returned object ARE the body."""
+        if not self.is_server_side or self.http_request is None:
+            # the reference returns NULL off-HTTP; silently buffering data
+            # that no response path will ever flush is worse than failing
+            raise ValueError("progressive attachments are HTTP-only "
+                             "(this request arrived via a binary protocol)")
+        from brpc_tpu_torch.rpc.progressive import ProgressiveAttachment
+
+        pa = ProgressiveAttachment()
+        self._progressive = pa
+        return pa
 
     @classmethod
     def server_controller(cls, server, sock, meta) -> "Controller":

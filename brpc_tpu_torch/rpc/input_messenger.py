@@ -131,6 +131,15 @@ class InputMessenger:
                 if cursor is not None:
                     if len(sock.read_buf):
                         cursor.feed(sock.read_buf)
+                    if getattr(cursor, "failed", False):
+                        # mid-body framing error (chunked cursor): the
+                        # stream is unrecoverable, same verdict as a
+                        # PARSE_BAD from parse()
+                        sock.pending_body = None
+                        sock.set_failed(errors.EREQUEST,
+                                        f"bad streaming body: "
+                                        f"{getattr(cursor, 'error', '')}")
+                        break
                     if not cursor.done:
                         break  # mid-body: wait for the next read burst
                     sock.pending_body = None

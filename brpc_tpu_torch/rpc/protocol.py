@@ -123,6 +123,124 @@ class PendingBodyCursor:
         return self._finish(self)
 
 
+class ChunkedBodyCursor:
+    """Streaming pending-body cursor for Transfer-Encoding: chunked.
+
+    Unlike :class:`PendingBodyCursor` the total length is unknown until
+    the terminal 0-size chunk, so this cursor runs the chunked framing
+    state machine incrementally: *size-line* -> *data* -> *chunk-CRLF*
+    (repeat), then *trailers* until the blank line. Chunk payload bytes
+    are claimed (copied out and source refs dropped) as they arrive, so
+    transports that defer credits to consumption get them back per read
+    burst, exactly as with a declared-length cursor.
+
+    Framing errors don't raise into the cut loop — they set ``failed``
+    (+ ``error``) and the cut loop fails the socket, mirroring how a
+    PARSE_BAD from ``parse`` is handled.
+    """
+
+    # generous bound for "HEX[;ext]\r\n" / a trailer line; the full-buffer
+    # decoder caps the size token at 16 bytes, trailers need more room
+    MAX_LINE = 256
+
+    _SIZE, _DATA, _DATA_CRLF, _TRAILERS, _DONE = range(5)
+
+    __slots__ = ("protocol", "consumed", "failed", "error",
+                 "_finish", "_state", "_line", "_chunk_left", "_body")
+
+    def __init__(self, protocol: "Protocol", finish):
+        self.protocol = protocol
+        self._finish = finish
+        self._state = self._SIZE
+        self._line = bytearray()   # partial framing line across feeds
+        self._chunk_left = 0
+        self._body = bytearray()
+        self.consumed = 0          # total bytes taken off the wire
+        self.failed = False
+        self.error = ""
+
+    def _fail(self, why: str) -> None:
+        self.failed = True
+        self.error = why
+        self._state = self._DONE
+
+    def _take_line(self, buf: IOBuf) -> Optional[bytes]:
+        """One CRLF-terminated framing line, accumulated across feeds;
+        None while incomplete. The terminator is consumed, not returned."""
+        probe = buf.fetch(min(len(buf), self.MAX_LINE))
+        nl = probe.find(b"\n")
+        if nl < 0:
+            self._line += probe
+            buf.pop_front(len(probe))
+            self.consumed += len(probe)
+            if len(self._line) > self.MAX_LINE:
+                self._fail("oversized chunk framing line")
+            return None
+        self._line += probe[:nl + 1]
+        buf.pop_front(nl + 1)
+        self.consumed += nl + 1
+        line = bytes(self._line)
+        self._line.clear()
+        if len(line) > self.MAX_LINE + 1:
+            self._fail("oversized chunk framing line")
+            return None
+        if not line.endswith(b"\r\n"):
+            self._fail("bare LF in chunk framing")
+            return None
+        return line[:-2]
+
+    def feed(self, buf: IOBuf) -> int:
+        before = self.consumed
+        while not self.failed and self._state != self._DONE and len(buf):
+            if self._state == self._DATA:
+                n = min(self._chunk_left, len(buf))
+                # claim: copy out and drop the source refs NOW — the copy
+                # is the consumption signal that returns transport credits
+                self._body += buf.cutn(n).tobytes()
+                self.consumed += n
+                self._chunk_left -= n
+                if self._chunk_left == 0:
+                    self._state = self._DATA_CRLF
+                continue
+            line = self._take_line(buf)
+            if line is None:
+                # partial framing line: the probe was consumed into _line,
+                # so the loop condition (failed / buf drained) terminates
+                continue
+            if self._state == self._SIZE:
+                try:
+                    size = int(line.split(b";")[0].strip(), 16)
+                except ValueError:
+                    self._fail("malformed chunk size")
+                    continue
+                if size == 0:
+                    self._state = self._TRAILERS
+                else:
+                    self._chunk_left = size
+                    self._state = self._DATA
+            elif self._state == self._DATA_CRLF:
+                if line:
+                    self._fail("missing chunk terminator")
+                    continue
+                self._state = self._SIZE
+            elif self._state == self._TRAILERS:
+                # trailer headers are consumed and ignored; the blank
+                # line ends the message
+                if not line:
+                    self._state = self._DONE
+        return self.consumed - before
+
+    @property
+    def done(self) -> bool:
+        return self._state == self._DONE and not self.failed
+
+    def body(self) -> bytes:
+        return bytes(self._body)
+
+    def finish(self) -> Optional["ParsedMessage"]:
+        return self._finish(self)
+
+
 class ParsedMessage:
     """One complete wire message, protocol-tagged."""
 

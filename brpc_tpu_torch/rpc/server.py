@@ -9,10 +9,12 @@ The port's copy of the JAX package's ``rpc/server.py`` on its pure-Python
 branch: the Python acceptor serves every connection. A
 ``tpu://host:port/n`` listener fronts card n: its TCP port is the tunnel's
 bootstrap, and a connection that says HELLO becomes a tunnel endpoint
-(``tpu/transport.py``). What is not ported yet raises at ``start`` and
-names its ROADMAP item (Queue 1 item 2(b)): the native dataplane (the C++
-core) and the sharded dispatch plane. The builtin Health and view
-services are not added.
+(``tpu/transport.py``). ``start`` adds the builtin Health and view
+services, as the reference does; Health answers over trpc_std and HTTP
+(its gRPC transport waits for ROADMAP Queue 1 item 2(b)6). What is not
+ported yet raises at ``start`` and names its ROADMAP item: the native
+dataplane (the C++ core, Queue 1 item 2(b)7) and the sharded dispatch
+plane (item 2(b)9).
 """
 
 from __future__ import annotations
@@ -178,7 +180,7 @@ class ServerOptions:
     idle_timeout_s: int = -1
     rpc_dump_dir: Optional[str] = None  # sample requests here (rpc_dump)
     # the reference's C++ engine for TRPC traffic; the port has no C++
-    # core yet (ROADMAP Queue 1 item 2(b)), so True raises at start()
+    # core yet (ROADMAP Queue 1 item 2(b)7), so True raises at start()
     native_dataplane: bool = False
     # TLS on the listener (rpc/ssl_helper.ServerSslOptions). The SAME port
     # keeps serving plaintext: the first byte of each connection is sniffed
@@ -280,17 +282,31 @@ class Server:
         install_default_rules()
         from brpc_tpu_torch import flags as _flags
 
-        # not ported yet (ROADMAP Queue 1 item 2(b)): refused, never passed
-        # over. The builtin Health and view services (reference
-        # server.cpp:499-601) need HTTP, gRPC and builtin/; none is added.
+        # not ported yet: refused, never passed over
         if int(_flags.get("tpu_shard_workers")) > 0:
             raise NotImplementedError(
                 "tpu_shard_workers > 0: the sharded dispatch plane is not "
-                "ported (ROADMAP Queue 1 item 2(b))")
+                "ported (ROADMAP Queue 1 item 2(b)9)")
         if self.options.native_dataplane:
             raise NotImplementedError(
                 "native_dataplane: the C++ core is not ported (ROADMAP "
-                "Queue 1 item 2(b))")
+                "Queue 1 item 2(b)7)")
+        if "Health" not in self._services:
+            # builtin grpc.health.v1.Health (reference server.cpp:499-601
+            # AddBuiltinServices / grpc_health_check_service); served over
+            # trpc_std and HTTP, its gRPC transport waits for ROADMAP
+            # Queue 1 item 2(b)6
+            from brpc_tpu_torch.builtin.grpc_health import GrpcHealthService
+
+            self._services["Health"] = GrpcHealthService(self)
+        # dashboard pages over the binary protocol — what rpc_view's
+        # proxy mode speaks (reference tools/rpc_view). Guard on the
+        # INSTANCE's name: service_name can be shadowed (tests do).
+        from brpc_tpu_torch.builtin.view_service import BuiltinViewService
+
+        _view = BuiltinViewService()
+        if _view.service_name not in self._services:
+            self.add_service(_view)
         if self.options.ssl is not None and self._ssl_ctx is None:
             # fail FAST on a bad cert path — not per-connection at runtime
             from brpc_tpu_torch.rpc.ssl_helper import build_server_context

@@ -39,7 +39,7 @@ The port's copy of ``brpc_tpu/tpu/transport.py``: the wire format (TPUC
 frames, the HELLO body, DATA/ACK bodies) is the JAX package's byte for
 byte, so a process of either package dials the other. The sharded
 dispatch plane's hooks (a worker pool posting leased blocks) are not
-ported with it (ROADMAP Queue 1 item 2(b)).
+ported with it (ROADMAP Queue 1 item 2(b)9).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then fourteen paths:
+(nvcc, sm_90a, one process per source, all at once). Then fifteen paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -91,13 +91,27 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   ``qos=None``: prod sheds nothing, every failure a best-effort
   EOVERCROWDED shed, completed tokens equal the ``qos=None`` engine's,
   the kernel launched layers x completed requests; prod's p99 ratio at
-  2x over 0.25x with and without QoS beside the 1.5x bound.
+  2x over 0.25x with and without QoS beside the 1.5x bound; then the
+  reference's burst-fault case (``serving.qos.burst`` cloning bulk
+  submits against a capped lane): bulk sheds, prod does not, and prod's
+  p99 under the burst beside ``unloaded * 4 + 0.05`` s.
 - Request batching (phase 4k): the batched_inference example's service
   on the card, a 65-request burst with one poisoned (answers within 1e-5
   of per-request forwards, ``g_batch_size`` above 1, the poisoned one
   failing alone), the example's server and client as fresh
   interpreters, ``bench/batch_lane.py`` (batched and per-request QPS and
-  p50), and the five host-only examples.
+  p50, ``g_batch_*`` read from its server's ``/vars`` over HTTP), and
+  the five host-only examples.
+- HTTP on the serving port (phase 4l): phase 4's engine behind one port
+  ``Server``; PROMPT_LENS as concurrent Generates over JSON (POST
+  ``/LlmService/Generate``, json2pb both ways), then as binary pb through
+  ``Channel(protocol="http")``: tokens equal phase 4's, the serving
+  kernel launched layers x prefills on the engine thread in each window;
+  ``/serving?format=json`` read while a Generate is in flight and after
+  (its counts the engine's snapshot), ``/status`` counting every
+  Generate, ``/rpcz`` listing them, ``/vars``; a 4 MiB progressive
+  attachment downloaded chunked, byte-equal; tokens/s and client latency
+  p50 beside phase 4b's.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm forward and backward kernels against their plain versions in
   fp32 and bf16 (the RMSNorm pair also at its rows' edges and widths past
@@ -171,6 +185,7 @@ error, time, plain and library times and its bound.
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -190,7 +205,7 @@ from brpc_tpu_torch import fault, flags, graft_entry, rpc  # noqa: E402
 from brpc_tpu_torch.bench.main_paths import (  # noqa: E402
     labelled_rmsnorm_bwd, range_kernels)
 from brpc_tpu_torch.examples.llm_server import client  # noqa: E402
-from brpc_tpu_torch.proto import serving_pb2  # noqa: E402
+from brpc_tpu_torch.proto import echo_pb2, serving_pb2  # noqa: E402
 from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,  # noqa: E402
                                     ModelConfig, PagedKVCache,
                                     ServingEngine, TinyTransformer)
@@ -634,7 +649,7 @@ def run_rpc(dev, direct, direct_stats):
                          "tokens_per_s", "ttft_us_p50", "ttft_us_max",
                          "wall_s", "step_us_p50", "steps")})
     print(json.dumps({"rpc": stats}), flush=True)
-    return launches
+    return launches, stats
 
 
 def motif_prompt(plen, motif):
@@ -1892,7 +1907,6 @@ def run_combo(dev, smi):
                       "lowered_ms_median": low_ms,
                       "lowered_ms_cold": low_cold,
                       "max_abs_err": float(np.abs(out - want).max())}
-    from brpc_tpu_torch.proto import echo_pb2
     ch = rpc.Channel(rpc.ChannelOptions(timeout_ms=60000)).init(
         "tpu://localhost", "rr")
     stub = rpc.Stub(ch, echo_pb2.DESCRIPTOR.services_by_name["EchoService"])
@@ -2178,27 +2192,57 @@ CORPUS_OVERLOAD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "tests", "data", "serving_corpus_overload")
 
 
+class FullCollections:
+    """The interpreter's full (generation 2) garbage collections while
+    the context is open, each with its pause in ms: one stops every
+    thread of this process, the engine's step loop included."""
+
+    def __enter__(self):
+        self.pauses_ms = []
+        self._t0 = None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses_ms.append((time.perf_counter() - self._t0) * 1e3)
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+
+
 def qos_replays(dev, qos, recs, rates):
     """One engine (``qos``) behind its Server: a discarded 2x warm-up,
-    then the corpus QOS_REPEATS times at each rate multiple. Returns
-    ({rate: [replay, ...]}, flash launches over the measured replays, the
-    engine's QoS snapshot)."""
+    then the corpus QOS_REPEATS times at each rate multiple. The garbage
+    of the earlier phases is collected before the measured replays: a
+    full collection of this process's heap stops every thread for
+    100-190 ms on the card's host, and one landing inside a 2x replay
+    sheds prod whatever the admission policy. The full
+    collections that still run inside the replays are returned with
+    their pauses. Returns ({rate: [replay, ...]}, flash launches over the
+    measured replays, the engine's QoS snapshot, [pause ms])."""
     from brpc_tpu_torch.bench import qos_replay
 
     server, engine = build_shard(dev, qos=qos, engine_cfg=QOS_ENGINE)
     try:
         ep = str(server.listen_endpoint())
         qos_replay.replay(ep, recs, 2)
+        gc.collect()
         pallas_ops.launches.reset()
-        out = {m: [qos_replay.replay(ep, recs, m)
-                   for _ in range(QOS_REPEATS)] for m in rates}
+        with FullCollections() as full:
+            out = {m: [qos_replay.replay(ep, recs, m)
+                       for _ in range(QOS_REPEATS)] for m in rates}
         engine.kv.store.fence()
         launches = pallas_ops.launches.of_thread(engine._thread.ident,
                                                  "flash_attention")
         snap = engine.qos.snapshot() if engine.qos is not None else None
     finally:
         close_shard(server, engine, f"qos={qos is not None}")
-    return out, launches, snap
+    return out, launches, snap, full.pauses_ms
 
 
 def pooled(replays, recs):
@@ -2236,7 +2280,8 @@ def run_qos(dev, smi, n_layers):
     recs = qos_replay.load_corpus(CORPUS_OVERLOAD)
     row = {"card": smi, "records": len(recs), "bound": QOS_BOUND,
            "qos": QOS_CFG, "engine": QOS_ENGINE}
-    off, _, _ = qos_replays(dev, None, recs, QOS_RATES)
+    off, _, _, row["off_full_gc_ms"] = qos_replays(dev, None, recs,
+                                                   QOS_RATES)
     want = off[0.25][0]["records"]
     if any(code != 0 for res in off[0.25] for code, _ in res["records"]):
         raise AssertionError("the qos=None engine failed at 0.25x")
@@ -2245,8 +2290,8 @@ def run_qos(dev, smi, n_layers):
         "serving_qos_starvation")
     if rule is None or rule.var != "g_serving_qos_max_wait_ms":
         raise AssertionError("the serving_qos_starvation rule is missing")
-    on, launches, snap = qos_replays(dev, QosConfig(**QOS_CFG), recs,
-                                     QOS_RATES)
+    on, launches, snap, row["on_full_gc_ms"] = qos_replays(
+        dev, QosConfig(**QOS_CFG), recs, QOS_RATES)
     completed = 0
     for mult, replays in on.items():
         for res in replays:
@@ -2282,7 +2327,7 @@ def run_qos(dev, smi, n_layers):
     row["saturated_at_2x"] = row["prod_p99_ratio_no_qos"] > QOS_BOUND
     row["no_qos_breaks_bound_at"] = 2 if row["saturated_at_2x"] else None
     if not row["saturated_at_2x"]:
-        sweep, _, _ = qos_replays(dev, None, recs, QOS_SWEEP)
+        sweep, _, _, _ = qos_replays(dev, None, recs, QOS_SWEEP)
         base = row["off"][0.25]["prod"]["p99_us"]
         row["no_qos_sweep"] = {m: pooled(r, recs)["prod"]["p99_us"] / base
                                for m, r in sweep.items()}
@@ -2292,8 +2337,73 @@ def run_qos(dev, smi, n_layers):
     row["snapshot"] = {"limiter": snap["limiter"],
                        "tenants": snap["tenants"]}
     row["flash_launches"] = launches
+    row["burst"] = run_burst(dev)
     print(json.dumps({"qos": row}), flush=True)
     return launches
+
+
+# the reference's burst-fault case (tests/test_serving_qos.py:251-296):
+# its QoS lanes and engine, at the llm_server widths on the card
+QOS_BURST = dict(tenants={"prod": 8.0, "bulk": 1.0}, queue_cap=4,
+                 protected_priority=1)
+QOS_BURST_ENGINE = dict(max_batch=4, token_budget=64)
+
+
+def run_burst(dev):
+    """The ``serving.qos.burst`` fault on the card, as the reference's
+    chaos case arms it: prod's p99 over 8 requests (8-token prompts, 4
+    new tokens) unloaded, then with the fault cloning each of 12 bulk
+    submits 7 times against a bulk lane capped at 4. Gated: prod sheds
+    nothing and completes, bulk sheds. Printed beside the reference's
+    bound, ``burst_p99 <= unloaded * 4 + 0.05`` s (a wall-clock bound;
+    the CPU test holds it on a stepped clock)."""
+    from brpc_tpu_torch.serving import QosConfig
+
+    engine = build_engine(dev, "auto", qos=QosConfig(**QOS_BURST),
+                          engine_cfg=QOS_BURST_ENGINE)
+
+    def prod_once():
+        ev, box = threading.Event(), {}
+        t0 = time.perf_counter()
+        code, _ = engine.submit(
+            engine.model.synth_prompt(8), 4, tenant_id="prod", priority=1,
+            done=lambda r: (box.update(r=r), ev.set()))
+        if code != 0 or not ev.wait(60) or box["r"].error_code:
+            raise AssertionError(f"a prod request failed: {code} {box}")
+        return time.perf_counter() - t0
+
+    flags.set_flag("fault_injection_enabled", True)
+    try:
+        prod_once()  # warm-up, uncounted
+        unloaded = max(prod_once() for _ in range(8))
+        fault.arm("serving.qos.burst", mode="always", factor=8,
+                  match={"tenant": "bulk"})
+        codes = [engine.submit(engine.model.synth_prompt(8), 4,
+                               tenant_id="bulk", priority=0,
+                               done=lambda r: None)[0] for _ in range(12)]
+        burst = max(prod_once() for _ in range(8))
+        snap = engine.qos.snapshot()["tenants"]
+        fault.disarm_all()
+        deadline = time.monotonic() + 60
+        while (engine.queue_depth or engine.running_count) \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        fault.disarm_all()
+        flags.set_flag("fault_injection_enabled", False)
+        engine.stop()
+    engine.kv.assert_idle("after the burst fault")
+    engine.model.close()
+    engine.kv.close()
+    if snap["prod"]["shed"] or not snap["bulk"]["shed"] \
+            or not set(codes) <= {0, rpc.errors.EOVERCROWDED}:
+        raise AssertionError(f"burst fault: codes {codes}, lanes {snap}")
+    bound = unloaded * 4 + 0.05
+    return {"unloaded_p99_s": unloaded, "burst_p99_s": burst,
+            "bound_s": bound, "within_bound": burst <= bound,
+            "bulk_shed": snap["bulk"]["shed"],
+            "bulk_admitted": snap["bulk"]["admitted"],
+            "prod_admitted": snap["prod"]["admitted"]}
 
 
 # --------------------------------------------- phase 4k: request batching
@@ -2304,8 +2414,6 @@ BATCH_TOL = 1e-5             # relative, fp32 with TF32 off
 def batch_burst(stub, payloads, timeout=120):
     """Every payload as an async Echo at once; returns the controllers in
     order."""
-    from brpc_tpu_torch.proto import echo_pb2
-
     out = [None] * len(payloads)
     lock = threading.Lock()
     ev = threading.Event()
@@ -2385,7 +2493,6 @@ def run_batching(dev, smi):
     from brpc_tpu_torch.batch import metrics as bmetrics
     from brpc_tpu_torch.examples.batched_inference.server import (
         DIM, BatchedInferenceService)
-    from brpc_tpu_torch.proto import echo_pb2
 
     row = {"card": smi, "burst": BATCH_BURST, "tol": BATCH_TOL}
     svc = BatchedInferenceService(dev)
@@ -2454,12 +2561,183 @@ def run_batching(dev, smi):
                              f"{proc.stdout}{proc.stderr[-4000:]}")
     lane = json.loads(lines[-1])["batch_lane"]
     if lane["server"]["device"].split(":")[0] != dev.type \
-            or lane["server"]["g_batch_size_avg"] <= 1:
+            or lane["vars"]["g_batch_size_avg"] <= 1:
         raise AssertionError(f"batch_lane: {lane}")
     row["batch_lane"] = lane
     row["host_examples_s"] = run_host_examples()
     print(json.dumps({"batching": row}), flush=True)
     return row
+
+
+# ------------------------------------------- phase 4l: HTTP on the serving port
+HTTP_CHUNKS = 64              # the progressive download: 64 chunks of
+HTTP_CHUNK_BYTES = 64 << 10   # 64 KiB, 4 MiB from a seeded generator
+
+
+def json_call(ep):
+    """``call(request)`` for ``routed_window``: Generate over JSON, POST
+    /LlmService/Generate with the request as json2pb writes it, the
+    answer read back by json2pb."""
+    from brpc_tpu_torch import json2pb
+    from brpc_tpu_torch.policy.http_protocol import CONTENT_JSON, http_fetch
+
+    def call(req):
+        resp = http_fetch(ep, "POST", "/LlmService/Generate",
+                          body=json2pb.pb_to_json(req).encode(),
+                          content_type=CONTENT_JSON, timeout=600)
+        if resp.status != 200 or resp.content_type != CONTENT_JSON:
+            raise AssertionError(f"HTTP {resp.status} "
+                                 f"{resp.content_type}: {resp.body[:300]}")
+        return json2pb.json_to_pb(resp.body, serving_pb2.GenerateResponse)
+    return call
+
+
+class Download(rpc.Service):
+    """EchoService.Echo as a progressive download: the handler returns
+    at once and a thread writes HTTP_CHUNKS chunks of ``payload`` through
+    the request's progressive attachment, then closes it."""
+
+    DESCRIPTOR = echo_pb2.DESCRIPTOR.services_by_name["EchoService"]
+
+    def __init__(self, payload):
+        super().__init__()
+        self.payload = payload
+
+    def Echo(self, cntl, request, done):
+        pa = cntl.create_progressive_attachment()
+
+        def pump():
+            for i in range(0, len(self.payload), HTTP_CHUNK_BYTES):
+                if pa.write(self.payload[i:i + HTTP_CHUNK_BYTES]):
+                    return
+            pa.close()
+
+        threading.Thread(target=pump, daemon=True).start()
+        return echo_pb2.EchoResponse()
+
+
+def serving_page(ep):
+    from brpc_tpu_torch.policy.http_protocol import http_fetch
+
+    resp = http_fetch(ep, "GET", "/serving?format=json", timeout=30)
+    if resp.status != 200:
+        raise AssertionError(f"/serving: HTTP {resp.status}")
+    return json.loads(resp.body)["engines"]
+
+
+def run_http(dev, smi, n_layers, direct, rpc_stats):
+    """Phase 4l: HTTP on the serving port. One port Server with
+    LlmServingService over phase 4's engine on the card (and a progressive
+    download on the same port): a warm-up JSON Generate, uncounted; one
+    long JSON Generate while ``/serving?format=json`` is read (it must
+    show the request in the engine); then PROMPT_LENS as concurrent JSON
+    Generates, then as binary pb through ``Channel(protocol="http")``:
+    tokens equal phase 4's, list for list, and each window launches the
+    serving kernel layers x prefills on the engine thread (counts reset
+    just before, read just after). Then the builtins: ``/serving``'s step
+    and token counts equal ``engine.snapshot()``, ``/status`` counts
+    every Generate made, ``/rpcz`` lists them, ``/vars`` the serving
+    gauges; the chunked download arrives byte-equal. Printed: each
+    window's tokens/s and client latency p50 beside phase 4b's."""
+    from brpc_tpu_torch.policy.http_protocol import http_fetch
+
+    requests = list(zip(PROMPT_LENS, MAX_NEW))
+    payload = np.random.default_rng(16).bytes(HTTP_CHUNKS * HTTP_CHUNK_BYTES)
+    row = {"card": smi}
+    t0_us = time.time() * 1e6  # rpcz stamps spans on the wall clock
+    engine = build_engine(dev, "auto")
+    server = rpc.Server().add_service(LlmServingService(engine)) \
+        .add_service(Download(payload)).start("127.0.0.1:0")
+    ep = str(server.listen_endpoint())
+    launches = {}
+    try:
+        call = json_call(ep)
+        routed_window(call, [(16, 2)])  # warm-up
+        box = {}
+        t = threading.Thread(target=lambda: box.update(
+            r=routed_window(call, [requests[-1]])))
+        t.start()
+        seen = []
+        while t.is_alive() and not any(e["running"] or e["queue_depth"]
+                                       for e in seen):
+            seen = serving_page(ep)
+        t.join(600)
+        if not any(e["running"] or e["queue_depth"] for e in seen):
+            raise AssertionError(f"/serving never showed the in-flight "
+                                 f"Generate: {seen}")
+        row["in_flight_page"] = {k: seen[0][k] for k in (
+            "running", "queue_depth", "steps", "tokens_generated")}
+        windows = {"json": call, "pb": rpc.Stub(rpc.Channel(
+            rpc.ChannelOptions(protocol="http", timeout_ms=600000)).init(ep),
+            client.DESC).Generate}
+        for name, fn in windows.items():
+            pallas_ops.launches.reset()
+            out, row[name] = routed_window(fn, requests)
+            engine.kv.store.fence()
+            launches[name] = pallas_ops.launches.of_thread(
+                engine._thread.ident, "flash_attention")
+            same_tokens(f"{name} over HTTP against phase 4", out, direct)
+            if launches[name] != n_layers * len(requests):
+                raise AssertionError(f"flash_attention launched "
+                                     f"{launches[name]} times over HTTP "
+                                     f"({name}), want {n_layers} layers x "
+                                     f"{len(requests)} prefills")
+        deadline = time.monotonic() + 60
+        while engine.running_count and time.monotonic() < deadline:
+            time.sleep(0.005)
+        snap = engine.snapshot()
+        page = serving_page(ep)
+        if [(e["steps"], e["tokens_generated"]) for e in page] != \
+                [(snap["steps"], snap["tokens_generated"])]:
+            raise AssertionError(f"/serving {page} != the engine's "
+                                 f"snapshot {snap}")
+        calls = 2 + 2 * len(requests)
+        status = http_fetch(ep, "GET", "/status", timeout=30).body.decode()
+        counted = [int(l.split("count=")[1].split()[0])
+                   for l in status.splitlines()
+                   if l.strip().startswith("Generate: count=")]
+        if counted != [calls]:
+            raise AssertionError(f"/status counts {counted} Generates, "
+                                 f"{calls} were made:\n{status}")
+        rpcz = json.loads(http_fetch(
+            ep, "GET", "/rpcz?method=LlmService.Generate&count=10000"
+            "&format=json", timeout=30).body)["spans"]
+        spans = sum(1 for sp in rpcz if sp["kind"] == "server"
+                    and sp["start_us"] >= t0_us)
+        vars_body = http_fetch(ep, "GET", "/vars", timeout=30).body
+        if spans != calls or b"g_serving_running" not in vars_body:
+            raise AssertionError(f"/rpcz lists {spans} server spans of "
+                                 f"Generate, {calls} were made; /vars:\n"
+                                 f"{vars_body[:2000]}")
+        t0 = time.perf_counter()
+        got = http_fetch(ep, "POST", "/EchoService/Echo", body=b"{}",
+                         timeout=60)
+        download_s = time.perf_counter() - t0
+        if got.header("transfer-encoding") != "chunked" \
+                or got.body != payload:
+            raise AssertionError(f"the chunked download: "
+                                 f"{got.headers}, {len(got.body)} bytes "
+                                 f"of {len(payload)}")
+    finally:
+        server.stop()
+        server.join(timeout=5)
+        engine.stop()
+    engine.kv.assert_idle("after the HTTP run")
+    engine.model.close()
+    engine.kv.close()
+    row.update(
+        launches=launches, generate_calls=calls, rpcz_spans=spans,
+        page={"steps": snap["steps"],
+              "tokens_generated": snap["tokens_generated"]},
+        download={"bytes": len(payload), "chunks": HTTP_CHUNKS,
+                  "s": download_s},
+        rpc_4b={k: rpc_stats[k] for k in ("tokens_per_s",
+                                          "rpc_latency_us_p50")})
+    for name in windows:
+        row[f"{name}_over_4b_tokens_per_s"] = (
+            row[name]["tokens_per_s"] / rpc_stats["tokens_per_s"])
+    print(json.dumps({"http": row}), flush=True)
+    return [launches["json"], launches["pb"]]
 
 
 def no_protobuf_or_jax(where):
@@ -4222,7 +4500,6 @@ def run_tpu_inprocess(dev, echo_cases):
     batched launches, 1 + 32 + 8: the calls are fenced apart), a Pump of 16 rounds (the
     checksum the host's, moved bytes exact, 32 launches), Free, Stats."""
     from brpc_tpu_torch.proto import device_lane_pb2 as dpb
-    from brpc_tpu_torch.proto import echo_pb2
 
     ch = rpc.Channel(rpc.ChannelOptions(timeout_ms=60000)).init(
         "tpu://localhost/0")
@@ -4588,7 +4865,7 @@ def main():
         if a.tokens != p.tokens:
             raise AssertionError(f"prompt {plen}: flash tokens {a.tokens} "
                                  f"!= plain tokens {p.tokens}")
-    rpc_launches = run_rpc(dev, auto, direct_stats)
+    rpc_launches, rpc_stats = run_rpc(dev, auto, direct_stats)
     if rpc_launches != n_layers * prefills:
         raise AssertionError(f"flash_attention launched {rpc_launches} "
                              f"times on the RPC path, want {n_layers} "
@@ -4603,8 +4880,10 @@ def main():
     router = run_router(dev, smi, n_layers, auto)
     qos_launches = run_qos(dev, smi, n_layers)
     run_batching(dev, smi)
+    http_launches = run_http(dev, smi, n_layers, auto, rpc_stats)
     no_protobuf_or_jax("after the disaggregated, long-prompt, mesh, "
-                       "combo-channel, router, QoS and batching paths")
+                       "combo-channel, router, QoS, batching and HTTP "
+                       "paths")
 
     profile = profile_engine(dev)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -4645,6 +4924,7 @@ def main():
         "launches_mesh_corpus": [mesh["corpus_1"]["flash_launches"],
                                  mesh["corpus_2"]["flash_launches"]],
         "launches_router": router, "launches_qos": qos_launches,
+        "launches_http": http_launches,
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -180,6 +180,20 @@ class TestParallelChannelLimits:
     """Reference semantics regressions (parallel_channel.cpp:223-235,
     parallel_channel.h:161-174)."""
 
+    @pytest.fixture(autouse=True)
+    def _cold_run_to_completion(self):
+        """Run-to-completion classifies handlers by (service, method)
+        name across the process: once other tests' fast EchoService.Echo
+        traffic has classified the name cheap, a SlowEcho under the same
+        name runs inline on an event dispatcher and stalls the other
+        sub-calls' sockets on it for its whole sleep. These limits do
+        not depend on that classification, so each starts cold."""
+        from brpc_tpu_torch.rpc import run_to_completion as rtc
+
+        rtc._reset_for_test()
+        yield
+        rtc._reset_for_test()
+
     def test_fail_limit_cancels_outstanding(self):
         # two instant failures + one slow success; fail_limit=2 must fail
         # the call immediately without waiting for the slow sub-call

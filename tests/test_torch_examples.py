@@ -1,8 +1,8 @@
 """The port's copies of the examples of its lanes (brpc_tpu_torch/examples/
 {echo,streaming_echo,device_data,device_stream,tpu_transfer,
-collective_fanout,batched_inference}) and of the host-only examples
-({parallel_echo,selective_echo,partition_echo,backup_request,
-multi_threaded_echo}), run as
+collective_fanout,batched_inference,llm_server}) and of the host-only
+examples ({parallel_echo,selective_echo,partition_echo,backup_request,
+multi_threaded_echo,http,dashboard_proxy}), run as
 the JAX package's tests/test_examples.py runs the originals: server and
 client pairs as fresh interpreters on random ports, with the device
 examples on ``--device cpu``, their outputs held to the same strings.
@@ -205,8 +205,9 @@ def test_multi_threaded_echo():
     ("selective_echo", ["-n", "6"], ("killed srv0",)),
     ("partition_echo", ["-n", "2"], ("p0", "p2")),
     ("backup_request", ["-n", "4"], ("backup=yes", "fast")),
+    ("dashboard_proxy", [], ("over trpc_std OK",)),
 ], ids=["parallel_echo", "selective_echo", "partition_echo",
-        "backup_request"])
+        "backup_request", "dashboard_proxy"])
 def test_host_example(example, args, expect):
     """The single-file host examples, held to the JAX package's
     tests/test_examples.py strings."""
@@ -265,3 +266,53 @@ def test_batched_inference_defaults_to_the_card():
                           timeout=120)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+
+
+def test_http():
+    """The HTTP example's one port: JSON RPC (the handler sees the HTTP
+    request), pb over HTTP through ``Channel(protocol="http")``, and the
+    builtin pages, as its docstring's curl lines show."""
+    from brpc_tpu_torch.policy.http_protocol import http_fetch
+    from brpc_tpu_torch.proto import echo_pb2
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, Stub
+
+    port = free_port()
+    srv = Server("http.server", ["--port", str(port), "--run_seconds", "30"])
+    try:
+        ep = f"127.0.0.1:{port}"
+        resp = http_fetch(ep, "POST", "/EchoService/Echo",
+                          body=b'{"message":"hi"}', timeout=10)
+        assert resp.status == 200 and json.loads(resp.body) == \
+            {"message": "hi"}
+        stub = Stub(Channel(ChannelOptions(protocol="http",
+                                           timeout_ms=10000)).init(ep),
+                    echo_pb2.DESCRIPTOR.services_by_name["EchoService"])
+        assert stub.Echo(echo_pb2.EchoRequest(message="pb")).message == "pb"
+        status = http_fetch(ep, "GET", "/status", timeout=10)
+        assert status.status == 200 and b"[EchoService]" in status.body
+    finally:
+        _, out = srv.stop()
+    assert "via HTTP POST /EchoService/Echo" in out
+
+
+def test_llm_server_answers_json_and_serving():
+    """The llm_server example on ``--device cpu``: Generate over JSON
+    answers on its port, and ``/serving`` reports the engine's tokens."""
+    from brpc_tpu_torch.policy.http_protocol import http_fetch
+
+    port = free_port()
+    srv = Server("llm_server.server",
+                 ["--port", str(port), "--run_seconds", "60",
+                  "--device", "cpu"])
+    try:
+        ep = f"127.0.0.1:{port}"
+        resp = http_fetch(ep, "POST", "/LlmService/Generate",
+                          body=b'{"prompt_len": 16, "max_new_tokens": 8}',
+                          timeout=60)
+        assert resp.status == 200, resp.body
+        assert len(json.loads(resp.body)["tokens"]) == 8
+        page = json.loads(http_fetch(ep, "GET", "/serving?format=json",
+                                     timeout=10).body)
+        assert [e["tokens_generated"] for e in page["engines"]] == [8]
+    finally:
+        srv.stop()

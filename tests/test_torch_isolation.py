@@ -276,3 +276,76 @@ def test_routed_qos_generate_and_a_batched_call_load_no_protobuf_or_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n")
+
+
+HTTP_SLICE = {
+    "json2pb.py", "policy/http_protocol.py", "policy/http_server.py",
+    "rpc/progressive.py", "butil/vlog.py", "profiling/diff.py",
+    "fleet/__init__.py", "fleet/merge.py", "builtin/__init__.py",
+    "builtin/services.py", "builtin/profiling.py", "builtin/series_plot.py",
+    "builtin/grpc_health.py", "builtin/view_service.py",
+    "proto/health_pb2.py", "proto/builtin_view_pb2.py",
+    "proto/jsonpb_test_pb2.py", "proto/jsonpb_test2_pb2.py",
+    "examples/http/server.py", "examples/dashboard_proxy/client.py",
+    "examples/dashboard_proxy/proxy.py"}
+
+
+def test_the_walk_reaches_the_http_slices_modules():
+    """The import checks above walk HTTP, json2pb, the progressive
+    attachment, the builtin services, their message tables and the
+    examples over them."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert HTTP_SLICE <= rel, sorted(HTTP_SLICE - rel)
+
+
+def test_importing_the_http_slice_loads_no_protobuf_or_jax():
+    mods = sorted("brpc_tpu_torch." + m[:-3].replace("/", ".")
+                  .replace(".__init__", "") for m in HTTP_SLICE)
+    _run(f"import sys\nimport {', '.join(mods)}\n"
+         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+         "assert not bad, bad\n")
+
+
+def test_an_http_generate_and_a_serving_fetch_load_no_protobuf_or_jax():
+    """Generate over JSON and over binary pb through the HTTP front, a
+    ``/serving`` and a ``/status`` fetch, and the Health service over
+    trpc_std, with neither protobuf nor JAX loaded."""
+    _run(
+        "import json, sys\n"
+        "import brpc_tpu_torch.rpc as rpc\n"
+        "import brpc_tpu_torch.serving.service as service\n"
+        "from brpc_tpu_torch.policy.http_protocol import http_fetch\n"
+        "from brpc_tpu_torch.proto import health_pb2, serving_pb2\n"
+        "from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,"
+        " ModelConfig, PagedKVCache, ServingEngine, TinyTransformer)\n"
+        "cfg = ModelConfig(vocab=64, d_model=16, n_heads=2, n_layers=1)\n"
+        "kv = PagedKVCache(KVCacheConfig(16, 16), cfg.n_layers, cfg.kv_dim,"
+        " device='cpu')\n"
+        "eng = ServingEngine(TinyTransformer(cfg, kv), kv,"
+        " EngineConfig(idle_wait_s=0.005)).start()\n"
+        "srv = rpc.Server().add_service(service.LlmServingService(eng))"
+        ".start('127.0.0.1:0')\n"
+        "ep = str(srv.listen_endpoint())\n"
+        "r = http_fetch(ep, 'POST', '/LlmService/Generate', body=json.dumps("
+        "{'prompt_len': 20, 'max_new_tokens': 4}).encode(), timeout=30)\n"
+        "assert r.status == 200 and len(json.loads(r.body)['tokens']) == 4,"
+        " r.body\n"
+        "ch = rpc.Channel(rpc.ChannelOptions(protocol='http',"
+        " timeout_ms=30000)).init(ep)\n"
+        "resp = rpc.Stub(ch, serving_pb2.DESCRIPTOR.services_by_name"
+        "['LlmService']).Generate(serving_pb2.GenerateRequest(prompt_len=20,"
+        " max_new_tokens=4))\n"
+        "assert list(resp.tokens) == json.loads(r.body)['tokens'], resp\n"
+        "page = json.loads(http_fetch(ep, 'GET', '/serving?format=json')"
+        ".body)\n"
+        "assert page['engines'][-1]['tokens_generated'] == 8, page\n"
+        "assert b'Generate: count=2' in http_fetch(ep, 'GET', '/status')"
+        ".body\n"
+        "h = rpc.Stub(rpc.Channel().init(ep), health_pb2.DESCRIPTOR"
+        ".services_by_name['Health']).Check(health_pb2.HealthCheckRequest())\n"
+        "assert h.status == health_pb2.HealthCheckResponse.SERVING\n"
+        "srv.stop(); srv.join(); eng.stop()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n")

@@ -9,8 +9,9 @@ positions on the CPU (``mesh.use_cpu(8)``) and replays them in one
 process, over the JAX model's weights carried by ``serving/weights.py``.
 
 What is held (the reference's ``tests/test_serving_mesh.py`` cases that
-need no router or HTTP, the sharded cases of ``tests/test_serving_
-prefix.py`` and ``tests/test_serving_spec.py``, and more):
+need no router, its ``/serving`` per-shard view on the port's page, the
+sharded cases of ``tests/test_serving_prefix.py`` and
+``tests/test_serving_spec.py``, and more):
 
 - the corpus schedule (``tools/record_serving_corpus.SCHEDULE``) at the
   reference test's widths: the port's mesh engine gives the JAX mesh
@@ -293,6 +294,85 @@ class TestMeshEquivalence:
                     {"dp": 4, "sp": 1, "tp": 2}))
         finally:
             jkv.close()
+    def test_serving_builtin_reports_per_shard_occupancy(self, stacks):
+        """The reference's ``/serving`` case on the port's page: the
+        per-device view (per-shard occupancy, the block-table shard map,
+        per-shard step latency) in the JSON and text views; the shards'
+        block counts equal the JAX page's after the same run, the device
+        names aside."""
+        jm, tm = stacks
+        snap, text = _page_run(tm, ServingEngine, EngineConfig,
+                               port_page())
+        assert snap["kv"]["n_shards"] == 2
+        shards = snap["kv"]["shards"]
+        assert [s["shard"] for s in shards] == [0, 1]
+        assert all(s["blocks_total"] > 0 and s["devices"] for s in shards)
+        # every completed sequence freed its blocks again; what stays
+        # used is exactly the prefix cache's committed chains
+        assert all(s["blocks_used"] == s["blocks_cached"] for s in shards)
+        assert "shard_steps" in snap and snap["shard_steps"]
+        assert "sharded: n_shards=2" in text
+        assert "[shard 0]" in text and "[shard 1]" in text
+        jsnap, jtext = _page_run(jm, JaxEngine, JaxEngineConfig,
+                                 jax_page())
+
+        # the JAX page's fields, the device names aside (the port's
+        # shards also count copy-on-write splits and refused admissions)
+        jshards = jsnap["kv"]["shards"]
+        assert [{k: sh[k] for k in jsh if k != "devices"}
+                for sh, jsh in zip(shards, jshards)] == \
+            [{k: v for k, v in jsh.items() if k != "devices"}
+             for jsh in jshards]
+
+        def shard_keys(page):
+            return [[w.split("=")[0] for w in line.split() if "=" in w]
+                    for line in page.splitlines()
+                    if line.strip().startswith("[shard")]
+
+        assert shard_keys(text) == shard_keys(jtext)
+
+
+def port_page():
+    from brpc_tpu_torch.builtin.services import serving_service
+
+    return serving_service
+
+
+def jax_page():
+    from brpc_tpu.builtin.services import serving_service
+
+    return serving_service
+
+
+def _page_run(model, engine_cls, config_cls, page):
+    """SCHEDULE[:4] through an engine of either package at the
+    reference's defaults (the prefix cache on), the page read while the
+    engine still runs: (the JSON view's last engine, the text view)."""
+    import json as _json
+    import types
+
+    engine = engine_cls(model, model.kv, config_cls(
+        max_batch=8, token_budget=512, idle_wait_s=0.002)).start()
+    try:
+        evs = []
+        for plen, max_new in SCHEDULE[:4]:
+            ev = threading.Event()
+            code, _ = engine.submit(model.synth_prompt(plen), max_new,
+                                    done=lambda _r, ev=ev: ev.set())
+            assert code == 0
+            evs.append(ev)
+        for ev in evs:
+            assert ev.wait(300)
+        status, _ctype, body = page(None, types.SimpleNamespace(
+            query={"format": "json"}, path="/serving"))
+        assert status == 200
+        status, _ctype, text = page(None, types.SimpleNamespace(
+            query={}, path="/serving"))
+        assert status == 200
+        return _json.loads(body)["engines"][-1], text
+    finally:
+        engine.stop()
+        model.kv.assert_idle()
 
 
 # ------------------------------------------------------ skew watch rule

@@ -8,7 +8,8 @@ port's Server: the ledger's migration surface, the manifest checks, the
 disaggregated plane end to end (the corpus schedule's tokens equal a
 co-located engine's, the decode engine prefills 0 tokens), and the chaos
 cases (the drop fault falls back to local decode, the stall fault only
-delays, shard death drains onto a survivor). Both armed pools are idle
+delays, shard death drains onto a survivor), and the ``/serving`` page's
+migrate lines. Both armed pools are idle
 after every case. Beside them, against the JAX package on the same
 calls and numpy-seeded pools:
 
@@ -691,6 +692,43 @@ class TestMigrationObservability:
             assert rule.bound() == 2.0  # reloadable, no restart
         finally:
             _flags.set_flag("serving_migrate_backlog_max", str(old))
+
+    def test_serving_builtin_reports_migration(self, disagg_pair):
+        """The reference's ``/serving`` case on the port's page: a
+        migrated sequence shows on both roles' migrate lines and in the
+        JSON view, whose sections are each engine's snapshot."""
+        import json as _json
+
+        from brpc_tpu_torch.builtin.services import serving_service
+
+        pre, dec, _srv = disagg_pair
+        code, _s, ev, box = _submit(pre, pre.model.synth_prompt(16), 4)
+        assert code == 0 and ev.wait(300)
+        h = box["r"]
+        code, _s2, ev2, _b2 = _submit(
+            dec, np.zeros(0, dtype=np.int32), 0, resume=h.seq_id)
+        assert code == 0 and ev2.wait(300)
+
+        http = types.SimpleNamespace(query={}, path="/serving")
+        _st, _ct, body = serving_service(None, http)
+        mig_lines = [l for l in body.splitlines()
+                     if l.strip().startswith("migrate:")]
+        assert mig_lines, body
+        joined = "\n".join(mig_lines)
+        assert "role=prefill" in joined and "role=decode" in joined
+        assert "out ->" in joined and "in seqs" in joined
+
+        http = types.SimpleNamespace(query={"format": "json"},
+                                     path="/serving")
+        _st, ct, body = serving_service(None, http)
+        assert "json" in ct
+        snaps = _json.loads(body)["engines"]
+        migs = [s["migration"] for s in snaps if s.get("migration")]
+        assert any(m.get("out", {}).get("seqs", 0) >= 1 for m in migs)
+        assert any(m.get("in", {}).get("seqs_in", 0) >= 1 for m in migs)
+        for eng in (pre, dec):
+            want = _json.loads(_json.dumps(eng.snapshot()["migration"]))
+            assert want in migs
 
     def test_migration_vars_exposed(self):
         from brpc_tpu_torch.metrics.variable import get_exposed

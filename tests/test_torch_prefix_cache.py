@@ -19,10 +19,11 @@ float32 with plain attention on the CPU). Requests are submitted under
 the engine's lock, so both engines admit them in one step and their
 prefix counters are comparable exactly.
 
-The sharded-fork test and the sharded half of the factory test are in
+The ``/serving`` builtin's prefix section is read from the port's page
+and held to the JAX page's after the same run. The sharded-fork test and
+the sharded half of the factory test are in
 ``tests/test_torch_mesh_serving.py``. Left out, for ROADMAP Queue 1: the
-route-agreement test (the client router, item 2(b)8) and the
-``/serving`` builtin's prefix section (item 2(b)5).
+route-agreement test (the client router, item 2(b)8).
 """
 
 import threading
@@ -738,6 +739,61 @@ def test_admission_counts_only_the_suffix(stacks):
     kv.free_sequence(seq.seq_id)
     engine.prefix.clear()
     kv.assert_idle()
+
+
+def _page_run(stack, page, schedule):
+    """Drive one engine of ``stack`` through ``schedule`` at the
+    reference's builtin-case settings and read ``page`` (that package's
+    ``serving_service``) while the engine still runs: (the JSON view's
+    last engine, the text view)."""
+    import json as _json
+
+    model, kv, engine_cls, config_cls = stack
+    engine = engine_cls(model, kv, config_cls(
+        max_batch=8, token_budget=512, idle_wait_s=0.002)).start()
+    try:
+        evs = []
+        for plen, max_new in schedule:
+            ev = threading.Event()
+            code, _ = engine.submit(model.synth_prompt(plen), max_new,
+                                    done=lambda _r, ev=ev: ev.set())
+            assert code == 0
+            evs.append(ev)
+        for ev in evs:
+            assert ev.wait(300)
+        status, _ctype, body = page(None, types.SimpleNamespace(
+            query={"format": "json"}, path="/serving"))
+        assert status == 200
+        status, _ctype, text = page(None, types.SimpleNamespace(
+            query={}, path="/serving"))
+        assert status == 200
+        return _json.loads(body)["engines"][-1], text
+    finally:
+        engine.stop()
+
+
+def test_serving_builtin_reports_the_prefix_section(stacks):
+    """The reference's ``/serving`` case on the port's page: the prefix
+    section in the JSON view and the text view, its counts and its line
+    equal to the JAX package's page after the same run."""
+    from brpc_tpu.builtin.services import serving_service as jax_page
+    from brpc_tpu_torch.builtin.services import serving_service
+
+    snap, text = _page_run(stacks["port"], serving_service, SCHEDULE[:4])
+    assert snap["prefix"]["enabled"]
+    assert snap["prefix"]["inserted_blocks"] > 0
+    assert snap["kv"]["blocks_cached"] > 0
+    assert "prefix: nodes=" in text and "hit_ratio=" in text
+    stacks["port"][1].assert_idle("builtin teardown")
+    jsnap, jtext = _page_run(stacks["jax"], jax_page, SCHEDULE[:4])
+    stacks["jax"][1].assert_idle("JAX builtin teardown")
+    assert snap["prefix"] == jsnap["prefix"]
+
+    def prefix_line(page):
+        return [line for line in page.splitlines()
+                if line.strip().startswith("prefix:")][-1]
+
+    assert prefix_line(text) == prefix_line(jtext)
 
 
 # ------------------------------------------------------------------ chaos

@@ -2,8 +2,7 @@
 engine's QoS branch), held against the JAX package's
 (brpc_tpu/serving/qos.py) on the CPU.
 
-The cases of the JAX package's ``tests/test_serving_qos.py``, but its
-builtin-page case (which waits for HTTP):
+The cases of the JAX package's ``tests/test_serving_qos.py``:
 
 - the TenantScheduler as a pure ledger, each case driven through the
   port's and the JAX package's scheduler on the same operations (a
@@ -14,14 +13,18 @@ builtin-page case (which waits for HTTP):
 - the QosLimiter's gradient on both packages, ceiling for ceiling;
 - the governor's tick against a stub engine of each package: the same
   requests shed, the protected one kept, every block back in the pool;
-- the ``serving.qos.burst`` fault: best-effort sheds, prod never does;
+- the ``serving.qos.burst`` fault: best-effort sheds, prod never does,
+  and prod's p99 under the burst stays within the reference's bound
+  (``burst_p99 <= unloaded * 4 + 0.05``) on a stepped clock;
 - identity on the wire: Controller ``tenant_id`` / ``priority`` through
   the port's RequestMeta to the engine's lanes, the committed overload
   corpus read by the port's replayer with the identities
   ``tools/rpc_replay`` reads, and ``rpc_replay``'s overrides restamping
   every record against the port's server;
-- the vars and gauges, the engine snapshot's ``qos``, the
-  ``serving_qos_starvation`` watch rule and its reloadable bound;
+- the vars and gauges, the engine snapshot's ``qos`` and the
+  ``/serving`` page's qos and tenant lines (their fields the JAX
+  page's), the ``serving_qos_starvation`` watch rule and its reloadable
+  bound;
 - the overload corpus at its recorded rate through ``tools/rpc_replay``
   against the port's server at the corpus widths: nothing shed, each
   lane billed, the tokens of the same requests on a ``qos=None`` engine;
@@ -437,57 +440,111 @@ def fault_enabled():
     _flags.set_flag("fault_injection_enabled", False)
 
 
+BURST_STEP_S = 0.002  # the reference's burst stub: 2 ms a prefill or step
+
+
+class _BurstModel(_StubModel):
+    """The reference burst case's stub model (``step_s=0.002``) on the
+    stepped clock: a prefill or a decode step moves the clock 2 ms."""
+
+    def __init__(self, clock):
+        super().__init__()
+        self.clock = clock
+
+    def prefill(self, prompt, table):
+        self.prefills += 1
+        self.clock.t += BURST_STEP_S
+        return 1
+
+    def decode_step(self, tokens, positions, tables):
+        self.clock.t += BURST_STEP_S
+        return np.full(len(tables), 2, dtype=np.int32)
+
+
+def _step_until(eng, clock, finished, what):
+    """Run the engine's step loop (admit, then step) on the stepped clock
+    until ``finished()``; an idle engine before that is a failure."""
+    for _ in range(100000):
+        if finished():
+            return
+        with eng._cv:
+            admitted = eng._admit_locked()
+        if not admitted and not eng._running:
+            raise AssertionError(f"the engine went idle before {what}")
+        with eng.pool_gate:
+            eng._step(admitted)
+    raise AssertionError(f"{what} never finished")
+
+
 class TestQosChaos:
     def test_burst_fault_sheds_bulk_protects_prod_and_recovers(
-            self, fault_enabled):
+            self, fault_enabled, monkeypatch):
         """Each real bulk submit fans out 7 synthetic clones against a
-        lane capped at 4: bulk sheds EOVERCROWDED, prod never does and
-        every prod request completes; disarmed, the lane drains and a
-        plain bulk request completes."""
+        lane capped at 4: bulk sheds EOVERCROWDED, prod never does, and
+        prod's p99 under the armed burst stays within the reference's
+        bound, ``burst_p99 <= unloaded * 4 + 0.05``, on the stepped clock
+        (this loop is the engine's step loop; a step moves the clock as
+        the reference's 2 ms stub sleeps); disarmed, the lane drains and
+        a plain bulk request completes."""
+        clock = Clock()
+        monkeypatch.setattr(port_qos, "time", clock.module())
+        monkeypatch.setattr(port_engine_mod, "time", clock.module())
         qos = QosConfig(tenants={"prod": 8.0, "bulk": 1.0}, queue_cap=4,
                         protected_priority=1)
-        eng = _stub_engine(step_s=0.002, max_batch=4, token_budget=64,
-                           num_blocks=64, qos=qos)
+        eng = _stub_engine(start=False, model=_BurstModel(clock),
+                           max_batch=4, token_budget=64, num_blocks=64,
+                           qos=qos)
+        eng.running = True
         try:
             def prod_once():
                 cntl = _Cntl()
                 ev = threading.Event()
+                t0 = clock.t
                 code, _ = eng.submit(eng.model.synth_prompt(8), 4,
                                      cntl=cntl, tenant_id="prod",
                                      priority=1,
                                      done=lambda r, e=ev: e.set())
                 assert code == 0
-                assert ev.wait(30)
+                _step_until(eng, clock, ev.is_set, "a prod request")
                 assert cntl.code == 0
+                return clock.t - t0
 
-            for _ in range(8):
-                prod_once()
+            unloaded = sorted(prod_once() for _ in range(8))[-1]
+            assert unloaded > 0
+
+            # each real bulk submit fans out 7 synthetic clones: 96
+            # offered against a lane capped at 4
             fault.arm("serving.qos.burst", mode="always", factor=8,
                       match={"tenant": "bulk"})
             codes = [eng.submit(eng.model.synth_prompt(8), 4,
                                 tenant_id="bulk", priority=0,
                                 done=lambda r: None)[0]
                      for _ in range(12)]
-            for _ in range(8):
-                prod_once()
+            burst_p99 = sorted(prod_once() for _ in range(8))[-1]
             snap = eng.qos.snapshot()["tenants"]
             assert snap["bulk"]["shed"] > 0  # the flood shed EOVERCROWDED
             assert snap["prod"]["shed"] == 0  # the protected lane never did
             assert set(codes) <= {0, errors.EOVERCROWDED}
+            # protected p99 holds within bound under the armed burst
+            assert burst_p99 <= unloaded * 4 + 0.05, (burst_p99, unloaded)
+
             fault.disarm_all()
-            deadline = time.monotonic() + 30
-            while (eng.queue_depth or eng.running_count) \
-                    and time.monotonic() < deadline:
-                time.sleep(0.005)
+            # recovery: the lane drains and a plain bulk request completes
+            _step_until(eng, clock,
+                        lambda: not (eng.queue_depth or eng.running_count),
+                        "the burst's drain")
             cntl = _Cntl()
             ev = threading.Event()
             code, _ = eng.submit(eng.model.synth_prompt(8), 4, cntl=cntl,
                                  tenant_id="bulk", priority=0,
                                  done=lambda r, e=ev: e.set())
-            assert code == 0 and ev.wait(30) and cntl.code == 0
+            assert code == 0
+            _step_until(eng, clock, ev.is_set, "the bulk request")
+            assert cntl.code == 0
         finally:
-            eng.stop()
-        eng.kv.assert_idle("post burst fault")
+            eng.running = False
+            eng._abort_all_locked_out(errors.ELOGOFF, "burst case done")
+        eng.kv.assert_idle("post burst fault")  # zero leaked KV blocks
 
 
 # ----------------------------------------------------- identity on the wire
@@ -573,9 +630,58 @@ class TestWireIdentity:
 
 # ----------------------------------------------------------- observability
 class TestObservability:
+    def test_snapshot_and_builtin_page_render_qos(self):
+        """The reference's builtin-page case on the port's ``/serving``:
+        the qos line and a tenant lane in the text view, the section in
+        the JSON view; the qos and tenant lines carry the JAX page's
+        fields for the same submit on a JAX stub engine."""
+        from brpc_tpu.builtin.services import serving_service as jax_page
+        from brpc_tpu_torch.builtin.services import serving_service
+        from test_serving import _Cntl as JaxCntl
+        from test_serving import _stub_engine as jax_stub_engine
+
+        def run(eng, cntl, page):
+            ev = threading.Event()
+            code, _ = eng.submit(eng.model.synth_prompt(8), 2, cntl=cntl,
+                                 tenant_id="prod", priority=1,
+                                 done=lambda r, e=ev: e.set())
+            assert code == 0 and ev.wait(30)
+            _st, _ct, text = page(None, types.SimpleNamespace(
+                query={}, path="/serving"))
+            _st, ct, body = page(None, types.SimpleNamespace(
+                query={"format": "json"}, path="/serving"))
+            assert "json" in ct
+            return eng.snapshot()["qos"], text, json.loads(body)["engines"]
+
+        eng = _stub_engine(qos=QosConfig(tenants={"prod": 2.0}))
+        try:
+            snap, body, snaps = run(eng, _Cntl(), serving_service)
+        finally:
+            eng.stop()
+        eng.kv.assert_idle("qos page teardown")
+        assert snap["tenants"]["prod"]["admitted"] >= 1
+        assert {"ceiling", "min_wait_us", "avg_wait_us", "updates"} \
+            <= set(snap["limiter"])
+        assert "qos: ceiling=" in body
+        assert "[tenant prod]" in body
+        assert any(s.get("qos") for s in snaps)
+        jeng = jax_stub_engine(qos=jax_qos.QosConfig(tenants={"prod": 2.0}))
+        try:
+            _jsnap, jbody, _ = run(jeng, JaxCntl(), jax_page)
+        finally:
+            jeng.stop()
+
+        def keys(page, start):
+            return [[w.split("=")[0] for w in line.split() if "=" in w]
+                    for line in page.splitlines()
+                    if line.strip().startswith(start)]
+
+        for start in ("qos:", "[tenant prod]"):
+            assert keys(body, start) == keys(jbody, start)[-1:]
+
     def test_snapshot_renders_qos(self):
-        """The engine snapshot's ``qos`` half of the reference's builtin
-        page case (the page itself waits for HTTP)."""
+        """The engine snapshot's ``qos`` section survives a JSON round
+        trip, and a QoS-less engine has none."""
         eng = _stub_engine(qos=QosConfig(tenants={"prod": 2.0}))
         try:
             cntl = _Cntl()

@@ -221,9 +221,11 @@ def test_what_is_not_ported_refuses():
             port_rpc.Server().start("127.0.0.1:0")
     finally:
         port_flags.set_flag("tpu_shard_workers", "0")
+    # the ported protocols, HTTP probed last as the reference probes it;
+    # h2, gRPC and the others wait for ROADMAP Queue 1 item 2(b)6
     from brpc_tpu_torch.rpc.protocol import list_protocols
     assert [p.name for p in list_protocols()] == ["trpc_std", "trpc_stream",
-                                                  "tpu_ctrl"]
+                                                  "tpu_ctrl", "http"]
 
 
 # Flags the reference defines for features this slice does not port: the

@@ -19,9 +19,10 @@ against the JAX package's on the CPU: every case of the reference's
   and the accept-rate gauge; the committed spec corpus replayed by
   ``tools/rpc_replay`` against the port's Server.
 
-Left out, for ROADMAP Queue 1: the sharded truncate (item 7), the
-quiesce mark a truncate clears (migration, item 6), the ``/serving``
-builtin's spec line (item 2(b)5), and the wall-clock half of
+The ``/serving`` builtin's spec line is read from the port's page, its
+fields the JAX page's. Left out, for ROADMAP Queue 1: the sharded
+truncate (item 7), the quiesce mark a truncate clears (migration, item
+6), and the wall-clock half of
 ``test_throughput_degrades_gracefully`` (its step-count half is held
 below).
 """
@@ -453,6 +454,52 @@ def test_snapshot_and_gauges_surface(lanes):
     assert 0.0 <= snap["accept_rate"] <= 1.0
     assert lanes.base.snapshot()["spec"] is None
     assert spec.accept_rate() >= 0.0  # the passive gauge computes
+
+
+def _keys(line):
+    """A page line's field names, its values dropped."""
+    return [w.split("=")[0] for w in line.split() if "=" in w]
+
+
+def test_serving_builtin_renders_spec_line(lanes):
+    """The reference's ``/serving`` case on the port's page: the spec
+    line in the text view, with the JAX page's fields, and in the JSON
+    view the speculative lane's section, with the JAX lane's keys, and
+    none for the plain lane."""
+    import json
+
+    from brpc_tpu.builtin.services import serving_service as jax_page
+    from brpc_tpu_torch.builtin.services import serving_service
+
+    _run(lanes.sp, _rep_prompts())
+    _run(lanes.jax, _rep_prompts())
+    status, _ctype, text = serving_service(
+        None, types.SimpleNamespace(query={}, path="/serving"))
+    assert status == 200
+    assert "spec: k_max=4" in text
+    assert "accept_rate=" in text and "collapsed_seqs=" in text
+    status, _ctype, body = serving_service(
+        None, types.SimpleNamespace(query={"format": "json"},
+                                    path="/serving"))
+    assert status == 200
+    snaps = json.loads(body)["engines"]
+    specs = [e["spec"] for e in snaps if e.get("spec")]
+    assert any(s["k_max"] == 4 and s["drafted"] > 0 for s in specs)
+    # the non-speculative lane advertises no spec section at all
+    assert any(e.get("spec") is None for e in snaps)
+    _, _, jtext = jax_page(None, types.SimpleNamespace(query={},
+                                                       path="/serving"))
+    _, _, jbody = jax_page(None, types.SimpleNamespace(
+        query={"format": "json"}, path="/serving"))
+    jspecs = [e["spec"] for e in json.loads(jbody)["engines"]
+              if e.get("spec")]
+
+    def spec_line(page):
+        return next(line for line in page.splitlines()
+                    if line.strip().startswith("spec:"))
+
+    assert _keys(spec_line(text)) == _keys(spec_line(jtext))
+    assert set(specs[0]) == set(jspecs[0])
 
 
 def test_token_budget_counts_draft_rows(lanes):

@@ -11,9 +11,8 @@ the dispatcher send the error itself.
 
 Flush-on-poll-boundary: queues that admitted items register here; the
 InputMessenger calls :func:`flush_poll_batch` after cutting each read
-batch, so a burst parsed together is batched together. (The reference
-also hooks its native poll loop; the port has no native transport yet,
-ROADMAP Queue 1 item 2(b)7.)
+batch (and the native poll loop after each event batch), so a burst parsed
+together is batched together.
 """
 
 from __future__ import annotations
@@ -217,8 +216,8 @@ def note_pending(queue: BatchQueue) -> None:
 
 def flush_poll_batch() -> None:
     """Poll-batch boundary: drain every queue that admitted since the last
-    boundary. Called by InputMessenger.cut_messages; cheap no-op when
-    nothing is pending."""
+    boundary. Called by InputMessenger.cut_messages and the native poll
+    loop; cheap no-op when nothing is pending."""
     if not _pending:
         return
     with _pending_lock:
@@ -234,6 +233,9 @@ def _install_hooks() -> None:
     from brpc_tpu_torch.rpc import input_messenger
 
     input_messenger.poll_batch_hook = flush_poll_batch
+    from brpc_tpu_torch.rpc import native_transport
+
+    native_transport.poll_batch_hook = flush_poll_batch
 
 
 def _reset_hooks_for_test() -> None:

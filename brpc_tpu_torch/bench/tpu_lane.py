@@ -202,9 +202,11 @@ def shm_free():
 
 
 # ------------------------------------------------------------------ client
-def channel(endpoint):
+def channel(endpoint, native=False):
+    """A Channel on ``endpoint``; ``native`` rides the C++ engine."""
     return rpc.Channel(rpc.ChannelOptions(
-        protocol="trpc_std", timeout_ms=TIMEOUT_MS)).init(endpoint)
+        protocol="trpc_std", timeout_ms=TIMEOUT_MS,
+        native_transport=native)).init(endpoint)
 
 
 def run_calls(stub, payload, threads, calls):
@@ -314,10 +316,11 @@ def sweep(endpoint):
     return row
 
 
-def data_plane(endpoint, cpu=False):
-    """bench_device_lane through the port's tunnel; returns its JSON row
-    and what the server's counters must show for it."""
-    stub = rpc.Stub(channel(endpoint), DSVC)
+def data_plane(endpoint, cpu=False, native=False):
+    """bench_device_lane through the port's tunnel (the C++ engine's with
+    ``native``); returns its JSON row and what the server's counters must
+    show for it."""
+    stub = rpc.Stub(channel(endpoint, native), DSVC)
     warm_puts, puts, pumps, op_calls, _ = lane_counts(cpu)
     moved = 0
 

@@ -106,6 +106,16 @@ def status_service(server, http: HttpMessage):
                     f"max={lr.max_latency():.0f}us "
                     f"concurrency={entry.current_concurrency} "
                     f"errors={entry.errors_count.get_value()}")
+        native = server.native_method_stats() \
+            if hasattr(server, "native_method_stats") else []
+        for sname, mname, st in native:
+            out.append(
+                f"\n[{sname}] (native)\n"
+                f"  {mname}: count={st['requests']} "
+                f"latency={st['latency_avg_us']:.0f}us "
+                f"max={st['latency_max_us']:.0f}us "
+                f"concurrency={st['concurrency']} "
+                f"errors={st['errors']}")
     return 200, CONTENT_TEXT, "\n".join(out) + "\n"
 
 
@@ -255,6 +265,15 @@ def connections_service(server, http: HttpMessage):
             lines.append(
                 f"{c.fd:<3} {str(c.remote):<21} {c.in_bytes:<9} "
                 f"{c.out_bytes:<10} {c.in_messages:<7} {c.out_messages}")
+        dp = getattr(server, "_native_dp", None)
+        if dp is not None:
+            native = dp.server_socks(server)
+            if native:
+                lines.append("-- native engine conns --")
+            for s in sorted(native, key=lambda s: s.conn_id):
+                lines.append(
+                    f"c{s.conn_id:<2} {str(s.remote):<21} {s.in_bytes:<9} "
+                    f"{s.out_bytes:<10} {s.in_messages:<7} {s.out_messages}")
     return 200, CONTENT_TEXT, "\n".join(lines) + "\n"
 
 

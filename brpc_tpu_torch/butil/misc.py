@@ -3,8 +3,10 @@
 Counterparts of the reference's ``butil/crc32c.cc`` (HW-accelerated CRC32-C
 used as the attachment checksum), ``butil/fast_rand.cpp`` and
 ``butil/time.h`` (cpuwide_time_us). The CRC32-C here is the Castagnoli
-polynomial via a 256-entry table: the port has no C++ core, so this is
-the reference's own pure-Python branch (same values).
+polynomial via a 256-entry table; the port's C++ core
+(``brpc_tpu_torch/native``, installed by ``policy.ensure_registered``)
+provides an SSE4.2/tabled version that is preferred once installed (same
+values).
 """
 
 from __future__ import annotations
@@ -27,9 +29,13 @@ def _build_table():
 
 _build_table()
 
+_native_crc32c = None  # installed by brpc_tpu_torch.native.install()
+
 
 def crc32c(data, value: int = 0) -> int:
     """CRC32-C (Castagnoli) of bytes-like; chainable via ``value``."""
+    if _native_crc32c is not None:
+        return _native_crc32c(bytes(data), value)
     crc = value ^ 0xFFFFFFFF
     table = _TABLE
     for b in bytes(data):
@@ -39,13 +45,21 @@ def crc32c(data, value: int = 0) -> int:
 
 # --------------------------------------------------------------- fast_rand
 _rng = random.Random()
+# hook pattern (same as _native_crc32c): callers `from`-import these
+# functions, so the native core installs via indirection, not rebinding
+_native_fast_rand = None
+_native_fast_rand_less_than = None
 
 
 def fast_rand() -> int:
+    if _native_fast_rand is not None:
+        return _native_fast_rand()
     return _rng.getrandbits(64)
 
 
 def fast_rand_less_than(n: int) -> int:
+    if _native_fast_rand_less_than is not None:
+        return _native_fast_rand_less_than(n)
     return _rng.randrange(n) if n > 0 else 0
 
 

@@ -6,7 +6,10 @@ A client ships a tensor into the serving process's device memory once
 touches the host), checks the resident and moved accounting (Stats), and
 pulls bytes back only when it needs them (Get).
 
-Run a server first (any transport; the shared-memory tunnel shown here):
+Both ends ride the C++ engine (``native_transport=True`` here,
+``native_dataplane=True`` on the server), as the JAX package's example
+does. Run a server first (any transport; the shared-memory tunnel shown
+here):
 
     python -m brpc_tpu_torch.examples.device_data.server \
         --listen tpu://127.0.0.1:8300/0
@@ -29,7 +32,8 @@ def main(argv=None):
     ap.add_argument("--pump-rounds", type=int, default=4)
     args = ap.parse_args(argv)
 
-    ch = Channel(ChannelOptions(protocol="trpc_std", timeout_ms=120000))
+    ch = Channel(ChannelOptions(protocol="trpc_std", timeout_ms=120000,
+                                native_transport=True))
     ch.init(args.server)
     stub = Stub(ch, device_lane_pb2.DESCRIPTOR.services_by_name[
         "DeviceDataService"])

@@ -15,7 +15,9 @@ unless ``device="cpu"`` is passed, and raises with no card.
 (``train.make_train_step`` over ``mesh_factors(n)``, ring attention over
 sp) at the reference's tiny shapes, the ParallelChannel fan-out lowered
 onto the mesh against its per-sub-channel RPC fallback, and one 256 KB
-echo through a ``tpu://`` server on the last position. The reference's
+echo through a ``tpu://`` server on the last position, first over the
+Python tunnel and then over the C++ engine's shared-memory tunnel
+(``native_transport=True``). The reference's
 dryrun is CPU-only by its own definition (it forces the host platform
 with n virtual devices); the port asks for the same explicitly, with
 ``mesh.use_cpu(n)`` for the call, and restores what was set before.
@@ -146,17 +148,26 @@ def _dryrun_rpc_across_mesh(n_devices: int) -> None:
         assert resp.payload == payload and resp.message == "mesh-rpc"
         print(f"dryrun rpc: {server.listen_endpoint()} "
               f"256KB block-pool echo OK")
-        _dryrun_native_lane()
+        _dryrun_native_lane(server, payload)
     finally:
         server.stop()
         server.join()
 
 
-def _dryrun_native_lane() -> None:
-    """The reference's C++ shm-tunnel lane: not ported (ROADMAP Queue 1
-    item 2(b)7), reported as the reference reports an absent engine."""
-    print("dryrun native lane: engine unavailable (skipped; the C++ core "
-          "is not ported, ROADMAP Queue 1 item 2(b)7)")
+def _dryrun_native_lane(server, payload: bytes) -> None:
+    """The same RPC through the C++ engine's shm tunnel (the engine is
+    built on first use; a build failure raises)."""
+    from brpc_tpu_torch.proto import echo_pb2
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions, Stub
+
+    channel = Channel(ChannelOptions(protocol="trpc_std", timeout_ms=15000,
+                                     native_transport=True))
+    channel.init(str(server.listen_endpoint()))
+    stub = Stub(channel, echo_pb2.DESCRIPTOR.services_by_name["EchoService"])
+    resp = stub.Echo(echo_pb2.EchoRequest(message="native-lane",
+                                          payload=payload))
+    assert resp.payload == payload and resp.message == "native-lane"
+    print("dryrun rpc: native shm-tunnel lane echo OK")
 
 
 if __name__ == "__main__":

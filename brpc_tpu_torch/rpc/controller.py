@@ -354,6 +354,9 @@ class Controller:
                     pass
 
     def join(self, timeout: Optional[float] = None) -> bool:
+        call = getattr(self, "_fast_call_ref", None)
+        if call is not None:  # async fast-path call: no call id
+            return call.join_wait(timeout)
         if self._call_id is None:
             return True
         return _cid.id_join(self._call_id, timeout)

@@ -5,16 +5,18 @@ and ``acceptor.cpp`` (the listening socket accepts until EAGAIN and spawns
 per-connection sockets, :250,336). Server-side request processing lives in
 server_processing.py.
 
-The port's copy of the JAX package's ``rpc/server.py`` on its pure-Python
-branch: the Python acceptor serves every connection. A
-``tpu://host:port/n`` listener fronts card n: its TCP port is the tunnel's
-bootstrap, and a connection that says HELLO becomes a tunnel endpoint
-(``tpu/transport.py``). ``start`` adds the builtin Health and view
-services, as the reference does; Health answers over trpc_std and HTTP
-(its gRPC transport waits for ROADMAP Queue 1 item 2(b)6). What is not
-ported yet raises at ``start`` and names its ROADMAP item: the native
-dataplane (the C++ core, Queue 1 item 2(b)7) and the sharded dispatch
-plane (item 2(b)9).
+The port's copy of the JAX package's ``rpc/server.py``. By default the
+Python acceptor serves every connection; ``native_dataplane=True`` binds
+through the port's C++ engine instead (``rpc/native_transport.py``), whose
+loops cut TRPC frames natively and hand other protocols (HTTP) over to the
+Python stack on the same port. A ``tpu://host:port/n`` listener fronts
+card n: its TCP port is the tunnel's bootstrap, and a connection that
+says HELLO becomes a tunnel endpoint (``tpu/transport.py``, or the
+engine's TPUC tunnel on a native listener). ``start`` adds the builtin
+Health and view services, as the reference does; Health answers over
+trpc_std and HTTP (its gRPC transport waits for ROADMAP Queue 1 item
+2(b)6). The sharded dispatch plane (item 2(b)9) is not ported yet and
+raises at ``start``.
 """
 
 from __future__ import annotations
@@ -179,8 +181,11 @@ class ServerOptions:
     auth: object = None               # Authenticator (policy/auth.py)
     idle_timeout_s: int = -1
     rpc_dump_dir: Optional[str] = None  # sample requests here (rpc_dump)
-    # the reference's C++ engine for TRPC traffic; the port has no C++
-    # core yet (ROADMAP Queue 1 item 2(b)7), so True raises at start()
+    # serve TRPC traffic through the C++ engine (epoll + frame cutting in
+    # native threads, rpc/native_transport.py); other protocols on the same
+    # port are detached to the Python stack transparently. unix: and TLS
+    # listeners keep the Python acceptor (the engine carries neither); an
+    # engine that cannot be built raises at start().
     native_dataplane: bool = False
     # TLS on the listener (rpc/ssl_helper.ServerSslOptions). The SAME port
     # keeps serving plaintext: the first byte of each connection is sniffed
@@ -193,6 +198,12 @@ class ServerOptions:
     # own handler registries (redis/mongo/thrift/nshead services) bypass pb
     # dispatch entirely and enforce their own admission.
     interceptor: object = None
+    # run user methods INLINE on the native poller for engine-parsed fast
+    # requests (reference default: user code runs in the parsing bthread,
+    # baidu_rpc_protocol.cpp:848). Only safe when no method blocks: a
+    # handler issuing a sync downstream RPC would deadlock the process's
+    # completion loop. Off = fast requests run on a dispatch worker.
+    usercode_inline: bool = False
 
 
 class Server:
@@ -216,6 +227,12 @@ class Server:
         self._method_cache = {}         # (service, method) -> MethodEntry
         self._ssl_ctx = None            # built lazily from options.ssl
         self._master_service = None     # catch-all generic service
+        self._native_lid = None         # native dataplane listener id
+        self._native_dp = None
+        self._native_echoes = []        # (service, method) C++ fast paths
+        self._null_methods = set()      # (service, method) null-service
+        # control lane: the poll loop answers these with a raw body echo
+        # and NO policy (isolates the Python-crossing ceiling)
         self.rpc_dumper = None
         self.tail_retainer = None
         if self.options.rpc_dump_dir:
@@ -287,10 +304,6 @@ class Server:
             raise NotImplementedError(
                 "tpu_shard_workers > 0: the sharded dispatch plane is not "
                 "ported (ROADMAP Queue 1 item 2(b)9)")
-        if self.options.native_dataplane:
-            raise NotImplementedError(
-                "native_dataplane: the C++ core is not ported (ROADMAP "
-                "Queue 1 item 2(b)7)")
         if "Health" not in self._services:
             # builtin grpc.health.v1.Health (reference server.cpp:499-601
             # AddBuiltinServices / grpc_health_check_service); served over
@@ -313,6 +326,10 @@ class Server:
 
             self._ssl_ctx = build_server_context(self.options.ssl)
         ep = EndPoint.parse(address)
+        if (self.options.native_dataplane and not ep.is_unix()
+                and self.options.ssl is None):
+            self._start_native(ep)
+            return self
         if ep.is_tpu():
             # tpu://host:port/ordinal — the TCP port is the tunnel bootstrap
             # (the RDMA handshake listener); accepted connections upgrade to
@@ -345,6 +362,100 @@ class Server:
     def listen_endpoint(self) -> Optional[EndPoint]:
         return self._listen_ep
 
+    # ---------------------------------------------------- native dataplane
+    def _start_native(self, ep: EndPoint) -> None:
+        """Bind through the C++ engine (built on first use; a build failure
+        raises here, before any listener opens)."""
+        from brpc_tpu_torch.rpc.native_transport import get_dataplane
+
+        dp = get_dataplane()
+        host = ep.host or "0.0.0.0"
+        tpu_ordinal = ep.device_ordinal if ep.is_tpu() else -1
+        if ep.is_tpu():
+            # tpu://host:port/ordinal — TPUC handshakes become native shm
+            # tunnels; plain TRPC/HTTP on the same port still works
+            self._tpu_ordinal = ep.device_ordinal
+        # engine-parsed EV_REQUEST fast path: only when no option needs the
+        # raw meta per request (auth tokens / interceptor ride the full
+        # pipeline; rpc_dump samples natively — the meta pb is rebuilt for
+        # the sampled few, so dumping no longer forces the slow lane)
+        fastpath = (self.options.auth is None
+                    and self.options.interceptor is None)
+        self._native_lid, port = dp.listen(self, host, ep.port,
+                                           tpu_ordinal=tpu_ordinal,
+                                           fastpath=fastpath)
+        self._native_dp = dp
+        self._listen_ep = EndPoint.from_tpu(host, ep.device_ordinal,
+                                            port=port) if ep.is_tpu() \
+            else EndPoint.from_ip_port(host, port)
+        self._running = True
+        self._logoff = False
+        for svc, method, max_conc in self._native_echoes:
+            dp.register_echo(self._native_lid, svc, method, max_conc)
+        self._schedule_idle_sweep()
+
+    def register_native_echo(self, service_name: str, method_name: str,
+                             max_concurrency: int = 0) -> None:
+        """Answer (service, method) entirely inside the C++ engine — the
+        rebuild's 'user code in C++' lane (the reference's services ARE
+        C++). The handler echoes the request body back (attachment
+        included) and runs the native request path: admission (ELOGOFF on
+        stop, ``max_concurrency`` limit) and method status (qps/latency/
+        errors, surfaced at /status) live in the engine; Python auth/
+        interceptor hooks do not run (reference MethodStatus semantics,
+        user code in C++). Only meaningful with ``native_dataplane=True``."""
+        self._native_echoes.append((service_name, method_name,
+                                    max_concurrency))
+        if self._native_dp is not None and self._native_lid is not None:
+            self._native_dp.register_echo(self._native_lid, service_name,
+                                          method_name, max_concurrency)
+
+    def register_null_method(self, service_name: str,
+                             method_name: str) -> None:
+        """Benchmark CONTROL lane: the native poll loop
+        answers this method from Python with a raw body echo and nothing
+        else — no pb decode/encode, no admission, no method status, no
+        span. The gap between this and the full-policy path is the
+        framework's own cost; the control itself is the process-pair
+        interpreter-crossing ceiling. Not a serving feature."""
+        self._null_methods.add((service_name, method_name))
+
+    def native_method_stats(self):
+        """[(service, method, stats-dict)] for native services (the /status
+        section the engine's counters feed)."""
+        out = []
+        if self._native_dp is None or self._native_lid is None:
+            return out
+        for svc, method, _mc in self._native_echoes:
+            st = self._native_dp.svc_stats(self._native_lid, svc, method)
+            if st is not None:
+                out.append((svc, method, st))
+        return out
+
+    def adopt_connection(self, pysock, initial_bytes: bytes = b"",
+                         dispatcher=None) -> None:
+        """Take over an already-accepted connection fd (native DETACH path:
+        non-TRPC bytes arrived on a native port)."""
+        try:
+            peer = pysock.getpeername()
+        except OSError:
+            peer = None
+        remote = EndPoint.from_ip_port(*peer[:2]) \
+            if isinstance(peer, tuple) else None
+        sock = Socket(pysock, remote, dispatcher or pick_dispatcher())
+        sock.owner_server = self
+        if initial_bytes:
+            sock.read_buf.append(initial_bytes)
+        sock._on_readable = self._messenger.make_on_readable(sock)
+        with self._conn_lock:
+            self._connections.add(sock)
+        if initial_bytes:
+            # parse the seed BEFORE registering for events: cutting is
+            # serial per socket, and the dispatcher must not race this
+            self._messenger.cut_messages(sock)
+        if not sock.failed:
+            sock.register_read()
+
     def stop(self) -> None:
         """Graceful: reject new requests (ELOGOFF), keep serving in-flight."""
         self._logoff = True
@@ -360,6 +471,11 @@ class Server:
             except OSError:
                 pass
             self._listen_sock = None
+        if self._native_lid is not None:
+            # listener only: in-flight requests finish; join() tears down.
+            # Native services start answering ELOGOFF like the Python path.
+            self._native_dp.set_listener_logoff(self._native_lid, True)
+            self._native_dp.stop_listening(self._native_lid)
 
     def join(self, timeout: float = 5.0) -> None:
         import time
@@ -378,6 +494,9 @@ class Server:
             e.close()   # BYE + pool teardown; also fails the bootstrap conn
         for c in conns:
             c.close()
+        if self._native_lid is not None:
+            self._native_dp.teardown_listener(self._native_lid)
+            self._native_lid = None
         if self.tail_retainer is not None:
             # detach the watch transition hook; held-but-undecided traces
             # drop (the process is going away — nothing left to correlate)
@@ -476,6 +595,20 @@ class Server:
                 with self._conn_lock:
                     idle = [c for c in self._connections
                             if now - c.last_active > limit]
+                if self._native_dp is not None:
+                    # the C++ engine's conns idle out under the same flag.
+                    # last_active only sees Python-side traffic, so consult
+                    # the ENGINE's message counters too: C++-answered
+                    # native-service traffic must keep the conn alive
+                    for s in self._native_dp.server_socks(self):
+                        stats = self._native_dp.conn_stats(s.conn_id)
+                        if stats is not None:
+                            total = stats[2] + stats[3]
+                            if total != s._sweep_msgs:
+                                s._sweep_msgs = total
+                                s.last_active = now
+                        if now - s.last_active > limit:
+                            idle.append(s)
                 for c in idle:
                     c.set_failed(errors.EFAILEDSOCKET,
                                  f"idle > {limit:.0f}s")

@@ -596,6 +596,280 @@ class FastServerController:
                          "(this request arrived via a binary protocol)")
 
 
+# ===================================================================== fast
+# Engine-parsed request path (the port's native dataplane, rpc/
+# native_transport.py). The C++ engine cracked the RpcMeta into an
+# EV_REQUEST tuple and packs the response natively (dp_respond): Python
+# runs ONLY admission, method stats, and user code. The reference keeps
+# exactly this split: ProcessRpcRequest stays native and calls into user
+# code (baidu_rpc_protocol.cpp:565-854). Requests carrying meta-level
+# policy (compress/checksum/auth/streams/traces) never reach here: the
+# engine routes them to the full EV_FRAME pipeline.
+
+
+def _rebuild_meta(svc, meth, cid, attempt, att_size, log_id, trace_id,
+                  span_id, timeout_ms) -> rpc_meta_pb2.RpcMeta:
+    """RpcMeta pb from the engine-cracked EV_REQUEST fields (the fast path
+    drops the pb; full-pipeline replay and dump records need it back)."""
+    meta = rpc_meta_pb2.RpcMeta()
+    meta.request.service_name = svc
+    meta.request.method_name = meth
+    meta.request.log_id = log_id
+    meta.request.trace_id = trace_id
+    meta.request.span_id = span_id
+    meta.request.timeout_ms = timeout_ms
+    meta.correlation_id = cid
+    meta.attempt_version = attempt
+    meta.attachment_size = att_size
+    return meta
+
+
+def _replay_full(item) -> None:
+    """Rebuild the RpcMeta pb and take the complete pipeline — for servers
+    whose options demand per-request hooks (auth/interceptor) when a fast
+    event arrives anyway (options changed after start)."""
+    (server, sock, svc, meth, cid, attempt, att_size, log_id, trace_id,
+     span_id, timeout_ms, body) = item
+    from brpc_tpu_torch.butil.iobuf import IOBuf
+    from brpc_tpu_torch.rpc.protocol import ParsedMessage, find_protocol
+
+    proto = find_protocol("trpc_std")
+    meta = _rebuild_meta(svc, meth, cid, attempt, att_size, log_id,
+                         trace_id, span_id, timeout_ms)
+    msg = ParsedMessage(proto, meta, IOBuf(body))
+    msg.socket = sock
+    process_rpc_request(proto, msg, server)
+
+
+_on_flusher_thread = None
+_span_mod = None
+_collector = None
+
+
+def fast_process_request(item) -> None:
+    """EV_REQUEST pipeline: admission -> lookup -> user code -> dp_respond.
+    Mirrors process_rpc_request's state machine with the meta pre-cracked
+    and the response packed natively."""
+    global _on_flusher_thread, _span_mod, _collector
+    if _on_flusher_thread is None:  # lazy: import cycle at module load
+        from brpc_tpu_torch.metrics.collector import global_collector
+        from brpc_tpu_torch.rpc.native_transport import on_flusher_thread
+        from brpc_tpu_torch.trace import span
+
+        _on_flusher_thread = on_flusher_thread
+        _span_mod = span
+        _collector = global_collector()
+    (server, sock, svc, meth, cid, attempt, att_size, log_id, trace_id,
+     span_id, timeout_ms, body) = item
+    _span = _span_mod
+
+    dp = sock._dp
+    conn = sock.conn_id
+    q = _on_flusher_thread()
+
+    if server is None:
+        return
+    if (server.options.auth is not None
+            or server.options.interceptor is not None):
+        return _replay_full(item)
+
+    # span exists BEFORE admission: rejected requests must reach /rpcz
+    # too (slow-path contract, send_error above). Cheap pre-gate: an
+    # untraced request during a standing collector denial can never be
+    # sampled — skip the three-frame sampling walk (the ~4us/req it cost
+    # was the single largest policy item in the r5 profile). Denies
+    # skipped here are not counted in collector_denies (gauge drift only).
+    if trace_id == 0 and time.monotonic() < _collector._deny_until:
+        span = None
+    else:
+        span = _span.start_server_span_ids(trace_id, span_id, svc, meth,
+                                           peer=sock.peer_str)
+
+    def send_error(code: int, text: str = "") -> None:
+        if span is not None:
+            span.end(code)
+        dp.respond(conn, cid, attempt, code,
+                   (text or errors.error_text(code)).encode(), b"", b"", q)
+
+    server.requests_processed.put(1)
+    if not server.is_running:
+        return send_error(errors.ELOGOFF)
+    if not server.add_concurrency():
+        return send_error(errors.ELIMIT, "server max_concurrency reached")
+    start_us = time.perf_counter_ns() // 1000
+
+    entry = None
+    err = None
+    cache = server._method_cache
+    entry = cache.get((svc, meth))
+    if entry is None:
+        service = server.find_service(svc)
+        if service is None:
+            err = (errors.ENOSERVICE, f"no service {svc!r}")
+        else:
+            entry = service.find_method(meth)
+            if entry is None:
+                err = (errors.ENOMETHOD, f"no method {meth!r}")
+            else:
+                cache[(svc, meth)] = entry
+        if entry is None and server._master_service is not None:
+            # catch-all proxy takes unmatched requests (RawMessage bytes)
+            entry = server._master_service.find_method("*")
+            err = None
+    if entry is None:
+        server.sub_concurrency()
+        return send_error(*err)
+    if not entry.on_request():
+        server.sub_concurrency()
+        return send_error(errors.ELIMIT, "method concurrency limit")
+
+    cntl = FastServerController(server, sock, svc, meth, log_id, timeout_ms)
+    cntl.span = span
+    if timeout_ms > 0:
+        # the engine dispatches EV_REQUEST promptly, so the budget starts
+        # (approximately) now; batch enqueue re-checks this deadline
+        cntl.deadline_mono = time.monotonic() + timeout_ms / 1000.0
+
+    # dump sampling rides the fast path natively (no full-pipeline replay):
+    # the meta pb is rebuilt only for the sampled few, before the
+    # attachment split so the record's body is the whole wire payload
+    dumper = server.rpc_dumper
+    pending_dump = None
+    pending_tail = None
+    if dumper is not None:
+        if dumper.ask_to_be_sampled():
+            pending_dump = dumper.begin(
+                _rebuild_meta(svc, meth, cid, attempt, att_size, log_id,
+                              trace_id, span_id, timeout_ms), body)
+        else:
+            retainer = server.tail_retainer
+            if retainer is not None and retainer.enabled():
+                pending_tail = dumper.begin(
+                    _rebuild_meta(svc, meth, cid, attempt, att_size, log_id,
+                                  trace_id, span_id, timeout_ms), body)
+
+    if att_size:
+        cntl.request_attachment = body[len(body) - att_size:]
+        body = body[:len(body) - att_size]
+
+    done = _FastDone(dp, conn, cid, attempt, cntl, entry, server, start_us)
+    done.pending_dump = pending_dump
+    done.pending_tail = pending_tail
+
+    try:
+        _set_phase("parse")
+        t_parse = time.perf_counter_ns() if span is not None else 0
+        try:
+            request = entry.request_class()
+            request.ParseFromString(body)
+        except Exception as e:
+            cntl.set_failed(errors.EREQUEST, f"parse request: {e}")
+            return done()
+        if span is not None:
+            span.request_size = len(body) + att_size
+            span.add_phase(
+                "parse_us", (time.perf_counter_ns() - t_parse) / 1000.0)
+        prev_span = _span.set_current(span)
+        _set_phase("execute")
+        t_exec = time.perf_counter_ns() if span is not None else 0
+        ex0 = _other_marks(span)
+        try:
+            if _fault.hit("rpc.handler.crash") is not None:
+                raise RuntimeError("fault injected handler crash")
+            _fault.maybe_sleep(_fault.hit("rpc.handler.delay", method=meth))
+            ret = entry.fn(cntl, request, done)
+        except Exception as e:
+            cntl.set_failed(errors.EINTERNAL, f"method raised: {e}")
+            ret = None
+        finally:
+            _span.set_current(prev_span)
+            if span is not None:
+                el = (time.perf_counter_ns() - t_exec) / 1000.0
+                span.add_phase(
+                    "execute_us",
+                    max(0.0, el - (_other_marks(span) - ex0)))
+        if not done.responded and (ret is not None or cntl.failed()):
+            done(ret)
+        # else: async completion — stats settle when done runs
+    except BaseException:
+        done.settle(errors.EINTERNAL)
+        raise
+    finally:
+        _set_phase(None)
+
+
+class _FastDone:
+    """The fast path's `done` callable + stats settlement in one slotted
+    object (replaces two closures + two flag cells per request — this
+    allocates once and runs on every RPC)."""
+
+    __slots__ = ("dp", "conn", "cid", "attempt", "cntl", "entry", "server",
+                 "start_us", "responded", "settled", "pending_dump",
+                 "pending_tail")
+
+    def __init__(self, dp, conn, cid, attempt, cntl, entry, server,
+                 start_us):
+        self.dp = dp
+        self.conn = conn
+        self.cid = cid
+        self.attempt = attempt
+        self.cntl = cntl
+        self.entry = entry
+        self.server = server
+        self.start_us = start_us
+        self.responded = False
+        self.settled = False
+        self.pending_dump = None
+        self.pending_tail = None
+
+    def __call__(self, response=None) -> None:
+        if self.responded:
+            return
+        self.responded = True
+        prev_ph = _set_phase("respond")
+        cntl = self.cntl
+        span = cntl.span
+        t_resp = time.perf_counter_ns() if span is not None else 0
+        payload_out = b""
+        ct = cntl.compress_type
+        if response is not None and not cntl.failed():
+            payload_out = _compress.compress(response.SerializeToString(),
+                                             ct)
+        code = cntl._error_code
+        self.dp.respond(self.conn, self.cid, self.attempt, code,
+                        cntl._error_text.encode() if code else b"",
+                        payload_out, cntl.response_attachment,
+                        _on_flusher_thread(),  # async dones land off-batch
+                        compress_type=ct)
+        if span is not None:
+            span.response_size = (len(payload_out)
+                                  + len(cntl.response_attachment or b""))
+            span.add_phase(
+                "respond_us", (time.perf_counter_ns() - t_resp) / 1000.0)
+        _set_phase(prev_ph)
+        self.settle(code)
+
+    def settle(self, error_code: int) -> None:
+        if self.settled:
+            return
+        self.settled = True
+        self.entry.on_response(
+            time.perf_counter_ns() // 1000 - self.start_us, error_code)
+        self.server.sub_concurrency()
+        span = self.cntl.span
+        if span is not None:
+            span.end(error_code)
+        if self.pending_dump is not None:
+            dumper = self.server.rpc_dumper
+            if dumper is not None:
+                dumper.commit(self.pending_dump, span, error_code)
+        elif self.pending_tail is not None:
+            retainer = self.server.tail_retainer
+            if retainer is not None:
+                retainer.offer(self.pending_tail, span, error_code,
+                               self.entry.latency.latency_percentile(0.99))
+
+
 def _send_response(protocol, sock, request_meta, code, text, payload,
                    attachment, compress_type,
                    accepted_stream_id: int = 0) -> None:

@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source, all at once). Then fifteen paths:
+(nvcc, sm_90a, one process per source, all at once) and, beside them, the
+native core from ``brpc_tpu_torch/native`` (g++; one line: its version,
+seconds and libraries under ``build/``). Then sixteen paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -49,7 +51,8 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   5120 first): tokens equal across the three, the card's pools within
   1e-4 of the CPU's; prefill times and peak memory.
 - The examples of the ported lanes (phase 4f): echo, streaming echo,
-  tpu_transfer, device_stream and device_data, each server and client a
+  tpu_transfer, device_stream and device_data (over the C++ engine's
+  shared-memory tunnel, both ends native), each server and client a
   fresh interpreter on the card, held as the reference's tests hold
   them, the copy kernels' launches read back from their output.
 - Mesh-sharded serving (phase 4g): the collectives over 8 positions
@@ -112,6 +115,16 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   Generate, ``/rpcz`` listing them, ``/vars``; a 4 MiB progressive
   attachment downloaded chunked, byte-equal; tokens/s and client latency
   p50 beside phase 4b's.
+- The native lanes (phase 4m): phase 4's engine behind a plain
+  ``Server`` (the baseline), then behind
+  ``Server(ServerOptions(native_dataplane=True))`` on the engine's TCP
+  lane and on its TPUC tunnel; in windows of at least 2 s, passes of
+  PROMPT_LENS as streamed Generates from a ``native_transport=True``
+  Channel, from a Python Channel, then as JSON over HTTP on the same
+  port: tokens equal phase 4's in every pass and the serving kernel
+  launched layers x prefills x passes on the engine thread in every
+  window; ``/status``' native method stats; tokens/s and client p50
+  against the baseline's, beside phases 4b and 4l.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm forward and backward kernels against their plain versions in
   fp32 and bf16 (the RMSNorm pair also at its rows' edges and widths past
@@ -143,7 +156,8 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
 - Back on one device: holds the fused cross-entropy kernel
   against its plain version row by row, and runs the flagship's
   ``graft_entry.entry()`` once in bf16 (its forward only: 4/0/0
-  forward/dQ/dK-dV launches).
+  forward/dQ/dK-dV launches), then the dryrun's RPC across the mesh on
+  the card, over the Python tunnel and the native shm tunnel.
 - The q-grid forward: held against the plain forward at
   ``tools/qgrid_sweep.py``'s shape, then driven through that sweep's
   block configurations.
@@ -173,6 +187,15 @@ Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
   response checked, the bulk sizes in borrowed shared-memory blocks),
   ``bench_device_lane``'s Puts, Pumps and op rate beside the store's,
   and a device stream; the server's launches as the calls imply.
+- The native lanes' numbers (phase 20n): ``bench/native_lane.py``'s
+  server in a child process behind two native listeners; the engine's
+  C++ bench client on each (16 B at 16 x 8 and ping-pong, 64 B depth 1,
+  64 B - 16 MiB); phase 20's Python client at phase 20's shapes through
+  a ``native_transport=True`` Channel against the Python echo (the lane
+  alone differs from phase 20) and against the null-method control;
+  then the data plane over the native tunnel, its copy launches as the
+  calls imply and its bytes exact; 1 MiB GB/s, 64 B QPS and depth-1
+  p50 / p99 beside phase 20's Python lane.
 
 Exits non-zero, with no result line, on any failure, without a card, or
 without the package beside it.
@@ -1412,8 +1435,8 @@ def run_example_client(name, args, timeout=180):
 def run_example_pair(server, server_args, client_name, client_args):
     """A server example and then its client, fresh interpreters each; the
     client's arguments may name ``{addr}``, the address the server's
-    first line gives after " on ". Returns (client output, server output
-    after SIGTERM)."""
+    first line gives after " on ". Returns (client output, the server's
+    output: its first line and all after SIGINT)."""
     root, env = example_env()
     srv = subprocess.Popen(example_cmd(server, server_args), cwd=root,
                            env=env, stdout=subprocess.PIPE,
@@ -1434,7 +1457,7 @@ def run_example_pair(server, server_args, client_name, client_args):
             rest, _ = srv.communicate()
     if srv.returncode or "foreign modules []" not in rest:
         raise AssertionError(f"{server} exited {srv.returncode}:\n{rest}")
-    return out, rest
+    return out, line + rest
 
 
 def free_port():
@@ -1498,8 +1521,10 @@ def run_examples(smi):
         "streaming_echo": lambda c, s: "echoed 30 messages" in c,
         "tpu_transfer": lambda c, s: "MB/s" in c,
         "device_stream": lambda c, s: "consumed on-device" in c,
+        # the example rides the C++ engine both ends (native tunnel)
         "device_data": lambda c, s: ("content verified" in c
-                                     and "checksum=" in c),
+                                     and "checksum=" in c
+                                     and "native engine listener" in s),
     }
     row, launches = {"card": smi}, {"hbm_copy": 0, "hbm_copy_batched": 0}
     for name, (cout, sout, secs) in results.items():
@@ -2737,7 +2762,194 @@ def run_http(dev, smi, n_layers, direct, rpc_stats):
         row[f"{name}_over_4b_tokens_per_s"] = (
             row[name]["tokens_per_s"] / rpc_stats["tokens_per_s"])
     print(json.dumps({"http": row}), flush=True)
-    return [launches["json"], launches["pb"]]
+    return [launches["json"], launches["pb"]], row
+
+
+def native_status_lines(hostport):
+    """The ``/status`` page's native method stats (one line each)."""
+    from brpc_tpu_torch.policy.http_protocol import http_fetch
+
+    body = http_fetch(hostport, "GET", "/status", timeout=30).body.decode()
+    lines = body.splitlines()
+    return [f"{a.strip()} {b.strip()}" for a, b in zip(lines, lines[1:])
+            if a.strip().endswith("(native)")]
+
+
+NATIVE_WINDOW_S = 2.0  # phase 4m: each window repeats PROMPT_LENS this long
+
+
+def native_window(engine, n_layers, direct, what, one_pass):
+    """Passes of PROMPT_LENS through ``one_pass()`` (it returns each
+    request's response and client latency in s) until NATIVE_WINDOW_S
+    has gone by. Every pass's tokens equal phase 4's; the window's
+    launch count is reset just before and read just after, on the engine
+    thread: layers x prefills x passes. Returns the window's row."""
+    lats, rates, tokens, passes = [], [], 0, 0
+    pallas_ops.launches.reset()
+    t0 = time.perf_counter()
+    while True:
+        p0 = time.perf_counter()
+        got, lat = one_pass()
+        n = sum(len(g.tokens) for g in got)
+        rates.append(n / (time.perf_counter() - p0))
+        same_tokens(f"4m {what} pass {passes} against phase 4", got, direct)
+        lats += lat
+        tokens += n
+        passes += 1
+        if time.perf_counter() - t0 >= NATIVE_WINDOW_S:
+            break
+    wall = time.perf_counter() - t0
+    engine.kv.store.fence()
+    n = pallas_ops.launches.of_thread(engine._thread.ident,
+                                      "flash_attention")
+    if n != n_layers * len(PROMPT_LENS) * passes:
+        raise AssertionError(f"flash_attention launched {n} times ({what}),"
+                             f" want {n_layers} layers x {len(PROMPT_LENS)}"
+                             f" prefills x {passes} passes")
+    return {"passes": passes, "requests": len(lats), "tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "pass_tokens_per_s_min": min(rates),
+            "pass_tokens_per_s_max": max(rates),
+            "latency_us_p50": pct([x * 1e6 for x in lats], 50),
+            "launches": n}
+
+
+def native_windows(engine, n_layers, direct, what, stubs, hostport):
+    """Phase 4m's windows on one listener: streamed Generates through
+    each of ``stubs`` ({name: stub}), then JSON over HTTP on
+    ``hostport``."""
+    requests = list(zip(PROMPT_LENS, MAX_NEW))
+    out = {}
+
+    def streamed(stub, name):
+        def one_pass():
+            gens, _ = serve_rpc(stub, requests)
+            for (plen, max_new), g in zip(requests, gens):
+                if g.frame_tokens != list(g.response.tokens) or \
+                        g.frames != max_new:
+                    raise AssertionError(f"{what}/{name} prompt {plen}: "
+                                         f"frames {g.frame_tokens} do not "
+                                         f"join")
+            return ([g.response for g in gens],
+                    [g.t_done - g.t_call for g in gens])
+        return one_pass
+
+    call = json_call(hostport)
+
+    def json_pass():
+        got, lat, errs = [None] * len(requests), [0.0] * len(requests), []
+
+        def one(i, plen, max_new):
+            t0 = time.perf_counter()
+            try:
+                got[i] = call(serving_pb2.GenerateRequest(
+                    prompt_len=plen, max_new_tokens=max_new))
+            except Exception as e:  # reported below, all at once
+                errs.append((plen, repr(e)))
+            lat[i] = time.perf_counter() - t0
+        threads = [threading.Thread(target=one, args=(i, p, m))
+                   for i, (p, m) in enumerate(requests)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if errs or None in got:
+            raise AssertionError(f"{what}/json Generates failed: {errs}")
+        return got, lat
+
+    for name, stub in stubs.items():
+        out[name] = native_window(engine, n_layers, direct,
+                                  f"{what}/{name}", streamed(stub, name))
+    out["json"] = native_window(engine, n_layers, direct, f"{what}/json",
+                                json_pass)
+    return out
+
+
+def run_native(dev, smi, n_layers, direct, rpc_stats, http_row):
+    """Phase 4m, the native lanes. First the baseline: phase 4's engine
+    behind a plain ``Server`` on ``127.0.0.1:0``, streamed Generates from
+    a Python Channel and JSON over HTTP. Then the engine behind
+    ``Server(ServerOptions(native_dataplane=True))``, first on
+    ``127.0.0.1:0`` (the engine's TCP lane) and then on
+    ``tpu://127.0.0.1:0/0`` (its TPUC shared-memory tunnel). On each,
+    after an uncounted warm-up: streamed Generates from a
+    ``native_transport=True`` Channel, then from a Python Channel (the
+    Python lane against the engine: the tunnel's interop pairing), then
+    JSON over HTTP on the same port (the engine DETACHes the connection
+    to the port's HTTP stack). Every window repeats PROMPT_LENS for at
+    least NATIVE_WINDOW_S (``native_window``: tokens equal phase 4's in
+    every pass, launches layers x prefills x passes). A native echo
+    registered on the listener feeds ``/status``' native method stats.
+    Printed: each window's tokens/s and client p50, its ratio to the
+    baseline's window of the same kind (streamed or JSON), and phase
+    4b's and 4l's one-pass windows beside them."""
+    row = {"card": smi, "window_s": NATIVE_WINDOW_S,
+           "rpc_4b": {k: rpc_stats[k] for k in (
+               "tokens_per_s", "rpc_latency_us_p50")},
+           "http_4l_json": {k: http_row["json"][k] for k in (
+               "tokens_per_s", "latency_us_p50")}}
+    launches = {}
+    for lane, addr in (("baseline", "127.0.0.1:0"), ("tcp", "127.0.0.1:0"),
+                       ("tunnel", "tpu://127.0.0.1:0/0")):
+        native = lane != "baseline"
+        engine = build_engine(dev, "auto")
+        server = rpc.Server(rpc.ServerOptions(native_dataplane=native))
+        server.add_service(LlmServingService(engine)).start(addr)
+        if native != (server._native_lid is not None):
+            raise AssertionError(f"{lane} {addr}: the listener is "
+                                 f"{'not ' if native else ''}the engine's")
+        ep = server.listen_endpoint()
+        hostport = f"{ep.host}:{ep.port}"
+        try:
+            stubs = {"python": rpc.Stub(rpc.Channel(rpc.ChannelOptions(
+                timeout_ms=600000)).init(str(ep)), client.DESC)}
+            if native:
+                server.register_native_echo("EchoService", "Echo")
+                stubs = {"native": rpc.Stub(rpc.Channel(rpc.ChannelOptions(
+                    timeout_ms=600000, native_transport=True)).init(
+                    str(ep)), client.DESC), **stubs}
+            for stub in stubs.values():
+                serve_rpc(stub, [(16, 2)])  # warm-up
+            lrow = row[lane] = native_windows(engine, n_layers, direct,
+                                              lane, stubs, hostport)
+            lrow["endpoint"] = str(ep)
+            for name in stubs:
+                launches[f"{lane}_{name}"] = lrow[name]["launches"]
+            launches[f"{lane}_json"] = lrow["json"]["launches"]
+            if native:
+                echo = rpc.Stub(rpc.Channel(rpc.ChannelOptions(
+                    timeout_ms=60000, native_transport=True)).init(str(ep)),
+                    echo_pb2.DESCRIPTOR.services_by_name["EchoService"])
+                for i in range(64):
+                    if echo.Echo(echo_pb2.EchoRequest(message=str(i))) \
+                            .message != str(i):
+                        raise AssertionError("native echo answered wrong")
+                stats = server.native_method_stats()
+                lrow["native_method_stats"] = stats
+                lrow["status_native"] = native_status_lines(hostport)
+                if not stats or stats[0][2]["requests"] < 64 or \
+                        not lrow["status_native"]:
+                    raise AssertionError(f"native method stats: {stats}, "
+                                         f"{lrow['status_native']}")
+        finally:
+            server.stop()
+            server.join(timeout=5)
+            engine.stop()
+        engine.kv.assert_idle(f"after the 4m {lane} run")
+        engine.model.close()
+        engine.kv.close()
+    base = row["baseline"]
+    for lane in ("tcp", "tunnel"):
+        for name in ("native", "python", "json"):
+            ref = base["json" if name == "json" else "python"]
+            w = row[lane][name]
+            w["over_baseline_tokens_per_s"] = (w["tokens_per_s"]
+                                               / ref["tokens_per_s"])
+            w["over_baseline_latency_us_p50"] = (w["latency_us_p50"]
+                                                 / ref["latency_us_p50"])
+    row["launches"] = launches
+    print(json.dumps({"native": row}), flush=True)
+    return launches
 
 
 def no_protobuf_or_jax(where):
@@ -2746,6 +2958,13 @@ def no_protobuf_or_jax(where):
                  or m.startswith("google.protobuf"))
     if bad:
         raise AssertionError(f"{where}: loaded {bad}")
+
+
+def run_dryrun_lanes():
+    """The dryrun's RPC across the mesh, on the card: one position (the
+    card), a 256 KB echo staged through it over the Python tunnel, then
+    over the C++ engine's shared-memory tunnel; each prints its OK."""
+    graft_entry._dryrun_rpc_across_mesh(1)
 
 
 def run_graft_entry(dev):
@@ -2835,12 +3054,14 @@ def attention_kernels(prof):
     return out
 
 
-def profile_engine(dev):
+def profile_engine(dev, auto):
     """Phase 5: where the main path's time goes. The same requests under
     torch.profiler: device busy share (kernel intervals merged, over the
     wall time of the run), kernel launches per engine step, and the
     kernels that take the most device time. The profiler slows the host,
-    so the share is a lower bound for an unprofiled run."""
+    so the share is a lower bound for an unprofiled run. The tokens must
+    equal phase 4's (``auto``); the serving kernel's own records are
+    listed in launch order with their device µs."""
     from torch.profiler import ProfilerActivity, profile
 
     engine = build_engine(dev, "auto")
@@ -2849,11 +3070,17 @@ def profile_engine(dev):
         steps0 = engine.steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pallas_ops.launches.reset()
             t0 = time.perf_counter()
-            serve(engine, list(zip(PROMPT_LENS, MAX_NEW)))
+            results, _ = serve(engine, list(zip(PROMPT_LENS, MAX_NEW)))
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            launches = pallas_ops.launches["flash_attention"]
         steps = engine.steps - steps0
+        for plen, r, a in zip(PROMPT_LENS, results, auto):
+            if r.tokens != a.tokens:
+                raise AssertionError(f"profiled prompt {plen}: tokens "
+                                     f"{r.tokens} != phase 4's {a.tokens}")
     finally:
         engine.stop()
     engine.model.close()
@@ -2867,11 +3094,24 @@ def profile_engine(dev):
         "device_busy_us": busy,
         "device_busy_share": busy / wall_us if kernels else None,
         "flash_kernel": SERVING_KERNEL, "flash_device_us": flash_us,
-        "flash_calls": flash_calls,
+        "flash_calls": flash_calls, "flash_launches": launches,
+        "flash_records_us": serving_records(prof),
         "top_device_us": top,
     }
     print(json.dumps({"profile": stats}), flush=True)
     return stats
+
+
+def serving_records(prof):
+    """The serving kernel's device records of a profiled run, in start
+    order: their durations in µs."""
+    from torch.autograd import DeviceType
+
+    return [e.time_range.end - e.time_range.start
+            for e in sorted((e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA
+                             and SERVING_KERNEL in e.name),
+                            key=lambda e: e.time_range.start)]
 
 
 def serving_kernel(prof):
@@ -4625,6 +4865,9 @@ def time_staging(dev):
     return out
 
 
+LAST_ROWS = {}  # phase rows a later phase prints beside its own
+
+
 def run_tpu_lane(dev, smi, store_lane, store_op_rate):
     """Phase 20, the tpu:// lane: the copy kernel held at the lane's
     sizes, the in-process lane (run_tpu_inprocess), the staging copies
@@ -4670,31 +4913,106 @@ def run_tpu_lane(dev, smi, store_lane, store_op_rate):
                              store_op_rate["ops_per_s"]]},
     }
     print(json.dumps({"tpu_lane": row}), flush=True)
+    LAST_ROWS["tpu_lane"] = row
     return {"copy": local["copy"] + kept,
             "pump": local["pump"] + child_pump,
             "batched": local["batched"] + served["hbm_copy_batched"]}
 
 
+def run_native_lane(dev, smi, tpu_row):
+    """Phase 20n, the native lanes: the copy kernel and its batched form
+    held against the plain copy at the data plane's sizes (outside the
+    counted run), then a child ``bench/native_lane.py --serve`` owns the
+    card behind two native listeners (TCP, and the engine's TPUC tunnel)
+    and this process drives each with the engine's C++ bench client
+    against a registered native echo (16 B at 16 x 8 and ping-pong, 64 B
+    depth 1, then 64 B to 16 MiB), then phase 20's Python client at
+    phase 20's shapes through a ``native_transport=True`` Channel against
+    the Python echo (the same client and handler as phase 20: the lane
+    alone differs) and against the null-method control, then
+    DeviceDataService's data plane
+    over the native tunnel from a ``native_transport=True`` Channel: Copy
+    and Get bytes exact, Pump checksums equal the host's, and the
+    server's copy launches exactly what the calls imply
+    (``tpu_lane.check_served``). Printed beside phase 20's Python-lane
+    numbers from this run: 1 MiB GB/s, 64 B QPS, depth-1 p50 / p99.
+    Returns the launches per kernel row."""
+    from brpc_tpu_torch.bench import native_lane
+
+    err = hold_tpu_lane_kernels(dev, [])
+    out = native_lane.run(cpu=False)
+    served = out["served"]["launches"]
+    kept = out["expect"]["kept_copies"]
+    py = tpu_row["headline"]
+    row = {"card": smi, "max_byte_err": err, "tcp": out["tcp"],
+           "tunnel": out["tunnel"], "data_plane": out["data_plane"],
+           "served": out["served"], "python_lane_20": {
+               "gb_per_s_1mib": py["gb_per_s_1mib"],
+               "qps_64b": py["qps_64b"],
+               "depth1_64b_p50_ms": py["depth1"]["64"]["p50_ms"],
+               "depth1_64b_p99_ms": py["depth1"]["64"]["p99_ms"]}}
+    for lane in ("tcp", "tunnel"):
+        r = out[lane]
+        row[f"{lane}_headline"] = {
+            "gb_per_s_1mib": r["gb_per_s_1mib"], "qps_64b": r["qps_64b"],
+            "depth1_64b_p50_ms": r["depth1_64b"]["p50_us"] / 1e3,
+            "depth1_64b_p99_ms": r["depth1_64b"]["p99_us"] / 1e3,
+            "over_python_gb_per_s_1mib": r["gb_per_s_1mib"]
+            / py["gb_per_s_1mib"],
+            "over_python_qps_64b": r["qps_64b"] / py["qps_64b"]}
+        # like for like: phase 20's client and handler, the lane changed
+        for handler in ("python_echo", "null_echo"):
+            h = r[handler]
+            row[f"{lane}_{handler}"] = {
+                "gb_per_s_1mib": h["gb_per_s_1mib"], "qps_64b": h["qps_64b"],
+                "depth1_64b_p50_ms": h["depth1_64b"]["p50_ms"],
+                "depth1_64b_p99_ms": h["depth1_64b"]["p99_ms"],
+                "over_python_gb_per_s_1mib": h["gb_per_s_1mib"]
+                / py["gb_per_s_1mib"],
+                "over_python_qps_64b": h["qps_64b"] / py["qps_64b"]}
+    print(json.dumps({"native_lane": row}), flush=True)
+    return {"copy": kept, "pump": out["expect"]["hbm_copy"] - kept,
+            "batched": served["hbm_copy_batched"]}
+
+
 def serving_flash_time(flash, n_layers, profile):
     """The serving run's flash device time over its launches (one per
     layer per prefill): each prompt's bucket timed alone (CUDA-graph
-    replay, check_flash), and the profiled run's own sum of the kernel."""
+    replay, check_flash), and the profiled run's own sum of the kernel.
+    The launches are the wrapper's count over the profiled run and must
+    be one per layer per prefill. The profiler's trace may lose a kernel
+    record (CUPTI's buffers, kernels launched from the engine thread), so
+    its own count of the kernel is printed beside them and may fall
+    short, never exceed them; ``device_ms_profiled_per_launch`` is the
+    profiled time over the records it has."""
     buckets = [prefill_bucket(p) for p in PROMPT_LENS]
     ms = n_layers * sum(flash[((b, 4, 16), True)]["kernel_graph_ms"]
                         for b in buckets)
-    if profile["flash_calls"] != n_layers * len(PROMPT_LENS):
+    want = n_layers * len(PROMPT_LENS)
+    if profile["flash_launches"] != want:
         raise AssertionError(f"the profiled serving run launched "
-                             f"{SERVING_KERNEL} {profile['flash_calls']} "
-                             f"times, want {n_layers} x {len(PROMPT_LENS)}")
-    out = {"launches": n_layers * len(buckets), "buckets": buckets,
+                             f"{SERVING_KERNEL} {profile['flash_launches']}"
+                             f" times, want {n_layers} x "
+                             f"{len(PROMPT_LENS)}")
+    if not 0 < profile["flash_calls"] <= want:
+        raise AssertionError(f"the profiler recorded {SERVING_KERNEL} "
+                             f"{profile['flash_calls']} times over "
+                             f"{want} launches")
+    if profile["flash_calls"] < want:
+        log(f"the profiler recorded {profile['flash_calls']} of the "
+            f"{want} launches of {SERVING_KERNEL}")
+    out = {"launches": want, "buckets": buckets,
            "device_ms_from_buckets": ms,
-           "device_ms_profiled": profile["flash_device_us"] / 1e3}
+           "profiled_records": profile["flash_calls"],
+           "device_ms_profiled": profile["flash_device_us"] / 1e3,
+           "device_ms_profiled_per_launch": profile["flash_device_us"]
+           / 1e3 / profile["flash_calls"]}
     print(json.dumps({"serving_flash": out}), flush=True)
     return out
 
 
 def slice4_rows(times, lane, probe_launches, op_rate_launches, ceiling,
-                tpu):
+                tpu, native):
     """The kernels line's entries of the copy kernel: #10 at 64 MiB
     (launches: DeviceStore.copy on the device lane, and the tpu:// lane's
     echoes and Copy calls), #11 at the probe's 64 MiB (launches: the probe
@@ -4702,30 +5020,34 @@ def slice4_rows(times, lane, probe_launches, op_rate_launches, ceiling,
     L2-resident 8 MiB pump-shape times beside them), #12 at 256 MiB bf16
     (launches: the ceiling's chain) and the batched form at the op rate's
     shape (launches: the op rate and the tpu:// lane's transient copies);
-    the tpu:// lane's share of each also stands alone."""
+    the tpu:// lane's share of each also stands alone, and so does the
+    native tunnel's (phase 20n's data plane)."""
     bk = "brpc_tpu/tpu/bench_kernels.py"
     spec = [
         ("hbm_copy", f"{bk}:22 (hbm_copy :27)", times["hbm_copy"],
-         lane["copy"], tpu["copy"]),
+         lane["copy"], tpu["copy"], native["copy"]),
         ("hbm_copy2d", f"{bk}:22 (hbm_copy2d :64, echo_loop_probe :81)",
-         times["hbm_copy2d"], probe_launches, tpu["pump"]),
+         times["hbm_copy2d"], probe_launches, tpu["pump"], native["pump"]),
         ("copy_ceiling", "tools/kernel_bench.py:320 (copy_call)",
          dict(ceiling, shape=list(CEIL_SHAPE), dtype="bfloat16",
               nbytes=2 * CEIL_SHAPE[0] * CEIL_SHAPE[1],
-              max_abs_err=ceiling["max_byte_err"]), ceiling["launches"], 0),
+              max_abs_err=ceiling["max_byte_err"]), ceiling["launches"], 0,
+         0),
         ("hbm_copy_batched", f"{bk}:22, k copies per launch (the JAX "
          f"dispatcher's batched XLA copy, brpc_tpu/tpu/device_lane.py:315)",
-         times["hbm_copy_batched"], op_rate_launches, tpu["batched"]),
+         times["hbm_copy_batched"], op_rate_launches, tpu["batched"],
+         native["batched"]),
     ]
     out = []
-    for name, replaces, row, launches, tpu_launches in spec:
+    for name, replaces, row, launches, tpu_launches, nat in spec:
         b = copy_bound(row["nbytes"])
         out.append({
             "name": name, "route": "cuda",
             "source": "brpc_tpu_torch/csrc/copy.cu", "replaces": replaces,
             "shape": row["shape"], "dtype": row["dtype"],
-            "launches": launches + tpu_launches,
+            "launches": launches + tpu_launches + nat,
             "launches_tpu_lane": tpu_launches,
+            "launches_native_lane": nat,
             "max_abs_err": row["max_abs_err"],
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": b[0], "bound_by": b[1],
@@ -4827,6 +5149,43 @@ def slice3_rows(xent, qgrid, carry, train_counts, ring_counts):
     return out
 
 
+class NativeBuild:
+    """The native core (``native/core.cpp``, ``native/dataplane.cpp``)
+    built with g++ from the checkout's sources on a thread of its own,
+    while nvcc builds the kernels. ``join`` raises if a build failed."""
+
+    def __init__(self):
+        self.row, self.error = None, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        from brpc_tpu_torch import native
+
+        t0 = time.perf_counter()
+        try:
+            native.load()
+            native.load_dataplane()
+        except BaseException as e:  # re-raised on the main thread
+            self.error = e
+            return
+        self.row = {"gxx": native.compiler_version(),
+                    "seconds": time.perf_counter() - t0,
+                    "so": {k: os.path.relpath(
+                        v["so"], os.path.dirname(os.path.abspath(__file__)))
+                           for k, v in native.builds.items()},
+                    "compiled": {k: v["built"]
+                                 for k, v in native.builds.items()}}
+
+    def join(self):
+        self.thread.join(600)
+        if self.error is not None:
+            raise self.error
+        if self.row is None:
+            raise AssertionError("the native build did not finish")
+        return self.row
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; the port's smoke run needs a card")
@@ -4842,8 +5201,10 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    native_build = NativeBuild()  # g++ beside the nvcc builds
     built = _build.build_all()
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f}s")
+    print(json.dumps({"native_build": native_build.join()}), flush=True)
     for name, out in built.items():
         log(f"--- nvcc {name}.cu\n{out.strip()}")
     ptxas = ptxas_report(built)
@@ -4880,12 +5241,14 @@ def main():
     router = run_router(dev, smi, n_layers, auto)
     qos_launches = run_qos(dev, smi, n_layers)
     run_batching(dev, smi)
-    http_launches = run_http(dev, smi, n_layers, auto, rpc_stats)
+    http_launches, http_row = run_http(dev, smi, n_layers, auto, rpc_stats)
+    native_launches = run_native(dev, smi, n_layers, auto, rpc_stats,
+                                 http_row)
     no_protobuf_or_jax("after the disaggregated, long-prompt, mesh, "
-                       "combo-channel, router, QoS, batching and HTTP "
-                       "paths")
+                       "combo-channel, router, QoS, batching, HTTP and "
+                       "native paths")
 
-    profile = profile_engine(dev)
+    profile = profile_engine(dev, auto)
     serving = serving_flash_time(flash, n_layers, profile)
 
     fwd = check_flash_fwd(dev)
@@ -4897,6 +5260,7 @@ def main():
     sharded_counts = run_sharded_trainer(dev, smi, single)
     xent = check_xent(dev)
     run_graft_entry(dev)
+    run_dryrun_lanes()
     qgrid = check_qgrid(dev)
     carry = check_carry(dev)
     ring_counts = run_ring(dev)
@@ -4907,6 +5271,7 @@ def main():
     ceiling = run_ceiling(dev)
     copy_times = time_copies(dev)
     tpu = run_tpu_lane(dev, smi, lane["stats"], op_rate)
+    native_lane = run_native_lane(dev, smi, tpu_row=LAST_ROWS["tpu_lane"])
 
     main_row = flash[MAIN_SHAPE]
     kernels = [{
@@ -4925,6 +5290,7 @@ def main():
                                  mesh["corpus_2"]["flash_launches"]],
         "launches_router": router, "launches_qos": qos_launches,
         "launches_http": http_launches,
+        "launches_native": native_launches,
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4936,7 +5302,8 @@ def main():
         "serving_run_profiled_ms": serving["device_ms_profiled"],
     }] + kernel_rows(fwd, bwd, rms, counts) + slice3_rows(
         xent, qgrid, carry, counts, ring_counts) + slice4_rows(
-        copy_times, lane, probe_launches, op_rate_launches, ceiling, tpu)
+        copy_times, lane, probe_launches, op_rate_launches, ceiling, tpu,
+        native_lane)
     for e in kernels:
         if e["name"] in example_launches:
             e["launches_examples"] = example_launches[e["name"]]

@@ -83,8 +83,7 @@ def test_dryrun_multichip_prints_the_reference_ok_lines(capsys):
                         "(merges=gather,sum over 8-dev mesh)")
     assert re.fullmatch(r"dryrun rpc: tpu://127\.0\.0\.1:\d+/7 256KB "
                         r"block-pool echo OK", lines[2]), lines
-    assert lines[3].startswith("dryrun native lane: engine unavailable "
-                               "(skipped")
+    assert lines[3] == "dryrun rpc: native shm-tunnel lane echo OK"
 
 
 @pytest.mark.parametrize("n", [4, 8])

@@ -349,3 +349,108 @@ def test_an_http_generate_and_a_serving_fetch_load_no_protobuf_or_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n")
+
+
+NATIVE_SLICE = {"native/__init__.py", "rpc/native_transport.py",
+                "bench/native_lane.py",
+                "examples/transport_sweep/client.py"}
+
+
+def test_the_walk_reaches_the_native_slices_modules():
+    """The import checks above walk the native core's loader, the engine's
+    Python veneer, its bench and the transport sweep example; the C++
+    sources sit beside the loader."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert NATIVE_SLICE <= rel, sorted(NATIVE_SLICE - rel)
+    for src in ("core.cpp", "dataplane.cpp", "hpack_tables.h"):
+        assert os.path.exists(os.path.join(PKG, "native", src))
+
+
+def test_a_native_generate_loads_no_protobuf_or_jax():
+    """A unary and a streamed Generate through a native_dataplane server
+    and a native_transport Channel over the engine's tunnel, with neither
+    protobuf nor JAX loaded, and no reference library mapped."""
+    _run(
+        "import sys, threading\n"
+        "import brpc_tpu_torch.rpc as rpc\n"
+        "import brpc_tpu_torch.rpc.stream as st\n"
+        "import brpc_tpu_torch.serving.service as service\n"
+        "from brpc_tpu_torch.proto import serving_pb2\n"
+        "from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,"
+        " ModelConfig, PagedKVCache, ServingEngine, TinyTransformer)\n"
+        "cfg = ModelConfig(vocab=64, d_model=16, n_heads=2, n_layers=1)\n"
+        "kv = PagedKVCache(KVCacheConfig(16, 16), cfg.n_layers, cfg.kv_dim,"
+        " device='cpu')\n"
+        "eng = ServingEngine(TinyTransformer(cfg, kv), kv,"
+        " EngineConfig(idle_wait_s=0.005)).start()\n"
+        "srv = rpc.Server(rpc.ServerOptions(native_dataplane=True))\n"
+        "srv.add_service(service.LlmServingService(eng))"
+        ".start('tpu://127.0.0.1:0/0')\n"
+        "ch = rpc.Channel(rpc.ChannelOptions(timeout_ms=30000,"
+        " native_transport=True)).init(str(srv.listen_endpoint()))\n"
+        "stub = rpc.Stub(ch, serving_pb2.DESCRIPTOR.services_by_name"
+        "['LlmService'])\n"
+        "r = stub.Generate(serving_pb2.GenerateRequest(prompt_len=8,"
+        " max_new_tokens=3))\n"
+        "assert len(r.tokens) == 3, r\n"
+        "done = threading.Event()\n"
+        "sid = st.stream_create(st.StreamOptions(on_received=lambda s, m:"
+        " done.set()))\n"
+        "c = rpc.Controller(); c.stream_id = sid\n"
+        "r2 = stub.Generate(serving_pb2.GenerateRequest(prompt_len=8,"
+        " max_new_tokens=3), controller=c)\n"
+        "assert list(r2.tokens) == list(r.tokens)\n"
+        "assert done.wait(10)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "srv.stop(); srv.join(); eng.stop()\n"
+        "assert 'brpc_tpu/native/_' not in maps\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n")
+
+
+def test_a_native_server_without_a_compiler_raises_and_opens_no_listener(
+        tmp_path):
+    """With no g++ on PATH and an empty build directory, a native
+    dataplane server's start raises NativeBuildError and the process holds
+    no listening socket: nothing falls back to the Python acceptor."""
+    code = (
+        "import os, sys\n"
+        "from brpc_tpu_torch import native\n"
+        f"native.BUILD_DIR = {str(tmp_path / 'build')!r}\n"
+        "import brpc_tpu_torch.rpc as rpc\n"
+        "def listening():\n"
+        "    inodes = set()\n"
+        "    for fd in os.listdir('/proc/self/fd'):\n"
+        "        try:\n"
+        "            link = os.readlink(f'/proc/self/fd/{fd}')\n"
+        "        except OSError:\n"
+        "            continue\n"
+        "        if link.startswith('socket:['):\n"
+        "            inodes.add(link[8:-1])\n"
+        "    n = 0\n"
+        "    for table in ('tcp', 'tcp6'):\n"
+        "        for line in open(f'/proc/self/net/{table}').readlines()[1:]:\n"
+        "            f = line.split()\n"
+        "            if f[3] == '0A' and f[9] in inodes:\n"
+        "                n += 1\n"
+        "    return n\n"
+        "srv = rpc.Server(rpc.ServerOptions(native_dataplane=True))\n"
+        "for addr in ('127.0.0.1:0', 'tpu://127.0.0.1:0/0'):\n"
+        "    try:\n"
+        "        srv.start(addr)\n"
+        "    except native.NativeBuildError as e:\n"
+        "        print('RAISED', str(e)[:60].replace(chr(10), ' '))\n"
+        "    else:\n"
+        "        print('STARTED')\n"
+        "    assert srv._listen_sock is None and srv._native_lid is None\n"
+        "    assert srv.listen_endpoint() is None\n"
+        "    assert listening() == 0, listening()\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = res.stdout.splitlines()
+    assert lines[-1] == "OK" and "STARTED" not in lines, lines
+    assert sum(x.startswith("RAISED") for x in lines) == 2, lines

@@ -395,16 +395,25 @@ class TestProfiling:
         assert results and results[0].status == 200
 
     def test_heap_snapshot_and_growth(self, server):
+        import tracemalloc
+
+        tracing = tracemalloc.is_tracing()
         ep = str(server.listen_endpoint())
-        http_fetch(ep, path="/hotspots/heap")  # may just start tracing
-        r = http_fetch(ep, path="/hotspots/heap")
-        assert r.status == 200 and b"allocation sites" in r.body
-        http_fetch(ep, path="/hotspots/growth")
-        # allocate between the two growth snapshots
-        blob = [bytearray(1024) for _ in range(100)]
-        r = http_fetch(ep, path="/hotspots/growth")
-        assert r.status == 200 and b"growth since" in r.body
-        del blob
+        try:
+            http_fetch(ep, path="/hotspots/heap")  # may just start tracing
+            r = http_fetch(ep, path="/hotspots/heap")
+            assert r.status == 200 and b"allocation sites" in r.body
+            http_fetch(ep, path="/hotspots/growth")
+            # allocate between the two growth snapshots
+            blob = [bytearray(1024) for _ in range(100)]
+            r = http_fetch(ep, path="/hotspots/growth")
+            assert r.status == 200 and b"growth since" in r.body
+            del blob
+        finally:
+            # the page leaves tracemalloc on; tracing every allocation
+            # slows every later test in this process tens of times
+            if not tracing:
+                tracemalloc.stop()
 
     def test_contention_endpoint(self, server):
         ep = str(server.listen_endpoint())

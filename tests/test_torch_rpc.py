@@ -209,12 +209,13 @@ def test_typed_stub_round_trip_on_the_port():
 
 
 def test_what_is_not_ported_refuses():
+    # the native engine is ported; its gRPC lane waits for item 2(b)6
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_rpc.Channel(port_rpc.ChannelOptions(
-            native_transport=True)).init("127.0.0.1:1")
+            protocol="grpc", native_transport=True)).init("127.0.0.1:1")
+    from brpc_tpu_torch.rpc.native_transport import bench_echo_native
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_rpc.Server(port_rpc.ServerOptions(
-            native_dataplane=True)).start("127.0.0.1:0")
+        bench_echo_native("127.0.0.1", 1, grpc=True)
     port_flags.set_flag("tpu_shard_workers", "2")
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -22,12 +22,16 @@ then on each lane drives the engine's C++ bench client
 (``bench_echo_native``, the analog of the reference's C++ client
 binaries) against the native echo: 16 B at 16 connections x 8 deep, 16 B
 ping-pong, 64 B at depth 1 (the p50 / p99 beside the Python lane's), then
-64 B, 4 KiB, 64 KiB, 1 MiB and 16 MiB. The engine's gRPC line of
-``bench.py`` waits for ROADMAP Queue 1 item 2(b)6 and is not run. Then,
-on each lane, the like-for-like rows: ``bench/tpu_lane.py``'s sweep (its
+64 B, 4 KiB, 64 KiB, 1 MiB and 16 MiB; then the engine's C++ gRPC
+client (``bench_echo_native(grpc=True)``, grpc over h2 end to end in the
+engine) at the same shapes against the same native echo on TCP. Then, on
+each lane, the like-for-like rows: ``bench/tpu_lane.py``'s sweep (its
 Python client threads, its sizes and call counts) through a
 ``native_transport=True`` Channel, against the Python echo and against
-the control. Then
+the control; and the same sweep through a ``protocol="grpc"`` Channel
+against the Python echo on TCP, once on the Python h2 lane and once on
+the engine's h2 lane (only the client's lane differs: the listener's h2
+half is the engine's either way). Then
 the data plane of ``bench/tpu_lane.py`` (Puts, Copy, Pumps with their
 checksums, transient copies, Stats) through a ``native_transport=True``
 Channel over the tunnel, and the server's copy launches held to what
@@ -144,13 +148,15 @@ class ChildServer:
 
 
 # ------------------------------------------------------------------ client
-def lane(endpoint, tunnel, ms):
-    """The C++ bench client against the native echo on one lane."""
+def lane(endpoint, tunnel, ms, grpc=False):
+    """The C++ bench client against the native echo on one lane
+    (``grpc``: the engine's gRPC client, on TCP)."""
     ep = EndPoint.parse(endpoint)
 
     def bench(conns, depth, payload):
         r = bench_echo_native(ep.host, ep.port, conns=conns, depth=depth,
-                              payload=payload, duration_ms=ms, tpu=tunnel)
+                              payload=payload, duration_ms=ms, tpu=tunnel,
+                              grpc=grpc)
         if r["qps"] <= 0:
             raise AssertionError(f"no echo completed at {payload} B: {r}")
         return r
@@ -168,11 +174,14 @@ def lane(endpoint, tunnel, ms):
     return out
 
 
-def python_lane(endpoint):
+def python_lane(endpoint, protocol="trpc_std", native=True):
     """``tpu_lane.py``'s sweep (phase 20's Python client threads, sizes
     and calls) through a ``native_transport=True`` Channel: against the
-    Python echo it differs from phase 20 in the lane alone."""
-    stub = rpc.Stub(tpu_lane.channel(endpoint, native=True), tpu_lane.ECHO)
+    Python echo it differs from phase 20 in the lane alone.
+    ``protocol="grpc"`` runs it over h2, on the engine's h2 client lane or
+    (``native=False``) on the Python one."""
+    stub = rpc.Stub(tpu_lane.channel(endpoint, native=native,
+                                     protocol=protocol), tpu_lane.ECHO)
     tpu_lane.run_calls(stub, b"w" * 1024, 2, 10)  # warm-up
     _, lats = tpu_lane.run_calls(stub, tpu_lane.pattern(64, 64), 1,
                                  tpu_lane.DEPTH1_CALLS)
@@ -200,10 +209,14 @@ def run(cpu, ms=None):
     srv = ChildServer(cpu)
     try:
         out = {"tcp": lane(srv.tcp, False, ms),
-               "tunnel": lane(srv.tunnel, True, ms)}
+               "tunnel": lane(srv.tunnel, True, ms),
+               "grpc": lane(srv.tcp, False, ms, grpc=True)}
         for name in ("tcp", "tunnel"):
             out[name]["python_echo"] = python_lane(srv.python[name])
             out[name]["null_echo"] = python_lane(srv.null[name])
+        for name, native in (("python_h2", False), ("engine_h2", True)):
+            out["grpc"][name] = python_lane(srv.python["tcp"], "grpc",
+                                            native)
         out["data_plane"], expect, _ = tpu_lane.data_plane(
             srv.tunnel, cpu, native=True)
     except BaseException:
@@ -247,7 +260,7 @@ def main(argv):
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip(), flush=True)
     out = run(args.cpu, args.ms or None)
-    for key in ("tcp", "tunnel", "data_plane", "served"):
+    for key in ("tcp", "tunnel", "grpc", "data_plane", "served"):
         print(json.dumps({"native_" + key: out[key]}), flush=True)
     return 0
 

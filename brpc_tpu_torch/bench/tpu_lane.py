@@ -202,10 +202,10 @@ def shm_free():
 
 
 # ------------------------------------------------------------------ client
-def channel(endpoint, native=False):
+def channel(endpoint, native=False, protocol="trpc_std"):
     """A Channel on ``endpoint``; ``native`` rides the C++ engine."""
     return rpc.Channel(rpc.ChannelOptions(
-        protocol="trpc_std", timeout_ms=TIMEOUT_MS,
+        protocol=protocol, timeout_ms=TIMEOUT_MS,
         native_transport=native)).init(endpoint)
 
 

@@ -4,7 +4,8 @@ The port's copy of the JAX package's ``native/``: ``core.cpp`` (crc32c,
 fast_rand, the batched TRPC/TSTR frame scanner) and ``dataplane.cpp`` (the
 dataplane engine: epoll loops, the TCP and TPUC shared-memory tunnel lanes,
 registered native services, the engine-parsed fast call path, and the h2
-half whose Python surface waits for ROADMAP Queue 1 item 2(b)6).
+half: the gRPC server lane on a native listener and the gRPC client lane of
+``rpc/native_transport.py``'s ``connect_grpc``).
 
 Each source is compiled by one ``g++`` call on first use into
 ``build/brpc_tpu_torch/native/_<stem>_<digest>.so`` at the root of the

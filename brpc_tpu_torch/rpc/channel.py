@@ -19,9 +19,11 @@ trpc_std calls ride the port's C++ engine (``rpc/native_transport.py``):
 TCP and ``tpu://host:port/n`` (the engine's TPUC shared-memory tunnel)
 connections are the engine's, and plain unary calls take the fast lane
 (engine-packed requests, engine-parsed responses, sync callers parked in
-the engine). ``unix:`` and TLS targets keep the Python socket (the engine
-carries neither); the engine's gRPC lane waits for ROADMAP Queue 1 item
-2(b)6 and raises. An engine that cannot be built raises at ``init``.
+the engine). A ``protocol="grpc"`` Channel with ``native_transport=True``
+rides the engine's h2 lane (``dp_connect_grpc``: the engine packs HEADERS
+and DATA and parses the trailers), fast lane included. ``unix:`` and TLS
+targets keep the Python socket (the engine carries neither). An engine
+that cannot be built raises at ``init``: there is no Python fallback.
 """
 
 from __future__ import annotations
@@ -134,11 +136,6 @@ class Channel:
         from brpc_tpu_torch.policy import ensure_registered
 
         ensure_registered()
-        if self.options.native_transport and self.options.protocol == "grpc":
-            # the engine's native h2 lane (the reference's grpc branch)
-            raise NotImplementedError(
-                "native_transport over grpc: the h2/gRPC protocols are not "
-                "ported (ROADMAP Queue 1 item 2(b)6)")
         self._protocol = find_protocol(self.options.protocol)
         if self._protocol is None:
             raise ValueError(f"unknown protocol {self.options.protocol!r}")
@@ -155,7 +152,8 @@ class Channel:
         o = self.options
         self._fast_base = (
             o.native_transport
-            and getattr(self._protocol, "magic", None) == b"TRPC"
+            and (getattr(self._protocol, "magic", None) == b"TRPC"
+                 or getattr(self._protocol, "name", "") == "grpc")
             and o.auth is None
             and not o.enable_checksum
             and o.compress_type == _compress.COMPRESS_NONE
@@ -239,6 +237,14 @@ class Channel:
             if ctype == "short":
                 return dp.connect_short(ep, timeout_ms)
             return dp.get_or_connect(ep, timeout_ms)
+        if (self.options.native_transport and self.options.ssl is None
+                and not ep.is_unix() and not ep.is_tpu()
+                and getattr(self._protocol, "name", "") == "grpc"):
+            # grpc rides the engine's native h2 lane ("single" semantics:
+            # h2 multiplexes streams, pooling adds nothing)
+            from brpc_tpu_torch.rpc.native_transport import get_dataplane
+
+            return get_dataplane().get_or_connect(ep, timeout_ms, grpc=True)
         if ep.is_tpu():
             from brpc_tpu_torch.tpu.tpusocket import get_tpu_socket
 
@@ -252,10 +258,10 @@ class Channel:
             if call_ms and call_ms > 0:
                 connect_s = min(connect_s, call_ms / 1000.0)
             return get_tpu_socket(ep, connect_timeout=connect_s)
-        # connection-scoped protocols (grpc/redis/thrift/..., none ported
-        # yet) can't share a socket with each other or with frame
-        # protocols: key the shared map by the protocol itself. HTTP is
-        # not connection-scoped and shares the endpoint's connection.
+        # connection-scoped protocols (grpc/redis/thrift/...) can't share a
+        # socket with each other or with frame protocols: key the shared
+        # map by the protocol itself. HTTP is not connection-scoped and
+        # shares the endpoint's connection.
         signature = (self._protocol.name
                      if hasattr(self._protocol, "issue_request") else "")
         sm = self._socket_map

@@ -199,16 +199,30 @@ class Controller:
             self.span.add_phase(
                 "parse_us", (time.perf_counter_ns() - t_ser) / 1000.0)
         proto = self._channel._protocol
-        t_pack = time.perf_counter_ns() if self.span is not None else 0
-        packet = proto.pack_request(
-            meta, payload, self.request_attachment,
-            checksum=self._channel.options.enable_checksum,
-        )
-        if self.span is not None:
-            # packetization is the head of the send pipeline
-            self.span.add_phase(
-                "send_us", (time.perf_counter_ns() - t_pack) / 1000.0)
-        rc = sock.write(packet, id_wait=cid)
+        if hasattr(proto, "issue_request"):
+            # connection-scoped protocols (grpc/h2) pack+write themselves:
+            # stream allocation and HPACK emission need the socket
+            t_iss = time.perf_counter_ns() if self.span is not None else 0
+            rc = proto.issue_request(
+                sock, meta, payload, self.request_attachment,
+                checksum=self._channel.options.enable_checksum, id_wait=cid)
+            if self.span is not None:
+                # stream open + HPACK emission + DATA write is this lane's
+                # whole send pipeline: without the mark an h2 client span
+                # shows an empty timeline between serialize and the wait
+                self.span.add_phase(
+                    "send_us", (time.perf_counter_ns() - t_iss) / 1000.0)
+        else:
+            t_pack = time.perf_counter_ns() if self.span is not None else 0
+            packet = proto.pack_request(
+                meta, payload, self.request_attachment,
+                checksum=self._channel.options.enable_checksum,
+            )
+            if self.span is not None:
+                # packetization is the head of the send pipeline
+                self.span.add_phase(
+                    "send_us", (time.perf_counter_ns() - t_pack) / 1000.0)
+            rc = sock.write(packet, id_wait=cid)
         if rc not in (0, errors.EFAILEDSOCKET):
             # overcrowded etc: surface through the error channel
             _cid.id_error(cid, rc)
@@ -460,7 +474,8 @@ def handle_response_message(msg) -> None:
         # parsing, so it rides the parse mark — plus whatever frame-path
         # parse work a stateful protocol banked on the message
         cntl.span.add_phase(
-            "parse_us", (time.perf_counter_ns() - t_split) / 1000.0)
+            "parse_us", getattr(msg, "pre_parse_us", 0.0)
+            + (time.perf_counter_ns() - t_split) / 1000.0)
     if not ok:
         cntl.set_failed(errors.ERESPONSE, "response checksum mismatch")
         cntl._finish_locked()

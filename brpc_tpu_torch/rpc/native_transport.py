@@ -26,8 +26,11 @@ The port's copy of the JAX package's ``rpc/native_transport.py`` over the
 port's own build of the engine (``brpc_tpu_torch/native``). The engine is
 no optional accelerator here: when it cannot be built, ``get_dataplane``
 raises instead of answering None. The engine's gRPC client lane
-(``connect_grpc``, ``bench_echo_native(grpc=True)``) waits for the Python
-h2/gRPC surface (ROADMAP Queue 1 item 2(b)6) and raises.
+(``connect_grpc``: HEADERS and DATA packed in C++, trailers parsed there)
+serves ``protocol="grpc"`` Channels, and ``bench_echo_native(grpc=True)``
+runs the engine's C++ gRPC bench client; a gRPC connection that reaches a
+native listener speaks to the engine's h2 server half, and a plain h2 one
+(no ``application/grpc``) is detached to the port's ``GrpcProtocol``.
 """
 
 from __future__ import annotations
@@ -541,11 +544,20 @@ class NativeDataplane:
 
     def connect_grpc(self, ep: EndPoint,
                      timeout_ms: int = 3000) -> NativeSocket:
-        """The engine's grpc/h2 client lane (dp_connect_grpc): its Python
-        surface waits for the port's h2 and gRPC protocols."""
-        raise NotImplementedError(
-            "native gRPC lane: the h2/gRPC protocols are not ported "
-            "(ROADMAP Queue 1 item 2(b)6)")
+        """Dial a grpc/h2 endpoint through the engine: dp_call/dp_call_sync
+        on the conn are translated to HEADERS+DATA h2 frames natively (the
+        h2 hot path lives in dataplane.cpp)."""
+        err = ctypes.c_int(0)
+        conn = self._lib.dp_connect_grpc(
+            self._rt, (ep.host or "127.0.0.1").encode(), ep.port,
+            timeout_ms, ctypes.byref(err))
+        if not conn:
+            raise ConnectionError(
+                f"native grpc connect to {ep} failed: errno={err.value}")
+        sock = NativeSocket(self, conn, ep, is_server=False)
+        self.register_socket(conn, sock)
+        self._lib.dp_conn_set_fastpath(self._rt, conn, 1)
+        return sock
 
     def get_or_connect(self, ep: EndPoint, timeout_ms: int = 3000,
                        grpc: bool = False) -> NativeSocket:
@@ -1096,16 +1108,12 @@ def bench_echo_native(host: str, port: int, *, conns: int = 8, depth: int = 4,
     """Run the C++ pipelined echo bench client (the framework's native lane
     end to end — the analog of the reference's C++ bench binaries,
     example/multi_threaded_echo_c++/client.cpp). ``tpu=True`` dials the
-    TPUC shm tunnel (the rdma_performance analog); ``grpc=True`` (the
-    engine's grpc-over-h2 lane) waits for ROADMAP Queue 1 item 2(b)6 and
-    raises. Returns a dict of qps/gbps/p50_us/p99_us/p999_us; raises when
-    the engine cannot be built."""
+    TPUC shm tunnel (the rdma_performance analog); ``grpc=True`` speaks
+    grpc-over-h2 end to end in the engine. Returns a dict of
+    qps/gbps/p50_us/p99_us/p999_us; raises when the engine cannot be
+    built."""
     from brpc_tpu_torch import native
 
-    if grpc:
-        raise NotImplementedError(
-            "bench_echo_native(grpc=True): the h2/gRPC protocols are not "
-            "ported (ROADMAP Queue 1 item 2(b)6)")
     lib = native.load_dataplane()
     mode = 2 if grpc else (1 if tpu else 0)
     outs = [ctypes.c_double() for _ in range(5)]

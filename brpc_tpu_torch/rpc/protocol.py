@@ -244,13 +244,18 @@ class ChunkedBodyCursor:
 class ParsedMessage:
     """One complete wire message, protocol-tagged."""
 
-    __slots__ = ("protocol", "meta", "body", "socket", "arrival")
+    __slots__ = ("protocol", "meta", "body", "socket", "arrival",
+                 "pre_parse_us")
 
     def __init__(self, protocol: "Protocol", meta, body: IOBuf):
         self.protocol = protocol
         self.meta = meta
         self.body = body
         self.socket = None
+        # wire-format work a stateful protocol (h2/grpc) already did while
+        # assembling this message off its frames; the response dispatcher
+        # folds it into the span's parse mark
+        self.pre_parse_us = 0.0
         # parse-time monotonic stamp: server-side deadline enforcement
         # measures queueing delay from here (the client's clock never
         # crosses the wire, only its timeout_ms budget does)
@@ -325,3 +330,28 @@ def find_protocol(name: str) -> Optional[Protocol]:
 
 def list_protocols() -> List[Protocol]:
     return list(_protocols)
+
+
+_state_init_lock = threading.Lock()
+
+
+def init_socket_state(sock, attr: str, factory, proto: "Protocol"):
+    """Create-once per-socket protocol state (client side): two first
+    callers racing must not both initialize (double preface / forked FIFO).
+    Sets the socket's preferred protocol as a side effect."""
+    state = getattr(sock, attr, None)
+    if state is None:
+        with _state_init_lock:
+            state = getattr(sock, attr, None)
+            if state is None:
+                state = factory()
+                setattr(sock, attr, state)
+                sock.preferred_protocol = proto
+    return state
+
+
+def dispatch_response(msg: "ParsedMessage") -> None:
+    """Shared client-completion trampoline for connection-scoped protocols."""
+    from brpc_tpu_torch.rpc.controller import handle_response_message
+
+    handle_response_message(msg)

@@ -8,14 +8,16 @@ server_processing.py.
 The port's copy of the JAX package's ``rpc/server.py``. By default the
 Python acceptor serves every connection; ``native_dataplane=True`` binds
 through the port's C++ engine instead (``rpc/native_transport.py``), whose
-loops cut TRPC frames natively and hand other protocols (HTTP) over to the
+loops cut TRPC frames natively, answer gRPC on the engine's h2 half, and
+hand other protocols (HTTP, plain h2, redis, mongo, ...) over to the
 Python stack on the same port. A ``tpu://host:port/n`` listener fronts
 card n: its TCP port is the tunnel's bootstrap, and a connection that
 says HELLO becomes a tunnel endpoint (``tpu/transport.py``, or the
 engine's TPUC tunnel on a native listener). ``start`` adds the builtin
 Health and view services, as the reference does; Health answers over
-trpc_std and HTTP (its gRPC transport waits for ROADMAP Queue 1 item
-2(b)6). The sharded dispatch plane (item 2(b)9) is not ported yet and
+trpc_std, gRPC and HTTP. The byte-service protocols (redis, mongo, rtmp,
+thrift, nshead) answer through the handler registries that
+``ServerOptions`` names. The sharded dispatch plane (item 2(b)9) is not ported yet and
 raises at ``start``.
 """
 
@@ -181,6 +183,11 @@ class ServerOptions:
     auth: object = None               # Authenticator (policy/auth.py)
     idle_timeout_s: int = -1
     rpc_dump_dir: Optional[str] = None  # sample requests here (rpc_dump)
+    redis_service: object = None      # policy/redis_protocol.RedisService
+    mongo_service: object = None      # policy/mongo_protocol.MongoService
+    rtmp_service: object = None       # policy/rtmp.RtmpService
+    thrift_service: object = None     # policy/thrift_protocol.ThriftService
+    nshead_service: object = None     # policy/nshead.NsheadService
     # serve TRPC traffic through the C++ engine (epoll + frame cutting in
     # native threads, rpc/native_transport.py); other protocols on the same
     # port are detached to the Python stack transparently. unix: and TLS
@@ -307,8 +314,7 @@ class Server:
         if "Health" not in self._services:
             # builtin grpc.health.v1.Health (reference server.cpp:499-601
             # AddBuiltinServices / grpc_health_check_service); served over
-            # trpc_std and HTTP, its gRPC transport waits for ROADMAP
-            # Queue 1 item 2(b)6
+            # trpc_std, gRPC and HTTP
             from brpc_tpu_torch.builtin.grpc_health import GrpcHealthService
 
             self._services["Health"] = GrpcHealthService(self)

@@ -125,6 +125,16 @@ seconds and libraries under ``build/``). Then sixteen paths:
   launched layers x prefills x passes on the engine thread in every
   window; ``/status``' native method stats; tokens/s and client p50
   against the baseline's, beside phases 4b and 4l.
+- gRPC on the serving port (phase 4n): phase 4's engine behind a plain
+  ``Server`` with ``Channel(protocol="grpc")`` (the Python h2 lane), then
+  behind ``Server(ServerOptions(native_dataplane=True))`` with a
+  ``native_transport=True`` grpc Channel (the engine's h2 lane); in
+  windows of at least 2 s, passes of PROMPT_LENS as concurrent unary
+  Generates: tokens equal phase 4's in every pass and the serving kernel
+  launched layers x prefills x passes on the engine thread in every
+  window; Health ``Check`` SERVING over gRPC; ``/status`` fetched over
+  plain h2 counting every Generate; tokens/s and client p50 beside
+  phases 4b and 4l.
 - Training: holds the flash forward, the dQ and dK/dV kernels and the
   RMSNorm forward and backward kernels against their plain versions in
   fp32 and bf16 (the RMSNorm pair also at its rows' edges and widths past
@@ -193,9 +203,13 @@ seconds and libraries under ``build/``). Then sixteen paths:
   64 B - 16 MiB); phase 20's Python client at phase 20's shapes through
   a ``native_transport=True`` Channel against the Python echo (the lane
   alone differs from phase 20) and against the null-method control;
-  then the data plane over the native tunnel, its copy launches as the
-  calls imply and its bytes exact; 1 MiB GB/s, 64 B QPS and depth-1
-  p50 / p99 beside phase 20's Python lane.
+  the gRPC rows: the engine's C++ gRPC client
+  (``bench_echo_native(grpc=True)``) against the native echo on TCP,
+  and phase 20's client through a grpc Channel on the Python h2 lane
+  and on the engine's h2 lane against the Python echo; then the data
+  plane over the native tunnel, its copy launches as the calls imply
+  and its bytes exact; 1 MiB GB/s, 64 B QPS and depth-1 p50 / p99
+  beside phase 20's Python lane and the trpc_std rows.
 
 Exits non-zero, with no result line, on any failure, without a card, or
 without the package beside it.
@@ -2322,7 +2336,9 @@ def run_qos(dev, smi, n_layers):
         for res in replays:
             prod, batch = res["tenants"]["prod"], res["tenants"]["batch"]
             if prod["fail"] or prod["shed"]:
-                raise AssertionError(f"prod failed at {mult}x: {prod}")
+                raise AssertionError(
+                    f"prod failed at {mult}x: {prod}; full collections "
+                    f"inside the replays (ms): {row['on_full_gc_ms']}")
             if batch["fail"] != batch["shed"]:
                 raise AssertionError(f"a best-effort failure at {mult}x "
                                      f"was not a shed: {batch}")
@@ -2778,7 +2794,7 @@ def native_status_lines(hostport):
 NATIVE_WINDOW_S = 2.0  # phase 4m: each window repeats PROMPT_LENS this long
 
 
-def native_window(engine, n_layers, direct, what, one_pass):
+def native_window(engine, n_layers, direct, what, one_pass, phase="4m"):
     """Passes of PROMPT_LENS through ``one_pass()`` (it returns each
     request's response and client latency in s) until NATIVE_WINDOW_S
     has gone by. Every pass's tokens equal phase 4's; the window's
@@ -2792,7 +2808,8 @@ def native_window(engine, n_layers, direct, what, one_pass):
         got, lat = one_pass()
         n = sum(len(g.tokens) for g in got)
         rates.append(n / (time.perf_counter() - p0))
-        same_tokens(f"4m {what} pass {passes} against phase 4", got, direct)
+        same_tokens(f"{phase} {what} pass {passes} against phase 4", got,
+                    direct)
         lats += lat
         tokens += n
         passes += 1
@@ -2949,6 +2966,165 @@ def run_native(dev, smi, n_layers, direct, rpc_stats, http_row):
                                                  / ref["latency_us_p50"])
     row["launches"] = launches
     print(json.dumps({"native": row}), flush=True)
+    return launches
+
+
+# ------------------------------------------ phase 4n: gRPC on the serving port
+def h2_get(hostport, path, timeout=30.0):
+    """One plain h2 GET (no ``application/grpc``: the builtin pages) on a
+    fresh connection, framed and HPACK-coded by the port's own codecs:
+    (``:status``, body)."""
+    import socket
+
+    from brpc_tpu_torch.policy import h2
+    from brpc_tpu_torch.policy.hpack import HpackDecoder, HpackEncoder
+
+    host, port = hostport.rsplit(":", 1)
+    block = HpackEncoder().encode([(":method", "GET"), (":scheme", "http"),
+                                   (":path", path), (":authority", host)])
+    dec, status, body, buf = HpackDecoder(), None, b"", b""
+    deadline = time.monotonic() + timeout
+    with socket.create_connection((host, int(port)), timeout=timeout) as s:
+        s.sendall(h2.PREFACE + h2.pack_settings([]) + h2.pack_frame(
+            h2.HEADERS, h2.FLAG_END_HEADERS | h2.FLAG_END_STREAM, 1, block))
+        done = False
+        while not done:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"h2 GET {path}: no answer in "
+                                     f"{timeout} s")
+            chunk = s.recv(1 << 16)
+            if not chunk:
+                raise AssertionError(f"h2 GET {path}: connection closed")
+            buf += chunk
+            while len(buf) >= 9 and not done:
+                n = int.from_bytes(buf[:3], "big")
+                if len(buf) < 9 + n:
+                    break
+                ftype, flags = buf[3], buf[4]
+                sid = int.from_bytes(buf[5:9], "big") & 0x7FFFFFFF
+                payload, buf = buf[9:9 + n], buf[9 + n:]
+                if ftype == h2.SETTINGS and not flags & h2.FLAG_ACK:
+                    s.sendall(h2.pack_settings([], ack=True))
+                elif sid == 1 and ftype == h2.HEADERS:
+                    status = dict(dec.decode(payload)).get(":status", status)
+                    done = bool(flags & h2.FLAG_END_STREAM)
+                elif sid == 1 and ftype == h2.DATA:
+                    body += payload
+                    done = bool(flags & h2.FLAG_END_STREAM)
+    return status, body.decode()
+
+
+def grpc_engine_conn(ep):
+    """True when the engine holds a gRPC client conn to ``ep`` (the
+    channel rides the engine's h2 lane)."""
+    from brpc_tpu_torch.rpc.native_transport import get_dataplane
+
+    dp = get_dataplane()
+    with dp._conn_map_lock:
+        return any(k[1] == ep.port and k[3] == "grpc" and not v.failed
+                   for k, v in dp._conn_map.items())
+
+
+def settled_calls(method, want, timeout=30.0):
+    """The method's call count once it reaches ``want`` (the server
+    records a call after its response is out)."""
+    deadline = time.monotonic() + timeout
+    while method.latency.count() < want and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return method.latency.count()
+
+
+def run_grpc(dev, smi, n_layers, direct, rpc_stats, http_row):
+    """Phase 4n, gRPC on the serving port. Phase 4's engine behind a
+    plain ``Server`` called by ``Channel(protocol="grpc")`` (the Python h2
+    lane, client and server), then behind
+    ``Server(ServerOptions(native_dataplane=True))`` called by a
+    ``native_transport=True`` grpc Channel (the engine's h2 lane: its C++
+    gRPC client, its h2 server half). On each, after an uncounted
+    warm-up, passes of PROMPT_LENS as concurrent unary Generates for at
+    least NATIVE_WINDOW_S (``native_window``: tokens equal phase 4's in
+    every pass, the serving kernel launched layers x prefills x passes on
+    the engine thread); then Health ``Check`` over gRPC answers SERVING,
+    and ``/status`` fetched over plain h2 (the engine detaches that
+    connection to the port's ``GrpcProtocol``) counts every Generate the
+    server answered. Printed: each window's tokens/s and client p50,
+    beside phase 4b's and 4l's windows of this run."""
+    from brpc_tpu_torch.proto import health_pb2
+
+    requests = list(zip(PROMPT_LENS, MAX_NEW))
+    row = {"card": smi, "window_s": NATIVE_WINDOW_S,
+           "rpc_4b": {k: rpc_stats[k] for k in (
+               "tokens_per_s", "rpc_latency_us_p50")},
+           "http_4l": {name: {k: http_row[name][k] for k in (
+               "tokens_per_s", "latency_us_p50")} for name in ("json", "pb")}}
+    launches = {}
+
+    def unary(stub):
+        def one_pass():
+            gens, _ = serve_rpc(stub, requests, stream=False)
+            return ([g.response for g in gens],
+                    [g.t_done - g.t_call for g in gens])
+        return one_pass
+
+    for lane in ("python_h2", "engine_h2"):
+        native = lane == "engine_h2"
+        engine = build_engine(dev, "auto")
+        server = rpc.Server(rpc.ServerOptions(native_dataplane=native))
+        server.add_service(LlmServingService(engine)).start("127.0.0.1:0")
+        if native != (server._native_lid is not None):
+            raise AssertionError(f"4n {lane}: the listener is "
+                                 f"{'not ' if native else ''}the engine's")
+        ep = server.listen_endpoint()
+        hostport = f"{ep.host}:{ep.port}"
+        try:
+            ch = rpc.Channel(rpc.ChannelOptions(
+                protocol="grpc", timeout_ms=600000,
+                native_transport=native)).init(str(ep))
+            stub = rpc.Stub(ch, client.DESC)
+            serve_rpc(stub, [(16, 2)], stream=False)  # warm-up
+            if grpc_engine_conn(ep) != native:
+                raise AssertionError(f"4n {lane}: the client is "
+                                     f"{'not ' if native else ''}on the "
+                                     f"engine's h2 lane")
+            w = row[lane] = native_window(engine, n_layers, direct, lane,
+                                          unary(stub), phase="4n")
+            launches[lane] = w["launches"]
+            health = rpc.Stub(ch, health_pb2.DESCRIPTOR.services_by_name[
+                "Health"]).Check(health_pb2.HealthCheckRequest())
+            if health.status != health_pb2.HealthCheckResponse.SERVING:
+                raise AssertionError(f"4n {lane}: Health over gRPC answered "
+                                     f"{health.status}")
+            calls = 1 + w["requests"]
+            method = server.find_service("LlmService").find_method(
+                "Generate")
+            settled_calls(method, calls)
+            status, page = h2_get(hostport, "/status")
+            counted = [int(l.split("count=")[1].split()[0])
+                       for l in page.splitlines()
+                       if l.strip().startswith("Generate: count=")]
+            if status != "200" or counted != [calls]:
+                raise AssertionError(f"4n {lane}: /status over h2 "
+                                     f"({status}) counts {counted} "
+                                     f"Generates, {calls} were made")
+            w.update(endpoint=str(ep), health="SERVING",
+                     status_h2_generates=counted[0])
+        finally:
+            server.stop()
+            server.join(timeout=5)
+            engine.stop()
+        engine.kv.assert_idle(f"after the 4n {lane} run")
+        engine.model.close()
+        engine.kv.close()
+    for lane in ("python_h2", "engine_h2"):
+        w = row[lane]
+        w["over_4b_tokens_per_s"] = (w["tokens_per_s"]
+                                     / rpc_stats["tokens_per_s"])
+        w["over_4l_json_tokens_per_s"] = (w["tokens_per_s"]
+                                          / http_row["json"]["tokens_per_s"])
+        w["over_4l_pb_tokens_per_s"] = (w["tokens_per_s"]
+                                        / http_row["pb"]["tokens_per_s"])
+    row["launches"] = launches
+    print(json.dumps({"grpc": row}), flush=True)
     return launches
 
 
@@ -4929,7 +5105,11 @@ def run_native_lane(dev, smi, tpu_row):
     depth 1, then 64 B to 16 MiB), then phase 20's Python client at
     phase 20's shapes through a ``native_transport=True`` Channel against
     the Python echo (the same client and handler as phase 20: the lane
-    alone differs) and against the null-method control, then
+    alone differs) and against the null-method control; the engine's C++
+    gRPC client at the C++ client's TCP shapes against the same native
+    echo, and phase 20's client through a grpc Channel on the Python h2
+    lane and on the engine's h2 lane against the Python echo (ratios to
+    the trpc_std row over the engine's TCP lane); then
     DeviceDataService's data plane
     over the native tunnel from a ``native_transport=True`` Channel: Copy
     and Get bytes exact, Pump checksums equal the host's, and the
@@ -4970,6 +5150,31 @@ def run_native_lane(dev, smi, tpu_row):
                 "over_python_gb_per_s_1mib": h["gb_per_s_1mib"]
                 / py["gb_per_s_1mib"],
                 "over_python_qps_64b": h["qps_64b"] / py["qps_64b"]}
+    # gRPC: the engine's C++ gRPC client against the same native echo on
+    # TCP, beside the C++ trpc_std client; phase 20's client through a grpc
+    # Channel on the Python h2 lane and on the engine's h2 lane, against
+    # the Python echo behind the same native listener as the trpc_std row
+    g, tcp = out["grpc"], out["tcp"]
+    row["grpc"] = g
+    row["grpc_headline"] = {
+        "gb_per_s_1mib": g["gb_per_s_1mib"], "qps_64b": g["qps_64b"],
+        "depth1_64b_p50_ms": g["depth1_64b"]["p50_us"] / 1e3,
+        "depth1_64b_p99_ms": g["depth1_64b"]["p99_us"] / 1e3,
+        "over_trpc_gb_per_s_1mib": g["gb_per_s_1mib"] / tcp["gb_per_s_1mib"],
+        "over_trpc_qps_64b": g["qps_64b"] / tcp["qps_64b"]}
+    trpc = tcp["python_echo"]
+    for name in ("python_h2", "engine_h2"):
+        h = g[name]
+        row[f"grpc_{name}"] = {
+            "gb_per_s_1mib": h["gb_per_s_1mib"], "qps_64b": h["qps_64b"],
+            "depth1_64b_p50_ms": h["depth1_64b"]["p50_ms"],
+            "depth1_64b_p99_ms": h["depth1_64b"]["p99_ms"],
+            "over_trpc_gb_per_s_1mib": h["gb_per_s_1mib"]
+            / trpc["gb_per_s_1mib"],
+            "over_trpc_qps_64b": h["qps_64b"] / trpc["qps_64b"],
+            "over_python_gb_per_s_1mib": h["gb_per_s_1mib"]
+            / py["gb_per_s_1mib"],
+            "over_python_qps_64b": h["qps_64b"] / py["qps_64b"]}
     print(json.dumps({"native_lane": row}), flush=True)
     return {"copy": kept, "pump": out["expect"]["hbm_copy"] - kept,
             "batched": served["hbm_copy_batched"]}
@@ -5244,9 +5449,10 @@ def main():
     http_launches, http_row = run_http(dev, smi, n_layers, auto, rpc_stats)
     native_launches = run_native(dev, smi, n_layers, auto, rpc_stats,
                                  http_row)
+    grpc_launches = run_grpc(dev, smi, n_layers, auto, rpc_stats, http_row)
     no_protobuf_or_jax("after the disaggregated, long-prompt, mesh, "
-                       "combo-channel, router, QoS, batching, HTTP and "
-                       "native paths")
+                       "combo-channel, router, QoS, batching, HTTP, "
+                       "native and gRPC paths")
 
     profile = profile_engine(dev, auto)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -5291,6 +5497,7 @@ def main():
         "launches_router": router, "launches_qos": qos_launches,
         "launches_http": http_launches,
         "launches_native": native_launches,
+        "launches_grpc": grpc_launches,
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -2,7 +2,8 @@
 {echo,streaming_echo,device_data,device_stream,tpu_transfer,
 collective_fanout,batched_inference,llm_server}) and of the host-only
 examples ({parallel_echo,selective_echo,partition_echo,backup_request,
-multi_threaded_echo,http,dashboard_proxy}), run as
+multi_threaded_echo,http,dashboard_proxy,grpc_echo,redis_kv,mongo_kv,
+rtmp_live}), run as
 the JAX package's tests/test_examples.py runs the originals: server and
 client pairs as fresh interpreters on random ports, with the device
 examples on ``--device cpu``, their outputs held to the same strings.
@@ -316,3 +317,50 @@ def test_llm_server_answers_json_and_serving():
         assert [e["tokens_generated"] for e in page["engines"]] == [8]
     finally:
         srv.stop()
+
+
+def test_grpc_echo():
+    port = free_port()
+    srv = Server("grpc_echo.server",
+                 ["--port", str(port), "--run_seconds", "30"])
+    try:
+        out = run_client("grpc_echo.client",
+                         ["--server", f"127.0.0.1:{port}", "-n", "3"])
+        assert "grpc 2" in out and "SERVING" in out
+    finally:
+        srv.stop()
+
+
+def test_redis_kv():
+    """The redis example answers SET / GET / DEL / DBSIZE on its port,
+    driven by the port's redis client Channel."""
+    from brpc_tpu_torch.policy.redis_protocol import (RedisRequest,
+                                                      redis_method)
+    from brpc_tpu_torch.rpc import Channel, ChannelOptions
+
+    port = free_port()
+    srv = Server("redis_kv.server",
+                 ["--port", str(port), "--run_seconds", "30"])
+    try:
+        ch = Channel(ChannelOptions(protocol="redis", timeout_ms=10000))
+        ch.init(f"127.0.0.1:{port}")
+        resp = ch.call_method(redis_method(), RedisRequest()
+                              .add_command("set", "k", "v")
+                              .add_command("get", "k")
+                              .add_command("dbsize")
+                              .add_command("del", "k")
+                              .add_command("get", "k"))
+        got = [resp.reply(i).value for i in range(resp.reply_size)]
+        assert got == ["OK", b"v", 1, 1, None], got
+    finally:
+        srv.stop()
+
+
+def test_rtmp_live():
+    out = run_client("rtmp_live.client", ["-n", "6"])
+    assert "relayed" in out and "OK" in out
+
+
+def test_mongo_kv():
+    out = run_client("mongo_kv.client", ["-n", "3"])
+    assert "find key2" in out and "OK" in out

@@ -454,3 +454,78 @@ def test_a_native_server_without_a_compiler_raises_and_opens_no_listener(
     lines = res.stdout.splitlines()
     assert lines[-1] == "OK" and "STARTED" not in lines, lines
     assert sum(x.startswith("RAISED") for x in lines) == 2, lines
+
+
+PROTOCOL_SLICE = {
+    "policy/h2.py", "policy/hpack.py", "policy/grpc_protocol.py",
+    "policy/redis_protocol.py", "policy/mongo_protocol.py",
+    "policy/bson.py", "policy/rtmp.py", "policy/amf0.py",
+    "policy/thrift_protocol.py", "policy/memcache.py", "policy/nshead.py",
+    "examples/grpc_echo/server.py", "examples/grpc_echo/client.py",
+    "examples/redis_kv/server.py", "examples/mongo_kv/client.py",
+    "examples/rtmp_live/client.py"}
+
+
+def test_the_walk_reaches_the_protocol_slices_modules():
+    """The import checks above walk h2, HPACK, gRPC, the six other wire
+    protocols, their codecs and the examples over them."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert PROTOCOL_SLICE <= rel, sorted(PROTOCOL_SLICE - rel)
+
+
+def test_importing_the_protocol_slice_loads_no_protobuf_or_jax():
+    mods = sorted("brpc_tpu_torch." + m[:-3].replace("/", ".")
+                  for m in PROTOCOL_SLICE)
+    _run(f"import sys\nimport {', '.join(mods)}\n"
+         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+         "assert not bad, bad\n")
+
+
+def test_a_grpc_generate_on_both_lanes_loads_no_protobuf_or_jax():
+    """Unary Generates over gRPC on the Python h2 lane and on the engine's
+    h2 lane, a Health Check over gRPC and a redis round trip on the same
+    port, with neither protobuf nor JAX loaded."""
+    _run(
+        "import sys\n"
+        "import brpc_tpu_torch.rpc as rpc\n"
+        "import brpc_tpu_torch.serving.service as service\n"
+        "from brpc_tpu_torch.policy import redis_protocol as rp\n"
+        "from brpc_tpu_torch.proto import health_pb2, serving_pb2\n"
+        "from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig,"
+        " ModelConfig, PagedKVCache, ServingEngine, TinyTransformer)\n"
+        "cfg = ModelConfig(vocab=64, d_model=16, n_heads=2, n_layers=1)\n"
+        "kv = PagedKVCache(KVCacheConfig(16, 16), cfg.n_layers, cfg.kv_dim,"
+        " device='cpu')\n"
+        "eng = ServingEngine(TinyTransformer(cfg, kv), kv,"
+        " EngineConfig(idle_wait_s=0.005)).start()\n"
+        "svc = rp.RedisService()\n"
+        "svc.add_command_handler('ping', lambda a: rp.RedisReply("
+        "rp.REPLY_STRING, 'PONG'))\n"
+        "toks = []\n"
+        "for native in (False, True):\n"
+        "    srv = rpc.Server(rpc.ServerOptions(native_dataplane=native,"
+        " redis_service=svc))\n"
+        "    srv.add_service(service.LlmServingService(eng))"
+        ".start('127.0.0.1:0')\n"
+        "    ep = str(srv.listen_endpoint())\n"
+        "    ch = rpc.Channel(rpc.ChannelOptions(protocol='grpc',"
+        " timeout_ms=30000, native_transport=native)).init(ep)\n"
+        "    r = rpc.Stub(ch, serving_pb2.DESCRIPTOR.services_by_name"
+        "['LlmService']).Generate(serving_pb2.GenerateRequest(prompt_len=8,"
+        " max_new_tokens=3))\n"
+        "    toks.append(list(r.tokens))\n"
+        "    h = rpc.Stub(ch, health_pb2.DESCRIPTOR.services_by_name"
+        "['Health']).Check(health_pb2.HealthCheckRequest())\n"
+        "    assert h.status == health_pb2.HealthCheckResponse.SERVING\n"
+        "    rc = rpc.Channel(rpc.ChannelOptions(protocol='redis',"
+        " timeout_ms=30000)).init(ep)\n"
+        "    resp = rc.call_method(rp.redis_method(),"
+        " rp.RedisRequest().add_command('ping'))\n"
+        "    assert resp.reply(0).value == 'PONG', resp.reply(0)\n"
+        "    srv.stop(); srv.join()\n"
+        "eng.stop()\n"
+        "assert len(toks[0]) == 3 and toks[0] == toks[1], toks\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n")

@@ -349,8 +349,16 @@ def _page_run(model, engine_cls, config_cls, page):
     reference's defaults (the prefix cache on), the page read while the
     engine still runs: (the JSON view's last engine, the text view)."""
     import json as _json
+    import sys
     import types
 
+    # a sequence's dp shard is splitmix64 of its id, drawn from a
+    # process-wide counter per package: start both packages' counters
+    # alike, or the engines other tests ran in this process decide which
+    # shard holds which chain
+    seq_cls = sys.modules[engine_cls.__module__].Sequence
+    with seq_cls._ids_lock:
+        seq_cls._ids[0] = 0
     engine = engine_cls(model, model.kv, config_cls(
         max_batch=8, token_budget=512, idle_wait_s=0.002)).start()
     try:

@@ -1096,8 +1096,9 @@ class TestExampleAndBench:
 
     def test_native_lane_bench_runs_on_the_cpu(self):
         """bench/native_lane.py as run (a fresh interpreter, its server a
-        child): both lanes' rows, the data plane over the native tunnel
-        held to its counts (no copy launch on the CPU), no JAX loaded."""
+        child): both lanes' rows and the gRPC rows, the data plane over
+        the native tunnel held to its counts (no copy launch on the CPU),
+        no JAX loaded."""
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         res = subprocess.run(
             [sys.executable, "brpc_tpu_torch/bench/native_lane.py", "--cpu",
@@ -1116,6 +1117,14 @@ class TestExampleAndBench:
                 # phase 20's Python client at phase 20's shapes
                 assert set(row[handler]["sizes"]) == set(row["sizes"])
                 assert row[handler]["gb_per_s_1mib"] > 0
+        # the engine's C++ gRPC client at the same shapes, and phase 20's
+        # client over grpc on the Python and the engine's h2 lanes
+        grpc = rows["native_grpc"]
+        assert set(grpc["sizes"]) == set(rows["native_tcp"]["sizes"])
+        assert grpc["gb_per_s_1mib"] > 0 and grpc["qps_64b"] > 0
+        for name in ("python_h2", "engine_h2"):
+            assert set(grpc[name]["sizes"]) == set(grpc["sizes"])
+            assert grpc[name]["gb_per_s_1mib"] > 0
         calls = rows["native_served"]["python_echo_calls"]
         assert calls[:2] == [0, 0] and calls[4:] == [0, 0] and \
             min(calls[2:4]) > 0

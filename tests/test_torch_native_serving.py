@@ -468,13 +468,18 @@ def test_stream_echo_on_native_lane(listen, native_client):
 
 
 def test_the_engines_grpc_lane_waits_for_item_2b6():
-    """The engine's gRPC client lane (dp_connect_grpc) has no Python h2
-    surface in the port yet: each entry to it raises, naming the item."""
-    with pytest.raises(NotImplementedError, match="2\\(b\\)6"):
+    """The engine's gRPC client lane (dp_connect_grpc) now has its Python
+    surface: a dial to a closed port raises ConnectionError from the
+    engine, and a grpc Channel on the native transport inits and then
+    fails its call there, with no fallback to the Python h2 lane."""
+    with pytest.raises(ConnectionError, match="native grpc connect"):
         port_nt.get_dataplane().connect_grpc(
             EndPoint.from_ip_port("127.0.0.1", 1))
-    with pytest.raises(NotImplementedError, match="2\\(b\\)6"):
-        port_rpc.Channel(port_rpc.ChannelOptions(
-            protocol="grpc", native_transport=True)).init("127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="2\\(b\\)6"):
-        port_nt.bench_echo_native("127.0.0.1", 1, grpc=True)
+    ch = port_rpc.Channel(port_rpc.ChannelOptions(
+        protocol="grpc", native_transport=True, max_retry=0,
+        timeout_ms=2000)).init("127.0.0.1:1")
+    stub = port_rpc.Stub(ch, echo_pb2.DESCRIPTOR.services_by_name[
+        "EchoService"])
+    with pytest.raises(port_rpc.RpcError) as ei:
+        stub.Echo(echo_pb2.EchoRequest(message="x"))
+    assert "native grpc connect" in str(ei.value)

@@ -209,24 +209,27 @@ def test_typed_stub_round_trip_on_the_port():
 
 
 def test_what_is_not_ported_refuses():
-    # the native engine is ported; its gRPC lane waits for item 2(b)6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_rpc.Channel(port_rpc.ChannelOptions(
-            protocol="grpc", native_transport=True)).init("127.0.0.1:1")
+    # the sharded dispatch plane (item 2(b)9) is the RPC front's one
+    # unported piece; the engine's gRPC lane dials now, and a dial that
+    # fails raises rather than falling back
     from brpc_tpu_torch.rpc.native_transport import bench_echo_native
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench_echo_native("127.0.0.1", 1, grpc=True)
+    with pytest.raises(RuntimeError, match="dp_bench_echo failed"):
+        bench_echo_native("127.0.0.1", 1, grpc=True, duration_ms=100)
     port_flags.set_flag("tpu_shard_workers", "2")
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_rpc.Server().start("127.0.0.1:0")
     finally:
         port_flags.set_flag("tpu_shard_workers", "0")
-    # the ported protocols, HTTP probed last as the reference probes it;
-    # h2, gRPC and the others wait for ROADMAP Queue 1 item 2(b)6
+    # the reference's eleven protocols in its order, HTTP probed last
+    import brpc_tpu.policy as jax_policy
+    from brpc_tpu.rpc.protocol import list_protocols as jax_list
     from brpc_tpu_torch.rpc.protocol import list_protocols
-    assert [p.name for p in list_protocols()] == ["trpc_std", "trpc_stream",
-                                                  "tpu_ctrl", "http"]
+    jax_policy.ensure_registered()
+    assert [p.name for p in list_protocols()] == \
+        [p.name for p in jax_list()] == [
+            "trpc_std", "trpc_stream", "tpu_ctrl", "grpc", "redis", "mongo",
+            "rtmp", "thrift", "memcache", "nshead", "http"]
 
 
 # Flags the reference defines for features this slice does not port: the

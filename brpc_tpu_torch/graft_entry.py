@@ -11,16 +11,19 @@ JAX entry's parameters with ``TrainLM.load_params``). It runs on ``cuda``
 unless ``device="cpu"`` is passed, and raises with no card.
 
 :func:`dryrun_multichip` is the counterpart of
-``__graft_entry__.dryrun_multichip``: one full sharded training step
+``__graft_entry__.dryrun_multichip``, over n ranks (``tpu/launch.py``: a
+process per position, this one rank 0): one full sharded training step
 (``train.make_train_step`` over ``mesh_factors(n)``, ring attention over
-sp) at the reference's tiny shapes, the ParallelChannel fan-out lowered
-onto the mesh against its per-sub-channel RPC fallback, and one 256 KB
-echo through a ``tpu://`` server on the last position, first over the
-Python tunnel and then over the C++ engine's shared-memory tunnel
-(``native_transport=True``). The reference's
-dryrun is CPU-only by its own definition (it forces the host platform
-with n virtual devices); the port asks for the same explicitly, with
-``mesh.use_cpu(n)`` for the call, and restores what was set before.
+the sp ranks, the tp and dp x sp sums as collectives) at the reference's
+tiny shapes, the ParallelChannel fan-out lowered onto the ranks against
+its per-sub-channel RPC fallback, and one 256 KB echo through a
+``tpu://`` server on the last position, first over the Python tunnel and
+then over the C++ engine's shared-memory tunnel
+(``native_transport=True``). The reference's dryrun is CPU-only by its
+own definition (it forces the host platform with n virtual devices); the
+port's ranks run on the CPU too (gloo), and ``mesh.use_cpu(n)``
+names the n ``tpu://`` ordinals for the call, restoring what was set
+before.
 
     python -m brpc_tpu_torch.graft_entry [n]
 """
@@ -55,36 +58,48 @@ def entry(device=None, dtype=torch.bfloat16):
 
 def dryrun_multichip(n_devices: int = 8) -> None:
     """One sharded train step, the collective fan-out and an RPC across
-    the mesh, on ``n_devices`` CPU positions; prints one OK line each."""
+    the mesh, over ``n_devices`` CPU ranks; prints one OK line each,
+    then the ranks' layout."""
+    from brpc_tpu_torch.tpu import launch
     from brpc_tpu_torch.tpu import mesh as meshlib
 
     prev = meshlib.use_cpu(n_devices)
     try:
         dp, sp, tp = meshlib.mesh_factors(n_devices)
-        mesh = meshlib.make_mesh({"dp": dp, "sp": sp, "tp": tp})
-        heads = max(4, tp)
-        seq = 8 * sp
-        batch = max(2, dp)
-        cfg = train.ModelConfig(
-            vocab=128, d_model=16 * heads, n_heads=heads, n_layers=2,
-            d_ff=32 * heads, max_seq=seq, dtype=torch.float32)
-        model = train.TrainLM(cfg, torch.Generator().manual_seed(0),
-                              device="cpu")
-        step, _, _ = train.make_train_step(cfg, mesh, lr=1e-2)
-        loss = step(model, train.demo_batch(
-            torch.Generator().manual_seed(1), cfg, batch, seq,
-            device="cpu"))
-        print(f"dryrun_multichip: mesh dp={dp} sp={sp} tp={tp} "
-              f"loss={float(loss):.4f} OK")
-        _dryrun_collective_fanout(n_devices)
-        _dryrun_rpc_across_mesh(n_devices)
+        with launch.launch({"dp": dp, "sp": sp, "tp": tp},
+                           device="cpu") as ranks:
+            heads = max(4, tp)
+            seq = 8 * sp
+            batch = max(2, dp)
+            cfg = train.ModelConfig(
+                vocab=128, d_model=16 * heads, n_heads=heads, n_layers=2,
+                d_ff=32 * heads, max_seq=seq, dtype=torch.float32)
+            model = train.TrainLM(cfg, torch.Generator().manual_seed(0),
+                                  device=ranks.mesh.device)
+            step, _, _ = train.make_train_step(cfg, ranks.mesh, lr=1e-2)
+            loss = step(model, train.demo_batch(
+                torch.Generator().manual_seed(1), cfg, batch, seq,
+                device=ranks.mesh.device))
+            print(f"dryrun_multichip: mesh dp={dp} sp={sp} tp={tp} "
+                  f"loss={float(loss):.4f} OK")
+            _dryrun_collective_fanout(n_devices)
+            _dryrun_rpc_across_mesh(n_devices)
+            d = ranks.describe()
+            print(f"dryrun ranks: {d['ranks']} ranks, layout "
+                  f"{d['layout']}, backend {d['backend']}")
     finally:
         meshlib.use_cpu(prev)
 
 
+def _dryrun_affine(s):
+    """The fan-out's fn: module-level, so the ranks import it by name."""
+    return s * 2.0 + 1.0
+
+
 def _dryrun_collective_fanout(n_devices: int) -> None:
     """The SAME ParallelChannel + CollectiveScheme executed (a) as ONE
-    program over the n-position mesh (call_tensor) and (b) as one
+    program over the n-position mesh (call_tensor: over the ranks while
+    a rank mesh is launched) and (b) as one
     CollectiveService.Apply RPC per sub-channel with a host merge
     (_call_tensor_rpc). Reference semantics: parallel_channel.cpp:580
     (fan-out + merge)."""
@@ -98,11 +113,11 @@ def _dryrun_collective_fanout(n_devices: int) -> None:
         pc = ParallelChannel()
         for i in range(n_devices):
             pc.add_channel(Channel().init(f"tpu://localhost/{i}"))
-        scheme = CollectiveScheme("dryrun.affine",
-                                  fn=lambda s: s * 2.0 + 1.0, merge=merge)
+        scheme = CollectiveScheme("dryrun.affine", fn=_dryrun_affine,
+                                  merge=merge)
         mesh = pc.device_mesh(scheme.axis_name)
         assert mesh is not None and mesh.shape[scheme.axis_name] == n_devices
-        out_coll = np.asarray(pc.call_tensor(x, scheme))
+        out_coll = pc.call_tensor(x, scheme).cpu().numpy()
         out_rpc = np.asarray(pc._call_tensor_rpc(x, scheme))
         np.testing.assert_allclose(out_coll, out_rpc, rtol=1e-6, atol=1e-6)
     print(f"dryrun fanout: collective == rpc OK "

@@ -11,13 +11,18 @@ RPC-level combo semantics; when every sub-target is a local device
 same fan-out LOWERS onto the mesh collectives:
 ParallelChannel.call_tensor detects the all-device sub-channel set
 (device_mesh), runs the fan-out + merge as ONE program over a port
-``Mesh`` of those devices (``tpu/collective.fanout_call``: every position
-replayed in this process, as ``tpu/mesh.py`` replays its positions), and
-falls back to one CollectiveService.Apply RPC per sub-channel with a
-host-side merge otherwise. The port's Mesh lies on one device, so the
-lowering takes ``use_cpu(n)``'s n CPU positions or ONE card; eight
-sub-channels on one card name ordinal 0 eight times and take the RPC
-path. PartitionChannel inherits the same lowering (gather merge ==
+``Mesh`` of those devices (``tpu/collective.fanout_call``), and falls
+back to one CollectiveService.Apply RPC per sub-channel with a host-side
+merge otherwise. Two meshes can carry it: while rank 0 of a launched
+rank mesh (``tpu/launch.py``) holds it, sub-channels ``tpu://host/0 ..
+n-1`` name its n ranks' devices, and the program runs over the ranks
+(each sub-channel's shard on its own rank, the merge a collective on
+the world group; the registered fn goes to the workers by pickle, so it
+is a module-level function); otherwise the replayed mesh lies on one
+device, so the lowering takes ``use_cpu(n)``'s n CPU positions or ONE
+card, every position replayed in this process, and eight sub-channels
+on one card name ordinal 0 eight times and take the RPC path.
+PartitionChannel inherits the same lowering (gather merge ==
 results stay partitioned, partition_channel.h:46-136 semantics).
 """
 
@@ -193,9 +198,12 @@ class ParallelChannel:
     def device_mesh(self, axis_name: str = "fan"):
         """A Mesh over the sub-channels' devices — iff EVERY sub-channel
         targets a local tpu:// endpoint (tpu://host/ordinal, no port) with
-        a distinct ordinal that this process has, and the port's Mesh can
-        lay them (one device: ``use_cpu(n)``'s CPU positions, or one
-        card). None otherwise (the RPC fallback runs)."""
+        a distinct ordinal, and either the ordinals are 0 .. n-1 in order
+        and this process is rank 0 of a launched n-rank mesh (a 1-axis
+        view over its ranks), or the replayed mesh can lay them (one
+        device: ``use_cpu(n)``'s CPU positions, or one card). None
+        otherwise (the RPC fallback runs)."""
+        from brpc_tpu_torch.tpu import launch as _launch
         from brpc_tpu_torch.tpu import mesh as _mesh
 
         eps = []
@@ -208,6 +216,9 @@ class ParallelChannel:
         ords = [ep.device_ordinal for ep in eps]
         if not ords or len(set(ords)) != len(ords):
             return None
+        group = _launch.active()
+        if group is not None and ords == list(range(group.world)):
+            return _launch.comm().mesh({axis_name: group.world})
         try:
             devs = [_mesh.resolve_device(ep) for ep in eps]
             return _mesh.make_mesh({axis_name: len(devs)}, devices_list=devs)
@@ -220,7 +231,9 @@ class ParallelChannel:
         (tpu/collective.fanout_call) and return a tensor on the mesh's
         device; anything else falls back to one CollectiveService.Apply
         RPC per sub-channel + host-side merge, returning numpy. Both paths
-        return the same values (tested equal)."""
+        return the same values (tested equal). Over a rank mesh the
+        program runs on the ranks and its result lands on rank 0's
+        device."""
         mesh = self.device_mesh(scheme.axis_name)
         if mesh is not None:
             import torch

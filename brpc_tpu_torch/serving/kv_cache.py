@@ -52,6 +52,7 @@ indexes (``pool_views``) and take back the note that they were written
 
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import weakref
@@ -61,6 +62,7 @@ import numpy as np
 import torch
 
 from brpc_tpu_torch.metrics.status import PassiveStatus
+from brpc_tpu_torch.tpu import launch
 from brpc_tpu_torch.tpu.device_lane import global_store, resolve_device
 
 
@@ -594,7 +596,14 @@ class ShardedKVCache:
     One ledger-only :class:`PagedKVCache` per shard carries the block
     accounting (watermark, refcounts, audits: enforced PER POOL), while
     the K/V are ONE stacked ``(dp, layers, slots, kv_dim)`` pair on the
-    mesh's device, adopted once in the DeviceStore. Sequences route to
+    mesh's device, adopted once in the DeviceStore. Over a mesh with a
+    rank per position (``tpu/launch.py``) the ledgers stay here, on rank
+    0, and each dp shard's ``(layers, slots, kv_dim)`` pair lives on the
+    device of its own rank, the shard's first (sp 0, tp 0): the mesh
+    model's programs write and read them there, a copy-on-write is a
+    program on that rank, and :meth:`shard_pools` reads them back.
+    Migration reads pools by view (:meth:`pool_views`), which such a mesh
+    does not have. Sequences route to
     shards with the shard plane's splitmix64 ``shard_for`` (stable under
     reused ``version << 32`` ids); fork, extend and free touch only the
     owning shard's ledger."""
@@ -630,12 +639,19 @@ class ShardedKVCache:
         self._shard_of: Dict[int, int] = {}
         self.admission_rejects = 0
         slots = (config.num_blocks + 1) * config.block_size
-        shape = (self.n_shards, layers, slots, kv_dim)
-        self.k_pools = torch.zeros(shape, dtype=dtype,
-                                   device=self.store.device)
-        self.v_pools = torch.zeros_like(self.k_pools)
-        self.k_handle, _ = self.store.adopt(self.k_pools)
-        self.v_handle, _ = self.store.adopt(self.v_pools)
+        self.ranked = mesh.ranked
+        if self.ranked:
+            self.key = f"kv-{next(_kv_keys)}"
+            self.k_pools = self.v_pools = None
+            mesh.run(_rank_kv_alloc, self.key, (layers, slots, kv_dim),
+                     dtype)
+        else:
+            shape = (self.n_shards, layers, slots, kv_dim)
+            self.k_pools = torch.zeros(shape, dtype=dtype,
+                                       device=self.store.device)
+            self.v_pools = torch.zeros_like(self.k_pools)
+            self.k_handle, _ = self.store.adopt(self.k_pools)
+            self.v_handle, _ = self.store.adopt(self.v_pools)
         _sharded.add(self)  # the skew gauge sees the per-shard spread
 
     # ------------------------------------------------------------- geometry
@@ -813,6 +829,9 @@ class ShardedKVCache:
         stacked K and V."""
         bs = self.config.block_size
         d0, s0 = dst * bs, src * bs
+        if self.ranked:
+            self.mesh.run(_rank_kv_cow, self.key, shard, d0, s0, bs)
+            return
         for pools in (self.k_pools, self.v_pools):
             pools[shard, :, d0:d0 + bs].copy_(pools[shard, :, s0:s0 + bs])
         self.pools_written()
@@ -858,13 +877,30 @@ class ShardedKVCache:
     def pool_views(self, table) -> Tuple[torch.Tensor, torch.Tensor]:
         """The owning shard's ``(layers, slots, kv_dim)`` slices of the
         stacked pools (views: a write lands in the stack)."""
+        if self.ranked:
+            raise RuntimeError("the pools of a rank mesh live on their "
+                               "ranks: read them with shard_pools")
         shard = getattr(table, "shard", 0)
         return self.k_pools[shard], self.v_pools[shard]
+
+    def shard_pools(self, shard: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Copies of one shard's K and V pools, on this process (over
+        ranks, read from the shard's rank)."""
+        if not self.ranked:
+            return self.k_pools[shard].clone(), self.v_pools[shard].clone()
+        got = self.mesh.run(_rank_kv_read, self.key, shard)
+        return next(g for g in got if g is not None)
+
+    def pool_ranks(self) -> Dict[int, int]:
+        """Over ranks: {shard: the rank whose device holds its pools}."""
+        got = self.mesh.run(_rank_kv_where, self.key)
+        return {shard: r for r, shard in enumerate(got) if shard is not None}
 
     def pools_written(self) -> None:
         """Note an in-place write of the stacked pools (once per
         launch)."""
-        self.update_pools(self.k_pools, self.v_pools)
+        if not self.ranked:
+            self.update_pools(self.k_pools, self.v_pools)
 
     # ---------------------------------------------------------------- audit
     def assert_idle(self, context: str = "") -> None:
@@ -878,8 +914,11 @@ class ShardedKVCache:
                     f"for {sorted(self._shard_of)} still pinned")
 
     def close(self) -> None:
-        self.store.free(self.k_handle)
-        self.store.free(self.v_handle)
+        if not self.ranked:
+            self.store.free(self.k_handle)
+            self.store.free(self.v_handle)
+        elif launch.active() is not None:
+            self.mesh.run(_rank_kv_free, self.key)
 
     def snapshot(self) -> Dict[str, object]:
         used = self.used_blocks
@@ -914,3 +953,39 @@ class ShardedKVCache:
             "shards": shards,
             "shard_map": shard_map,
         }
+
+
+# ------------------------------------------ the pools over a rank mesh
+_kv_keys = itertools.count()
+
+
+def holds_pools(mesh) -> bool:
+    """Whether this rank holds its dp shard's pools: the shard's first
+    rank (every other axis at 0)."""
+    return all(i == 0 for a, i in mesh.coords().items() if a != "dp")
+
+
+def _rank_kv_alloc(mesh, key, shape, dtype):
+    if holds_pools(mesh):
+        k = torch.zeros(shape, dtype=dtype, device=mesh.device)
+        launch.state()[key] = (k, torch.zeros_like(k))
+
+
+def _rank_kv_cow(mesh, key, shard, d0, s0, bs):
+    if holds_pools(mesh) and mesh.coord("dp") == shard:
+        for pools in launch.state()[key]:
+            pools[:, d0:d0 + bs].copy_(pools[:, s0:s0 + bs])
+
+
+def _rank_kv_read(mesh, key, shard):
+    if holds_pools(mesh) and mesh.coord("dp") == shard:
+        return tuple(p.clone() for p in launch.state()[key])
+    return None
+
+
+def _rank_kv_where(mesh, key):
+    return mesh.coord("dp") if key in launch.state() else None
+
+
+def _rank_kv_free(mesh, key):
+    launch.state().pop(key, None)

@@ -32,8 +32,9 @@ the engine's per-step (1 launch, 1 host sync) audit holds.
   (``TinyTransformer(..., mesh=)``), every ring position replayed on the
   pools' device. Without a mesh, or on one with no ``sp`` axis, the ring
   has one position (``sp = 1``: one hop, no pad rows), where the
-  reference falls back to a process-wide mesh. Several cards are ROADMAP
-  Queue 1 item 7(d).
+  reference falls back to a process-wide mesh. Over a mesh with a rank
+  per position the mesh model runs the ring over its sp ranks
+  (``serving/mesh_model.py``).
 
 The mesh-sharded model (``serving/mesh_model.MeshTransformer``) reuses
 this one through two seams: the KV cache hands over the pools a table
@@ -91,6 +92,15 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _prefill_bucket(s: int) -> int:
+    """A prompt of ``s`` tokens is prefilled at a power of two >= 16, then
+    a multiple of 128 (flash wants S % 128 == 0 past 128)."""
+    bucket = max(16, _next_pow2(s))
+    if bucket > 128:
+        bucket = ((s + 127) // 128) * 128
+    return bucket
+
+
 def _rms(x: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + 1e-6)
 
@@ -127,6 +137,36 @@ def _decode_body(cfg: ModelConfig, params: Dict[str, torch.Tensor],
         x = x + torch.relu(h2 @ params[f"w1{l}"]) @ params[f"w2{l}"]
     logits = _rms(x) @ params["embed"].T                # (B, V)
     return kpool, vpool, torch.argmax(logits, dim=-1)
+
+
+def _prefill_body(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                  pools, toks: torch.Tensor, slots: torch.Tensor,
+                  length: int, attend) -> torch.Tensor:
+    """The prefill math for one prompt, returning its first token
+    (greedy, a 0-d tensor): every layer's K/V is scattered into ``pools``
+    (``(kpool, vpool)``; None where this position holds none) at
+    ``slots``, and its attention is ``attend(q, k, v)`` over (S, H, hd)
+    views of the fused QKV product (strided, no copy), whose result
+    reshapes to (S, D). The single-device model attends on its device,
+    the tp-split and ring lanes over their heads and positions.
+
+    toks (S,), slots (S,) int64: flat pool slot per position (pads ->
+    scratch block 0)."""
+    S = toks.shape[0]
+    H, hd, D = cfg.n_heads, cfg.head_dim, cfg.d_model
+    x = params["embed"][toks]                           # (S, D)
+    for l in range(cfg.n_layers):
+        h = _rms(x)
+        q, k, vv = (h @ params[f"wqkv{l}"]).split(D, dim=-1)
+        if pools is not None:
+            pools[0][l, slots] = k
+            pools[1][l, slots] = vv
+        attn = attend(q.view(S, H, hd), k.view(S, H, hd), vv.view(S, H, hd))
+        x = x + attn.reshape(S, -1) @ params[f"wo{l}"]
+        h2 = _rms(x)
+        x = x + torch.relu(h2 @ params[f"w1{l}"]) @ params[f"w2{l}"]
+    logits = _rms(x[length - 1]) @ params["embed"].T
+    return torch.argmax(logits)
 
 
 class TinyTransformer(nn.Module):
@@ -228,27 +268,11 @@ class TinyTransformer(nn.Module):
     def _prefill_impl(self, toks: torch.Tensor, slots: torch.Tensor,
                       length: int, use_flash: bool,
                       table: Sequence[int]) -> torch.Tensor:
-        cfg = self.config
-        p = self._params
-        S = toks.shape[0]
-        H, hd, D = cfg.n_heads, cfg.head_dim, cfg.d_model
-        kpool, vpool = self.kv.pool_views(table)
-        x = p["embed"][toks]                            # (S, D)
-        for l in range(cfg.n_layers):
-            h = _rms(x)
-            q, k, vv = (h @ p[f"wqkv{l}"]).split(D, dim=-1)
-            kpool[l, slots] = k
-            vpool[l, slots] = vv
-            # (S, H, hd) views of the fused QKV product; the kernel reads
-            # their strides, no copy
-            attn = self._attend(q.view(S, H, hd), k.view(S, H, hd),
-                                vv.view(S, H, hd), use_flash)
-            x = x + attn.reshape(S, -1) @ p[f"wo{l}"]
-            h2 = _rms(x)
-            x = x + torch.relu(h2 @ p[f"w1{l}"]) @ p[f"w2{l}"]
+        nxt = _prefill_body(
+            self.config, self._params, self.kv.pool_views(table), toks,
+            slots, length, lambda q, k, v: self._attend(q, k, v, use_flash))
         self.kv.pools_written()
-        logits = _rms(x[length - 1]) @ p["embed"].T
-        return torch.argmax(logits)
+        return nxt
 
     def prefill(self, tokens: np.ndarray, table: Sequence[int]) -> int:
         """Run prompt prefill for ONE sequence: scatter its K/V pages into
@@ -258,9 +282,7 @@ class TinyTransformer(nn.Module):
         if s >= self.config.ring_threshold:
             return self._prefill_ring(tokens, table)
         self.kv.assert_writable(table, 0, s)
-        bucket = max(16, _next_pow2(s))
-        if bucket > 128:
-            bucket = ((s + 127) // 128) * 128  # flash wants S % 128 == 0
+        bucket = _prefill_bucket(s)
         toks = np.zeros(bucket, dtype=np.int64)
         toks[:s] = tokens
         slots = self._slots_for(table, s, bucket)
@@ -279,34 +301,26 @@ class TinyTransformer(nn.Module):
         scattered into the pools the table indexes. The layer loop runs
         on the host, one launch noted per layer's ring call and one host
         sync at the end, as in the reference."""
-        cfg = self.config
-        H, hd, D = cfg.n_heads, cfg.head_dim, cfg.d_model
         on_mesh = self.mesh is not None and "sp" in self.mesh.axis_names
         sp = int(self.mesh.shape["sp"]) if on_mesh else 1
         ring_of = (self.mesh, "sp") if on_mesh else (sp, None)
         s = len(tokens)
         self.kv.assert_writable(table, 0, s)
         pad = ((s + sp - 1) // sp) * sp
-        p = self._params
         toks = np.zeros(pad, dtype=np.int64)
         toks[:s] = tokens
-        x = p["embed"][self._to_dev(toks)]
-        kpool, vpool = self.kv.pool_views(table)
         slots = self._to_dev(self._slots_for(table, s, pad))
-        for l in range(cfg.n_layers):
-            h = _rms(x)
-            q, k, vv = (h @ p[f"wqkv{l}"]).split(D, dim=-1)
-            kpool[l, slots] = k
-            vpool[l, slots] = vv
-            qh, kh, vh = (t.reshape(1, pad, H, hd) for t in (q, k, vv))
+
+        def attend(q, k, v):
             step_dispatch.note_launch(1)
-            attn = ring.ring_attention(qh, kh, vh, *ring_of, causal=True)
-            x = x + attn.reshape(pad, -1) @ p[f"wo{l}"]
-            h2 = _rms(x)
-            x = x + torch.relu(h2 @ p[f"w1{l}"]) @ p[f"w2{l}"]
+            return ring.ring_attention(q[None], k[None], v[None], *ring_of,
+                                       causal=True)
+
+        nxt = _prefill_body(self.config, self._params,
+                            self.kv.pool_views(table), self._to_dev(toks),
+                            slots, s, attend)
         self.kv.pools_written()
-        logits = _rms(x[s - 1]) @ p["embed"].T
-        first = int(torch.argmax(logits).item())
+        first = int(nxt.item())
         step_dispatch.note_host_sync()
         return first
 

@@ -5,13 +5,19 @@ Each ``csrc/<name>.cu`` is compiled on first use into
 a shared library with a plain C interface, so the build takes seconds
 (no PyTorch headers). The file name carries a hash of the source, of the
 shared headers (``csrc/*.cuh``) and of the flags, so an edited source or
-header is rebuilt and a stale library is never loaded. Nothing here runs
-at import time.
+header is rebuilt and a stale library is never loaded. A build holds an
+``fcntl`` lock on ``build/brpc_tpu_torch/lock`` (beside the thread lock),
+so processes that start together (the ranks of a mesh, ``tpu/launch.py``)
+build each library once and load it whole; the kernel closes the lock
+with its holder, so a process killed mid-build leaves nothing to clear.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -54,6 +60,19 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """This process's threads, then every process, one at a time."""
+    with _lock:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, "lock"), "a") as fh:
+            fcntl.flock(fh, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _start(name: str, out: str) -> subprocess.Popen:
     # each build writes a private temp file, renamed into place when done,
     # so a concurrent loader never sees a half-written library
@@ -81,8 +100,7 @@ def build_all() -> Dict[str, str]:
     started together. Returns nvcc's output (register, shared-memory and
     spill use per kernel from ``-Xptxas -v``) per source, kept beside each
     library, so a library built earlier reports its build too."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with _lock:
+    with _build_lock():
         libs = {n: _lib_path(n) for n in sources()}
         todo = {n: p for n, p in libs.items() if not os.path.exists(p)}
         procs = {n: _start(n, p) for n, p in todo.items()}
@@ -102,9 +120,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        out = _lib_path(name)
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            _finish(name, out, _start(name, out))
-        lib = _libs[name] = ctypes.CDLL(out)
+    with _build_lock():
+        lib = _libs.get(name)
+        if lib is None:
+            out = _lib_path(name)
+            if not os.path.exists(out):
+                _finish(name, out, _start(name, out))
+            lib = _libs[name] = ctypes.CDLL(out)
         return lib

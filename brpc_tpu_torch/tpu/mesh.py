@@ -6,16 +6,25 @@ CUDA card n; a :class:`Mesh` lays named axes over positions, as JAX's
 dp (data: batch, KV pools), tp (tensor: heads), sp (sequence: ring
 attention), pp (pipeline), ep (experts).
 
-**Single controller.** The reference is one process running one SPMD
-program over every device of its mesh. The port keeps that shape: one
-process replays every mesh position, as ``tpu/ring.py`` replays every
-ring position, and the collectives (``tpu/collective.py``) and the
-sharded serving stack compute what each position's program computes. A
-mesh's positions may repeat one device: the card machine has one H100,
-NCCL puts one rank on one card, and the serving stack's stacked KV pools
-live on one device. So a mesh whose positions span more than one
-distinct device is refused when it is built; several cards (a rank per
-card, the hop as a send) are ROADMAP Queue 1 item 7(d).
+A mesh is one of two forms.
+
+- **Replayed** (one controller, one device): one process replays every
+  mesh position, as ``tpu/ring.py`` replays every ring position, and the
+  collectives (``tpu/collective.py``) and the sharded serving stack
+  compute what each position's program computes. Every position is the
+  same device; the card machine lays 8 positions on its one H100 this
+  way, and a mesh built by :func:`make_mesh` over positions of more than
+  one device is refused: one process does not replay across devices.
+- **Ranked** (a rank per position, ``tpu/launch.py``): ``launch.launch``
+  starts a process per position, its caller rank 0, and hands rank 0 the
+  mesh (``RankGroup.mesh``). Each rank owns its position's device; the
+  mesh knows the rank's coordinate (:meth:`Mesh.coord`), the process
+  group of each axis (:meth:`Mesh.group`, from ``DeviceMesh.get_group``)
+  and the rank of each peer (:meth:`Mesh.peer`). The collectives, the
+  ring, the sharded training step, mesh serving and the
+  ``ParallelChannel``'s lowering then run as one program over the ranks,
+  driven from rank 0 with the replayed form's global tensors in and
+  out (:meth:`Mesh.run`).
 
 A process that has no card, or that runs on the CPU on purpose (the
 tests), says so once through :func:`use_cpu`: ordinals below the count
@@ -100,31 +109,120 @@ def resolve_device(ep: EndPoint) -> torch.device:
 
 
 class Mesh:
-    """Named axes over an ndarray of positions (``torch.device`` each),
-    replayed by one process. ``shape`` is ``{axis: size}`` in axis
-    order, as JAX's. Every position must be the same device."""
+    """Named axes over an ndarray of positions (``torch.device`` each).
+    ``shape`` is ``{axis: size}`` in axis order, as JAX's. Replayed by one
+    process (every position the same device), or, with ``ranks``, a rank
+    per position (``tpu/launch.py`` builds those)."""
 
-    def __init__(self, positions: np.ndarray, axis_names):
+    def __init__(self, positions: np.ndarray, axis_names, ranks=None):
         names = tuple(axis_names)
         if positions.ndim != len(names):
             raise ValueError(f"{positions.ndim}-d positions for axes "
                              f"{names}")
         distinct = sorted({str(d) for d in positions.flat})
-        if len(distinct) != 1:
+        if ranks is None and len(distinct) != 1:
             raise ValueError(
-                f"mesh over {distinct}: the port replays every position "
-                f"in one process on one device; a mesh across several "
-                f"cards is ROADMAP Queue 1 item 7(d)")
+                f"mesh over {distinct}: one process replays the positions "
+                f"of one device; a mesh over several devices has a rank "
+                f"per position (tpu/launch.launch)")
         self.devices = positions
         self.axis_names = names
         self.shape: Dict[str, int] = dict(zip(names, positions.shape))
+        self.ranks = ranks   # this process's rank context, or None
+
+    @property
+    def ranked(self) -> bool:
+        """True for a mesh with a rank per position."""
+        return self.ranks is not None
 
     @property
     def device(self) -> torch.device:
-        """The one device every position lies on."""
+        """The one device every position lies on; over ranks, this rank's
+        own position's device."""
+        if self.ranks is not None:
+            return self.ranks.device
         return self.devices.flat[0]
 
+    # ------------------------------------------------ a rank per position
+    @property
+    def rank(self) -> int:
+        return self.ranks.rank
+
+    def coords(self, rank: int = None) -> Dict[str, int]:
+        """{axis: index} of ``rank``'s position (default: this rank)."""
+        r = self.ranks.rank if rank is None else rank
+        idx = np.unravel_index(r, self.devices.shape)
+        return dict(zip(self.axis_names, (int(i) for i in idx)))
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return self.coords()[axis]
+
+    def peer(self, axis: str, index: int) -> int:
+        """The global rank at ``index`` along ``axis``, this rank's other
+        coordinates kept."""
+        c = self.coords()
+        c[axis] = index % self.shape[axis]
+        return int(np.ravel_multi_index([c[a] for a in self.axis_names],
+                                        self.devices.shape))
+
+    def group(self, *axes: str):
+        """The process group over ``axes`` that holds this rank."""
+        return self.ranks.group(self.axis_names, tuple(axes))
+
+    def run(self, fn, *args, **kwargs) -> list:
+        """Rank 0 only: ``fn(mesh, *args, **kwargs)`` on every rank, each
+        with its view of this mesh; what each returned, by rank."""
+        from brpc_tpu_torch.tpu import launch
+
+        group = launch.active()
+        if group is None or self.ranks.rank != 0:
+            raise RuntimeError("only rank 0 of a launched mesh drives it")
+        return group.run(fn, *args, mesh=self, **kwargs)
+
+    def block(self, x, spec, rank: int = None):
+        """This rank's (or ``rank``'s) block of a global ``x`` laid out as
+        ``spec`` (an axis name or None per leading dim)."""
+        c = self.coords(rank)
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            n = self.shape[axis]
+            if x.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"split into {n} blocks over {axis!r}")
+            size = x.shape[dim] // n
+            x = x.narrow(dim, c[axis] * size, size)
+        return x
+
+    def assemble(self, blocks, spec):
+        """The global tensor of the per-rank ``blocks`` (a list by rank)
+        laid out as ``spec``: position blocks placed by coordinate; the
+        ranks that differ only along other axes hold replicas, of which
+        the one at index 0 is taken."""
+        rows = []
+        for r, b in enumerate(blocks):
+            c = self.coords(r)
+            if all(c[a] == 0 for a in self.axis_names if a not in spec):
+                rows.append((tuple(c[a] if a else 0 for a in spec), b))
+        first = rows[0][1]
+        shape = list(first.shape)
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                shape[dim] *= self.shape[axis]
+        out = torch.empty(shape, dtype=first.dtype)
+        for idx, b in rows:
+            view = out
+            for dim, (axis, i) in enumerate(zip(spec, idx)):
+                if axis is not None:
+                    view = view.narrow(dim, i * b.shape[dim], b.shape[dim])
+            view.copy_(b)
+        return out
+
     def __repr__(self) -> str:
+        if self.ranks is not None:
+            return (f"Mesh({self.shape}, rank={self.ranks.rank}, "
+                    f"device={self.device}, {self.ranks.backend})")
         return f"Mesh({self.shape}, device={self.device})"
 
 
@@ -182,8 +280,9 @@ def default_mesh(axis_name: str = "x") -> Mesh:
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """Which mesh axis each dim of a stacked tensor follows (``None``:
-    replicated). The port annotates nothing: one process holds every
-    position's slice, so the record only names the layout."""
+    replicated). The record names the layout; over ranks the programs
+    that take such a tensor cut each rank's block by it
+    (:meth:`Mesh.block`)."""
 
     mesh: Mesh
     spec: Tuple

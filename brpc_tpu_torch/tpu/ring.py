@@ -11,8 +11,12 @@ the replay that the JAX package's ``tools/kernel_bench.py``
 (``bench_ring_path``) runs on one chip. Over a mesh (``tpu/mesh.py``),
 B splits over a batch axis and H over a head axis and each slice runs
 its own ring, as the JAX ring's ``shard_map`` over (batch, sequence,
-head) axes does. Positions on separate cards, with the hop as a send to
-the neighbour rank, are ROADMAP Queue 1 item 7(d).
+head) axes does. Over a mesh with a rank per position
+(``tpu/launch.py``) each sp rank holds its S/sp block and the hop is a
+send: K and V take sp - 1 hops to the next sp rank
+(``batch_isend_irecv``), posted before the hop's attention so the send
+overlaps it (:func:`ring_attention_local`, each rank's body; the global
+:func:`ring_attention` over such a mesh runs it on every rank).
 
 Two lanes, as in JAX:
 
@@ -24,16 +28,20 @@ Two lanes, as in JAX:
   kernel on the card) hop after hop, and whose backward runs the dQ and
   dK/dV kernels (``_flash_bwd_bhsd``) per hop at the hop's absolute
   offsets, accumulating dq, dk and dv in fp32; dk and dv land on their
-  key block's home position. When causal, a key block wholly in a
-  position's future is skipped without a launch, as the ``lax.cond`` of
-  the JAX ring skips it.
+  key block's home position (over ranks they travel with their block,
+  one hop more than K and V, as ``lax.ppermute`` sends them in the JAX
+  ring). When causal, a key block wholly in a position's future is
+  skipped without a launch, as the ``lax.cond`` of the JAX ring skips
+  it.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
-from brpc_tpu_torch.tpu import pallas_ops
+from brpc_tpu_torch.tpu import launch, pallas_ops
 from brpc_tpu_torch.tpu.pallas_ops import NEG_INF
 
 
@@ -214,6 +222,12 @@ def ring_attention(q, k, v, mesh, axis: str = None, causal: bool = False,
         if axis is not None or batch_axis or head_axis:
             raise ValueError("an int sp takes no mesh axes")
         return _ring(q, k, v, mesh, causal, use_flash, block_q, block_k)
+    if mesh.ranked:
+        spec = (batch_axis, axis, head_axis)
+        for t in (q, k, v):
+            mesh.block(t, spec, rank=0)   # refuse an uneven split here
+        return _RankRing.apply(q, k, v, mesh, spec, causal, use_flash,
+                               block_q, block_k)
     sp = _axis_size(mesh, axis)
     nb, nh = _axis_size(mesh, batch_axis), _axis_size(mesh, head_axis)
     if b % nb or h % nh:
@@ -229,3 +243,194 @@ def ring_attention(q, k, v, mesh, axis: str = None, causal: bool = False,
                   v[bs, :, j * hl:(j + 1) * hl], sp, causal, use_flash,
                   block_q, block_k) for j in range(nh)], dim=2))
     return torch.cat(rows)
+
+
+# ------------------------------------------------ a rank per position
+class _Hop(torch.autograd.Function):
+    """One ring hop of the plain lane: the tensors go to rank ``nxt`` and
+    ``prv``'s arrive; backward sends the gradients the other way."""
+
+    @staticmethod
+    def forward(ctx, nxt, prv, *ts):
+        ctx.peers = (nxt, prv)
+        return tuple(_send_recv(ts, nxt, prv).wait())
+
+    @staticmethod
+    def backward(ctx, *gs):
+        nxt, prv = ctx.peers
+        gs = [torch.zeros_like(g) if g is None else g for g in gs]
+        return (None, None, *_send_recv(gs, prv, nxt).wait())
+
+
+def _send_recv(ts, to: int, frm: int):
+    """Posts the sends of ``ts`` to rank ``to`` and the receives of as
+    many like tensors from rank ``frm``."""
+    ts = [t.contiguous() for t in ts]
+    return launch.exchange([(t, to) for t in ts],
+                           [((t.shape, t.dtype), frm) for t in ts],
+                           ts[0].device)
+
+
+def _ring_ranks_plain(q, k, v, mesh, axis: str, causal: bool):
+    """The lax lane on this rank's blocks [B, s, H, D]: every hop, masked
+    by absolute positions, in fp32; differentiable through the hops."""
+    sp, my = mesh.shape[axis], mesh.coord(axis)
+    nxt, prv = mesh.peer(axis, my + 1), mesh.peer(axis, my - 1)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qf, kc, vc = q.float(), k.float(), v.float()
+    o = torch.zeros(b, sq, h, d, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, device=q.device)
+    l = torch.zeros(b, h, sq, device=q.device)
+    for i in range(sp):
+        src = (my - i) % sp
+        mask = None
+        if causal:
+            q_pos = my * sq + torch.arange(sq, device=q.device)
+            k_pos = src * sk + torch.arange(sk, device=q.device)
+            mask = q_pos[:, None] >= k_pos[None, :]
+        o, m, l = _block_attend(qf, kc, vc, o, m, l, mask)
+        if i < sp - 1:
+            kc, vc = _Hop.apply(nxt, prv, kc, vc)
+    l_safe = torch.where(l == 0, 1.0, l)
+    return (o / l_safe.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def _bhsd(x):
+    """[B, s, H, D] -> the kernels' [B*H, s, D], contiguous."""
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+
+
+class _RingFlashRanks(torch.autograd.Function):
+    """The flash lane on this rank's blocks: the carry kernel per hop
+    forward, the dQ and dK/dV kernels per hop backward, K and V sent to
+    the next sp rank while the hop's kernel runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, axis, causal, block_q, block_k):
+        sp, my = mesh.shape[axis], mesh.coord(axis)
+        nxt, prv = mesh.peer(axis, my + 1), mesh.peer(axis, my - 1)
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        qb, kb, vb = _bhsd(q), _bhsd(k), _bhsd(v)
+        n = qb.shape[0]
+        bq = pallas_ops._fit_block(sq, block_q)
+        bk = pallas_ops._fit_block(sk, block_k)
+        m = torch.full((n, sq, 1), NEG_INF, device=q.device)
+        l = torch.zeros(n, sq, 1, device=q.device)
+        acc = torch.zeros(n, sq, d, device=q.device)
+        kc, vc = kb, vb
+        for i in range(sp):
+            src = (my - i) % sp
+            hop = _send_recv((kc, vc), nxt, prv) if i < sp - 1 else None
+            if not (causal and src * sk > my * sq + sq - 1):
+                m, l, acc = pallas_ops.flash_attention_carry(
+                    qb, kc, vc, m, l, acc, my * sq, src * sk,
+                    causal=causal, block_q=bq, block_k=bk)
+            if hop is not None:
+                kc, vc = hop.wait()
+        l_safe = torch.where(l == 0, 1.0, l)
+        out = (acc / l_safe).to(q.dtype)                   # [N, sq, D]
+        lse = torch.where(l == 0, NEG_INF, m + torch.log(l_safe))
+        ctx.save_for_backward(qb, kb, vb, out, lse)
+        ctx.args = (mesh, axis, causal, bq, bk, b, h)
+        return out.view(b, h, sq, d).permute(0, 2, 1, 3).contiguous()
+
+    @staticmethod
+    def backward(ctx, do):
+        qb, kb, vb, out, lse = ctx.saved_tensors
+        mesh, axis, causal, bq, bk, b, h = ctx.args
+        sp, my = mesh.shape[axis], mesh.coord(axis)
+        nxt, prv = mesh.peer(axis, my + 1), mesh.peer(axis, my - 1)
+        sq, sk = qb.shape[1], kb.shape[1]
+        dob = _bhsd(do.to(qb.dtype))
+        delta = pallas_ops._flash_delta(out, dob)
+        dq = torch.zeros(qb.shape, device=qb.device)
+        # the block this rank holds and its gradient accumulators travel
+        # together; after sp sends of the accumulators they are home
+        kc, vc = kb, vb
+        dk = torch.zeros(kb.shape, device=kb.device)
+        dv = torch.zeros(vb.shape, device=vb.device)
+        for i in range(sp):
+            src = (my - i) % sp
+            hop = _send_recv((kc, vc), nxt, prv) if i < sp - 1 else None
+            if not (causal and src * sk > my * sq + sq - 1):
+                dq_b, dk_b, dv_b = pallas_ops._flash_bwd_bhsd(
+                    qb, kc, vc, lse, dob, delta, my * sq, src * sk, causal,
+                    bq, bk)
+                dq += dq_b.float()
+                dk += dk_b.float()
+                dv += dv_b.float()
+            dk, dv = _send_recv((dk, dv), nxt, prv).wait()
+            if hop is not None:
+                kc, vc = hop.wait()
+
+        def back(x, dtype):
+            return x.view(b, h, -1, x.shape[-1]).permute(0, 2, 1, 3) \
+                .to(dtype).contiguous()
+
+        return (back(dq, qb.dtype), back(dk, kb.dtype), back(dv, vb.dtype),
+                None, None, None, None, None)
+
+
+def ring_attention_local(q, k, v, mesh, axis: str, causal: bool = False,
+                         use_flash: bool = False, block_q: int = 512,
+                         block_k: int = 1024):
+    """One rank's share of the ring over ``axis`` of a mesh with a rank per
+    position: q, k, v [B, S/sp, H, D] are this rank's sequence block (of
+    its batch and head slices), and every rank of the axis calls this at
+    once. Differentiable in both lanes."""
+    if not mesh.ranked:
+        raise ValueError("ring_attention_local runs on a mesh with a rank "
+                         "per position")
+    if use_flash:
+        return _RingFlashRanks.apply(q, k, v, mesh, axis, causal, block_q,
+                                     block_k)
+    return _ring_ranks_plain(q, k, v, mesh, axis, causal)
+
+
+class _RankRing(torch.autograd.Function):
+    """The global ring over a rank mesh, from rank 0: forward runs each
+    rank's block and keeps its graph there; backward sends each rank its
+    block of the output gradient and gathers dq, dk and dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, spec, causal, use_flash, block_q,
+                block_k):
+        key = f"ring-{next(_keys)}"
+        grad = any(t.requires_grad for t in (q, k, v))
+        outs = mesh.run(_rank_ring_fwd, key, q.detach().cpu(),
+                        k.detach().cpu(), v.detach().cpu(), spec, causal,
+                        use_flash, block_q, block_k, grad)
+        ctx.args = (mesh, key, spec)
+        return mesh.assemble(outs, spec).to(q.device)
+
+    @staticmethod
+    def backward(ctx, do):
+        mesh, key, spec = ctx.args
+        got = mesh.run(_rank_ring_bwd, key, do.detach().cpu(), spec)
+        return tuple(mesh.assemble([g[i] for g in got], spec).to(do.device)
+                     for i in range(3)) + (None,) * 6
+
+
+_keys = itertools.count()
+
+
+def _rank_ring_fwd(mesh, key, q, k, v, spec, causal, use_flash, block_q,
+                   block_k, grad):
+    ins = [mesh.block(t, spec).to(mesh.device).requires_grad_(grad)
+           for t in (q, k, v)]
+    with torch.set_grad_enabled(grad):
+        out = ring_attention_local(*ins, mesh, spec[1], causal=causal,
+                                   use_flash=use_flash, block_q=block_q,
+                                   block_k=block_k)
+    if grad:
+        launch.state()[key] = (ins, out)
+    return out.detach()
+
+
+def _rank_ring_bwd(mesh, key, do, spec):
+    ins, out = launch.state().pop(key)
+    return torch.autograd.grad(out, ins,
+                               mesh.block(do, spec).to(out.device))

@@ -19,18 +19,31 @@ head_axis="tp", use_flash=use_flash_attention)``: B splits over dp, H
 over tp, and each (dp, tp) slice runs its own ring of sp positions, whose
 hops are the carry kernel forward and the dQ and dK/dV kernels backward
 on the card. The loss is the plain log-softmax (the JAX step takes the
-fused loss only without a mesh). Everything else computes on whole
-arrays. In the JAX step the rest of the program is placed, not split:
-``with_sharding_constraint`` lays activations over (dp, sp) and the
-parameters over tp (:func:`param_shardings`), and GSPMD inserts the dp
-gradient sums and the tp sums of the row-parallel products. The port's
-mesh is single-controller (every position replayed by one process on one
-device), so placement has no observable effect: the forward places
-nothing, and :func:`param_shardings` and ``make_train_step``'s batch
-shardings are records of the JAX step's layout. Explicit tp
-partial products and dp gradient all-reduces through
-``tpu/collective.py`` belong to a mesh over several cards, where
-placement differs (ROADMAP Queue 1 item 7(d)).
+fused loss only without a mesh). In the JAX step the rest of the program
+is placed, not split: ``with_sharding_constraint`` lays activations over
+(dp, sp) and the parameters over tp (:func:`param_shardings`), and GSPMD
+inserts the dp gradient sums and the tp sums of the row-parallel
+products. On a replayed mesh (every position in one process on one
+device) placement has no observable effect: the forward places nothing,
+and the shardings are records of the JAX step's layout.
+
+**Over ranks** (a mesh with a rank per position, ``tpu/launch.py``) the
+step is that layout made explicit. Each rank owns its tp slice of every
+parameter as :func:`param_shardings` lays it out (:func:`shard_tree`:
+``wqkv``'s slice is its heads' columns of each of q, k and v, not the
+contiguous block GSPMD would reshard), and its (dp, sp) block of the
+batch. ``embed``'s tp columns are gathered before the first norm; each
+column-parallel product is preceded by Megatron's f (identity forward, a
+tp all-reduce backward) and each row-parallel product followed by its g
+(a tp all-reduce forward, identity backward), written as autograd
+functions so a gradient is summed once; the loss is a tp-parallel
+log-softmax (max and sum all-reduced over tp); attention is the ring
+over the sp ranks (``ring.ring_attention_local``); every gradient is
+all-reduced over dp x sp in one fp32 buffer, and SGD updates each rank's
+own shards in place. All of these go through ``tpu/launch.py``'s
+collectives. :func:`make_train_step`'s step scatters a model's
+parameters to the ranks at its first call and leaves them there;
+``step.gather(model)`` brings them back to rank 0.
 
 Entry points: :class:`TrainLM` (``forward``), :func:`loss_fn`,
 :func:`value_and_grad`, :func:`sgd_train_step`, :func:`make_train_step`,
@@ -41,6 +54,7 @@ across.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any
 
@@ -49,7 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from brpc_tpu_torch.tpu import pallas_ops, ring
+from brpc_tpu_torch.tpu import launch, pallas_ops, ring
 from brpc_tpu_torch.tpu.device_lane import resolve_device
 from brpc_tpu_torch.tpu.mesh import Mesh, named_sharding
 
@@ -146,6 +160,10 @@ class TrainLM(nn.Module):
         """tokens [B, S] -> logits [B, S, V]. With a mesh, attention is
         ring attention over sp, B split over dp and H over tp."""
         cfg = self.config
+        if mesh is not None and mesh.ranked:
+            raise ValueError("over a mesh with a rank per position the "
+                             "model runs as a program: loss_fn, "
+                             "value_and_grad or make_train_step")
         if mesh is not None and \
                 resolve_device(mesh.device) != self.embed.device:
             raise ValueError(f"mesh on {mesh.device}, parameters on "
@@ -199,6 +217,8 @@ def param_shardings(cfg: ModelConfig, mesh: Mesh) -> dict:
 def loss_fn(model: TrainLM, batch, mesh: Mesh = None):
     """Mean next-token cross-entropy in fp32; with ``use_fused_xent`` and
     no mesh the fused kernel over the [B*S, V] logits."""
+    if mesh is not None and mesh.ranked:
+        return _on_ranks(model, batch, mesh, grad=False)[0]
     tokens, targets = batch
     logits = model(tokens, mesh).float()
     if model.config.use_fused_xent and mesh is None:
@@ -211,6 +231,8 @@ def loss_fn(model: TrainLM, batch, mesh: Mesh = None):
 
 def value_and_grad(model: TrainLM, batch, mesh: Mesh = None):
     """(loss, grads in the structure of ``model.params_tree()``)."""
+    if mesh is not None and mesh.ranked:
+        return _on_ranks(model, batch, mesh, grad=True)
     tree = model.params_tree()
     loss = loss_fn(model, batch, mesh)
     grads = iter(torch.autograd.grad(loss, _leaves(tree)))
@@ -232,13 +254,20 @@ def sgd_train_step(model: TrainLM, batch, lr: float = 1e-3,
 
 def make_train_step(cfg: ModelConfig, mesh: Mesh, lr: float = 1e-3):
     """(step, pshard, batch_shard): ``step(model, batch)`` is one sharded
-    :func:`sgd_train_step` over ``mesh``, updating the model in place and
-    returning the loss; ``pshard`` (:func:`param_shardings`) and
-    ``batch_shard`` (tokens and targets over (dp, sp)) record the JAX
-    step's layout."""
+    :func:`sgd_train_step` over ``mesh``, returning the loss; ``pshard``
+    (:func:`param_shardings`) and ``batch_shard`` (tokens and targets
+    over (dp, sp)) record the JAX step's layout. On a replayed mesh the
+    step updates the model in place. Over ranks it updates each rank's
+    shards, and ``step.gather(model)`` copies them back into the model;
+    the model is scattered to the ranks at the step's first call with
+    it, and again whenever its parameters were written in place since
+    (``load_params``, an optimizer's update), so a step never starts
+    from shards the caller has since replaced."""
     pshard = param_shardings(cfg, mesh)
     batch_shard = (named_sharding(mesh, "dp", "sp"),
                    named_sharding(mesh, "dp", "sp"))
+    if mesh.ranked:
+        return _RankStep(cfg, mesh, lr), pshard, batch_shard
 
     def step(model: TrainLM, batch):
         if model.config != cfg:
@@ -282,3 +311,304 @@ def _leaves(tree) -> list:
     out = []
     _map_tree(out.append, tree)
     return out
+
+
+# ------------------------------------------------ a rank per position
+def _tp_slices(cfg: ModelConfig, tp: int, t: int) -> dict:
+    """Where tp rank ``t``'s slice of each sharded parameter lies: (dim,
+    index) of its rows or columns in the full array."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    for name, n in (("n_heads", cfg.n_heads), ("d_ff", f), ("vocab", v)):
+        if n % tp:
+            raise ValueError(f"{name}={n} does not split over tp={tp}")
+    def span(n):
+        return torch.arange(t * (n // tp), (t + 1) * (n // tp))
+
+    # wqkv's columns are [3, H, Dh]: this rank's heads' columns of each of
+    # q, k and v (GSPMD's contiguous block of 3D/tp columns is another set)
+    qkv = torch.cat([j * d + span(d) for j in range(3)])
+    return {"embed": (1, span(d)), "head": (1, span(v)), "wqkv": (1, qkv),
+            "wo": (0, span(d)), "w1": (1, span(f)), "w2": (0, span(f))}
+
+
+def shard_tree(tree, cfg: ModelConfig, tp: int, t: int):
+    """tp rank ``t``'s slice of a full parameter tree (tensors), as
+    :func:`param_shardings` lays it out; norms are whole."""
+    cut = _tp_slices(cfg, tp, t)
+
+    def one(name, a):
+        if name not in cut:
+            return a.clone()
+        dim, idx = cut[name]
+        return a.index_select(dim, idx.to(a.device)).contiguous()
+
+    return {"embed": one("embed", tree["embed"]),
+            "head": one("head", tree["head"]),
+            "ln_f": one("ln_f", tree["ln_f"]),
+            "layers": [{k: one(k, layer[k]) for k in sorted(layer)}
+                       for layer in tree["layers"]]}
+
+
+def unshard_trees(trees, cfg: ModelConfig):
+    """The full parameter tree from tp ranks' slices (``trees[t]``): the
+    inverse of :func:`shard_tree`."""
+    tp = len(trees)
+    cuts = [_tp_slices(cfg, tp, t) for t in range(tp)]
+
+    def one(name, parts):
+        if name not in cuts[0]:
+            return parts[0]
+        dim = cuts[0][name][0]
+        shape = list(parts[0].shape)
+        shape[dim] *= tp
+        out = torch.empty(shape, dtype=parts[0].dtype)
+        for cut, part in zip(cuts, parts):
+            out.index_copy_(dim, cut[name][1], part)
+        return out
+
+    return {"embed": one("embed", [t["embed"] for t in trees]),
+            "head": one("head", [t["head"] for t in trees]),
+            "ln_f": trees[0]["ln_f"],
+            "layers": [{k: one(k, [t["layers"][i][k] for t in trees])
+                        for k in sorted(trees[0]["layers"][i])}
+                       for i in range(len(trees[0]["layers"]))]}
+
+
+class _TpCopy(torch.autograd.Function):
+    """Megatron's f before a column-parallel product: identity forward,
+    the tp all-reduce of the input's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return launch.all_reduce(g, ctx.group), None
+
+
+class _TpSum(torch.autograd.Function):
+    """Megatron's g after a row-parallel product (and the tp-parallel
+    log-softmax's sums): the tp all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return launch.all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TpGather(torch.autograd.Function):
+    """The tp ranks' last-dim slices concatenated forward (``embed``'s
+    columns); this rank's slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, t):
+        ctx.cut = (t, x.shape[-1])
+        return torch.cat(launch.all_gather(x, group), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        t, w = ctx.cut
+        return g[..., t * w:(t + 1) * w], None, None
+
+
+def _rank_loss(cfg: ModelConfig, p: dict, tokens, targets, mesh,
+               n_tokens: int):
+    """This rank's share of the mean loss: its (dp, sp) block of tokens
+    through its tp slices; every tp rank of the block returns the same
+    value, and the dp x sp shares sum to the loss."""
+    tp, t = mesh.shape["tp"], mesh.coord("tp")
+    g = mesh.group("tp")
+
+    def f(x):
+        return _TpCopy.apply(x, g) if tp > 1 else x
+
+    def gsum(x):
+        return _TpSum.apply(x, g) if tp > 1 else x
+
+    def norm(x, w):
+        if cfg.use_pallas_norm:
+            return pallas_ops.rmsnorm(x, w)
+        return pallas_ops.rmsnorm_reference(x, w)
+
+    b, s = tokens.shape
+    hl, dh = cfg.n_heads // tp, cfg.head_dim
+    x = p["embed"][tokens].to(cfg.dtype)
+    if tp > 1:
+        x = _TpGather.apply(x, g, t)                        # [b,s,D]
+    for layer in p["layers"]:
+        qkv = (f(norm(x, layer["ln1"])) @ layer["wqkv"]).reshape(
+            b, s, 3, hl, dh)
+        att = ring.ring_attention_local(
+            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mesh, "sp",
+            causal=True, use_flash=cfg.use_flash_attention)
+        x = x + gsum(att.reshape(b, s, hl * dh) @ layer["wo"])
+        h = f(norm(x, layer["ln2"]))
+        x = x + gsum(F.gelu(h @ layer["w1"], approximate="tanh")
+                     @ layer["w2"])
+    logits = (f(norm(x, p["ln_f"])) @ p["head"]).float()    # [b,s,V/tp]
+    vl = logits.shape[-1]
+    mx = logits.detach().amax(dim=-1)
+    if tp > 1:
+        mx = launch.all_reduce(mx, g, op="max")
+    sumexp = gsum(torch.exp(logits - mx[..., None]).sum(dim=-1))
+    local = targets - t * vl
+    mine = (local >= 0) & (local < vl)
+    picked = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])
+    picked = gsum(torch.where(mine, picked[..., 0], 0.0))
+    return (torch.log(sumexp) + mx - picked).sum() / n_tokens
+
+
+def _local_params(tree, device, grad: bool):
+    return _map_tree(lambda a: a.to(device).requires_grad_(grad), tree)
+
+
+def _reduce_grads(grads, mesh):
+    """Every gradient summed over dp x sp, in one fp32 buffer."""
+    flat = torch.cat([gr.float().reshape(-1) for gr in grads])
+    if mesh.shape["dp"] * mesh.shape["sp"] > 1:
+        flat = launch.all_reduce(flat, mesh.group("dp", "sp"))
+    return [piece.view(gr.shape) for piece, gr in
+            zip(flat.split([gr.numel() for gr in grads]), grads)]
+
+
+def _loss_and_grads(mesh, cfg, params, tokens, targets, grad: bool):
+    tok = mesh.block(tokens, ("dp", "sp")).to(mesh.device)
+    tgt = mesh.block(targets, ("dp", "sp")).to(mesh.device)
+    leaves = _leaves(params)
+    with torch.set_grad_enabled(grad):
+        loss = _rank_loss(cfg, params, tok, tgt, mesh, tokens.numel())
+    grads = _reduce_grads(torch.autograd.grad(loss, leaves), mesh) \
+        if grad else None
+    if mesh.shape["dp"] * mesh.shape["sp"] > 1:
+        loss = launch.all_reduce(loss.detach(), mesh.group("dp", "sp"))
+    return loss.detach(), grads
+
+
+def _tp_root(mesh) -> bool:
+    # the ranks at dp 0, sp 0 return their tp slices
+    c = mesh.coords()
+    return c["dp"] == 0 and c["sp"] == 0
+
+
+def _rank_value_and_grad(mesh, cfg, tokens, targets, grad, scattered):
+    params = _local_params(scattered, mesh.device, grad)
+    loss, grads = _loss_and_grads(mesh, cfg, params, tokens, targets, grad)
+    if grads is None or not _tp_root(mesh):
+        return loss, None
+    it = iter(grads)
+    return loss, _map_tree(lambda p: next(it).to(p.dtype), params)
+
+
+def _scatter_of(model: TrainLM, mesh) -> list:
+    """Rank r's tp slice of the model's parameters, for every rank."""
+    cfg, tp = model.config, mesh.shape["tp"]
+    tree = _map_tree(lambda a: a.detach().cpu(), model.params_tree())
+    slices = [shard_tree(tree, cfg, tp, t) for t in range(tp)]
+    return [slices[mesh.coords(r)["tp"]] for r in range(mesh.devices.size)]
+
+
+def _tree_of(mesh, cfg, results, device):
+    tp = mesh.shape["tp"]
+    trees = [None] * tp
+    for r, tree in enumerate(results):
+        if tree is not None:
+            trees[mesh.coords(r)["tp"]] = tree
+    return _map_tree(lambda a: a.to(device), unshard_trees(trees, cfg))
+
+
+def _on_ranks(model: TrainLM, batch, mesh, grad: bool):
+    """loss_fn / value_and_grad over ranks: the model's slices scattered,
+    one program, the full gradient tree back on rank 0."""
+    for ax in ("dp", "sp", "tp"):
+        if ax not in mesh.shape:
+            raise ValueError(f"the sharded step needs a {ax!r} axis, got "
+                             f"{mesh.axis_names}")
+    tokens, targets = (t.detach().cpu() for t in batch)
+    got = mesh.run(_rank_value_and_grad, model.config, tokens, targets,
+                   grad, scatter=_scatter_of(model, mesh))
+    loss = got[0][0].to(model.embed.device)
+    if not grad:
+        return loss, None
+    return loss, _tree_of(mesh, model.config, [g for _, g in got],
+                          model.embed.device)
+
+
+class _RankStep:
+    """:func:`make_train_step`'s step over ranks: the parameters stay on
+    the ranks between steps, each rank updating its own slices. The
+    model's parameters' version counters, read when they were last
+    scattered or gathered, tell whether the caller has written them
+    since."""
+
+    def __init__(self, cfg: ModelConfig, mesh, lr: float):
+        for ax in ("dp", "sp", "tp"):
+            if ax not in mesh.shape:
+                raise ValueError(f"the sharded step needs a {ax!r} axis, "
+                                 f"got {mesh.axis_names}")
+        self.cfg, self.mesh, self.lr = cfg, mesh, lr
+        self.key = f"train-{next(_step_keys)}"
+        self._model = None
+        self._versions = None
+
+    def load(self, model: TrainLM) -> None:
+        """Scatters the model's parameters to the ranks."""
+        if model.config != self.cfg:
+            raise ValueError("the model's config is not the step's")
+        self.mesh.run(_rank_step_load, self.key, self.cfg, self.lr,
+                      scatter=_scatter_of(model, self.mesh))
+        self._model, self._versions = model, _versions(model)
+
+    def __call__(self, model: TrainLM, batch):
+        if model is not self._model or _versions(model) != self._versions:
+            self.load(model)
+        tokens, targets = (t.detach().cpu() for t in batch)
+        got = self.mesh.run(_rank_step, self.key, tokens, targets)
+        return got[0].to(model.embed.device)
+
+    def gather(self, model: TrainLM = None) -> dict:
+        """The full parameter tree from the ranks, on rank 0 (copied into
+        ``model`` when given)."""
+        got = self.mesh.run(_rank_step_gather, self.key)
+        dev = model.embed.device if model is not None else \
+            self.mesh.device
+        tree = _tree_of(self.mesh, self.cfg, got, dev)
+        if model is not None:
+            model.load_params(tree)
+            if model is self._model:
+                self._versions = _versions(model)
+        return tree
+
+
+_step_keys = itertools.count()
+
+
+def _versions(model: TrainLM) -> list:
+    """The version counters of the model's parameters: each in-place
+    write (``copy_``, an optimizer's update) moves its tensor's on."""
+    return [p._version for p in _leaves(model.params_tree())]
+
+
+def _rank_step_load(mesh, key, cfg, lr, scattered):
+    launch.state()[key] = (cfg, lr, _local_params(scattered, mesh.device,
+                                                  True))
+
+
+def _rank_step(mesh, key, tokens, targets):
+    cfg, lr, params = launch.state()[key]
+    loss, grads = _loss_and_grads(mesh, cfg, params, tokens, targets, True)
+    with torch.no_grad():
+        for p, g in zip(_leaves(params), grads):
+            p.copy_(p - lr * g.to(p.dtype))
+    return loss
+
+
+def _rank_step_gather(mesh, key):
+    _, _, params = launch.state()[key]
+    if not _tp_root(mesh):
+        return None
+    return _map_tree(lambda a: a.detach(), params)

@@ -5,7 +5,7 @@
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
 (nvcc, sm_90a, one process per source, all at once) and, beside them, the
 native core from ``brpc_tpu_torch/native`` (g++; one line: its version,
-seconds and libraries under ``build/``). Then sixteen paths:
+seconds and libraries under ``build/``). Then eighteen paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -88,7 +88,8 @@ seconds and libraries under ``build/``). Then sixteen paths:
   single engine's.
 - Multi-tenant QoS (phase 4j): the committed overload corpus
   (``tests/data/serving_corpus_overload``) through the port's replayer
-  and RPC front, three times at each of 0.25x, 1x and 2x its recorded
+  (in a client process of its own, as users' clients are) and RPC
+  front, three times at each of 0.25x, 1x and 2x its recorded
   rate (latencies pooled per rate), against an engine
   with the reference's closed-loop ``QosConfig`` and one with
   ``qos=None``: prod sheds nothing, every failure a best-effort
@@ -163,6 +164,24 @@ seconds and libraries under ``build/``). Then sixteen paths:
   launches as dp x tp rings of sp (sp + 1) / 2 live hops a layer imply,
   ms/step, tokens/s and peak memory beside phase 10's, one profiled step
   whose attention ran tensor-core kernels only.
+- The mesh with a rank per position (phases 4o and 10d): eight ranks
+  of dp2 x sp2 x tp2 (``tpu/launch.py``), this process rank 0, all on
+  the one card, so the layout is ``ranks_share_card`` over gloo (NCCL
+  refuses two ranks on one device; each CUDA tensor staged through
+  pinned host memory), printed first. 4o: phase 4g's windows through
+  the ``MeshTransformer`` whose dp shards' pools live on their own
+  ranks: tokens equal phase 4g's and phase 4's, the serving kernel
+  launched by each tp rank at sp 0 of a request's shard once a layer
+  (n_layers x prefills per tp index), every decode step (1, 1) on rank
+  0's engine thread, tokens/s and TTFT beside 4g's, and what one empty
+  program costs. 10d: phase 10b's fp32 configuration stepped by the
+  single-controller step and by the ranks (losses and parameters
+  within 1e-4), then 10b's bf16 main path over the ranks, held as 10b
+  holds it, each rank's carry, dQ, dK/dV and RMSNorm launches as its
+  position implies (sp + 1 live hops a layer), ms/step beside phase
+  10's, each rank's time in collectives and staging, and one profiled
+  step on every rank. Then ``dryrun_multichip(8)`` over eight CPU
+  ranks prints its OK lines.
 - Back on one device: holds the fused cross-entropy kernel
   against its plain version row by row, and runs the flagship's
   ``graft_entry.entry()`` once in bf16 (its forward only: 4/0/0
@@ -223,6 +242,7 @@ error, time, plain and library times and its bound.
 import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -1853,6 +1873,8 @@ def run_mesh(dev, smi, n_layers, long_prompt):
                ("tokens_per_s", "ttft_us_p50", "wall_s")},
             **{f"single_{k}": single[name][k] for k in
                ("tokens_per_s", "ttft_us_p50", "wall_s")}}
+    LAST_ROWS["mesh_tokens"] = {name: meshed[name]["tokens"]
+                                for name, _ in windows}
     snap = meshed["snapshot"]
     steps = snap["shard_steps"]
     if sorted(steps) != [0, 1] or not all(s["seq_steps"] for s in
@@ -2231,6 +2253,86 @@ CORPUS_OVERLOAD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "tests", "data", "serving_corpus_overload")
 
 
+def qos_client_main(conn, corpus):
+    """The replayer's process (``QosClient``): loads the corpus, then
+    answers each (endpoint, rate multiple) with one replay's result."""
+    from brpc_tpu_torch.bench import qos_replay
+
+    recs = qos_replay.load_corpus(corpus)
+    conn.send("ready")
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            return
+        ep, mult = msg
+        try:
+            conn.send(("ok", qos_replay.replay(ep, recs, mult)))
+        except Exception as e:  # noqa: BLE001 — raised again in the parent
+            conn.send(("error", repr(e)))
+
+
+class QosClient:
+    """Phase 4j's load generator in a process of its own (spawned), so the
+    replayer's threads (its Channel, its callbacks) do not share the
+    server's interpreter lock with the engine's step loop: in one process
+    a burst of arrivals stretched the engine's steps until prod was shed
+    at 2x in some replays (PERF.md, PR 19; ``bench/qos_stalls.py``
+    compares two checkouts' phases). ``replay`` returns what
+    ``qos_replay.replay`` does."""
+
+    TIMEOUT_S = 300.0
+
+    def __init__(self, corpus):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=qos_client_main,
+                                 args=(child, corpus), daemon=True,
+                                 name="qos-client")
+        self._proc.start()
+        child.close()
+        if self._recv(120.0) != "ready":
+            raise AssertionError("the QoS client did not start")
+
+    def _recv(self, timeout):
+        if not self._conn.poll(timeout):
+            self.close()
+            raise AssertionError(f"the QoS client gave no answer in "
+                                 f"{timeout:.0f}s")
+        try:
+            return self._conn.recv()
+        except EOFError:
+            self.close()
+            raise AssertionError(f"the QoS client exited "
+                                 f"({self._proc.exitcode})") from None
+
+    def replay(self, ep, mult):
+        self._conn.send((ep, mult))
+        status, got = self._recv(self.TIMEOUT_S)
+        if status != "ok":
+            raise AssertionError(f"the QoS client's replay at {mult}x "
+                                 f"failed: {got}")
+        return got
+
+    def close(self):
+        if self._proc.is_alive():
+            try:
+                self._conn.send(None)
+            except (BrokenPipeError, OSError):
+                pass
+            self._proc.join(10)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join(10)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 class FullCollections:
     """The interpreter's full (generation 2) garbage collections while
     the context is open, each with its pause in ms: one stops every
@@ -2254,27 +2356,34 @@ class FullCollections:
         gc.callbacks.remove(self._note)
 
 
-def qos_replays(dev, qos, recs, rates):
+def qos_replays(dev, qos, client, rates):
     """One engine (``qos``) behind its Server: a discarded 2x warm-up,
-    then the corpus QOS_REPEATS times at each rate multiple. The garbage
+    then the corpus QOS_REPEATS times at each rate multiple, each replay
+    fired by ``client`` (``QosClient``) from its own process. The garbage
     of the earlier phases is collected before the measured replays: a
     full collection of this process's heap stops every thread for
     100-190 ms on the card's host, and one landing inside a 2x replay
-    sheds prod whatever the admission policy. The full
+    sheds prod whatever the admission policy, so the survivors are
+    frozen (``gc.freeze``) for the replays and unfrozen after. The full
     collections that still run inside the replays are returned with
     their pauses. Returns ({rate: [replay, ...]}, flash launches over the
     measured replays, the engine's QoS snapshot, [pause ms])."""
-    from brpc_tpu_torch.bench import qos_replay
-
     server, engine = build_shard(dev, qos=qos, engine_cfg=QOS_ENGINE)
     try:
         ep = str(server.listen_endpoint())
-        qos_replay.replay(ep, recs, 2)
+        client.replay(ep, 2)
         gc.collect()
+        # what survives (the earlier phases' heap) moves to the permanent
+        # generation: a full collection inside the replays then scans only
+        # the replays' own objects
+        gc.freeze()
         pallas_ops.launches.reset()
-        with FullCollections() as full:
-            out = {m: [qos_replay.replay(ep, recs, m)
-                       for _ in range(QOS_REPEATS)] for m in rates}
+        try:
+            with FullCollections() as full:
+                out = {m: [client.replay(ep, m)
+                           for _ in range(QOS_REPEATS)] for m in rates}
+        finally:
+            gc.unfreeze()
         engine.kv.store.fence()
         launches = pallas_ops.launches.of_thread(engine._thread.ident,
                                                  "flash_attention")
@@ -2310,16 +2419,26 @@ def run_qos(dev, smi, n_layers):
     completed request gets the ``qos=None`` engine's tokens, the kernel
     launched layers x completed requests, the starvation rule is
     installed. Printed: prod's p99 at 2x over 0.25x with and without
-    QoS beside the 1.5x bound, and where the QoS-off run breaks it."""
+    QoS beside the 1.5x bound, and where the QoS-off run breaks it. The
+    replays are fired from a client process of the phase's own
+    (``QosClient``)."""
     from brpc_tpu_torch.bench import qos_replay
+
+    recs = qos_replay.load_corpus(CORPUS_OVERLOAD)
+    row = {"card": smi, "records": len(recs), "bound": QOS_BOUND,
+           "qos": QOS_CFG, "engine": QOS_ENGINE, "client": "own process"}
+    with QosClient(CORPUS_OVERLOAD) as client:
+        return qos_phase(dev, n_layers, client, recs, row)
+
+
+def qos_phase(dev, n_layers, client, recs, row):
+    """Phase 4j's runs and gates (``run_qos``), the replays fired by
+    ``client``."""
     from brpc_tpu_torch.metrics.watch import (global_watch,
                                               install_default_rules)
     from brpc_tpu_torch.serving import QosConfig
 
-    recs = qos_replay.load_corpus(CORPUS_OVERLOAD)
-    row = {"card": smi, "records": len(recs), "bound": QOS_BOUND,
-           "qos": QOS_CFG, "engine": QOS_ENGINE}
-    off, _, _, row["off_full_gc_ms"] = qos_replays(dev, None, recs,
+    off, _, _, row["off_full_gc_ms"] = qos_replays(dev, None, client,
                                                    QOS_RATES)
     want = off[0.25][0]["records"]
     if any(code != 0 for res in off[0.25] for code, _ in res["records"]):
@@ -2330,7 +2449,7 @@ def run_qos(dev, smi, n_layers):
     if rule is None or rule.var != "g_serving_qos_max_wait_ms":
         raise AssertionError("the serving_qos_starvation rule is missing")
     on, launches, snap, row["on_full_gc_ms"] = qos_replays(
-        dev, QosConfig(**QOS_CFG), recs, QOS_RATES)
+        dev, QosConfig(**QOS_CFG), client, QOS_RATES)
     completed = 0
     for mult, replays in on.items():
         for res in replays:
@@ -2368,7 +2487,7 @@ def run_qos(dev, smi, n_layers):
     row["saturated_at_2x"] = row["prod_p99_ratio_no_qos"] > QOS_BOUND
     row["no_qos_breaks_bound_at"] = 2 if row["saturated_at_2x"] else None
     if not row["saturated_at_2x"]:
-        sweep, _, _, _ = qos_replays(dev, None, recs, QOS_SWEEP)
+        sweep, _, _, _ = qos_replays(dev, None, client, QOS_SWEEP)
         base = row["off"][0.25]["prod"]["p99_us"]
         row["no_qos_sweep"] = {m: pooled(r, recs)["prod"]["p99_us"] / base
                                for m, r in sweep.items()}
@@ -3134,6 +3253,22 @@ def no_protobuf_or_jax(where):
                  or m.startswith("google.protobuf"))
     if bad:
         raise AssertionError(f"{where}: loaded {bad}")
+
+
+def run_dryrun_ranks():
+    """``dryrun_multichip(8)`` over eight CPU ranks (gloo), as the
+    reference runs it on eight virtual CPU devices: its OK lines (the
+    sharded step, the fan-out equal to its RPC fallback, the echoes) and
+    the ranks' layout."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        graft_entry.dryrun_multichip(8)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    lines = out.splitlines()
+    if sum(" OK" in line for line in lines) != 4 or \
+            lines[-1] != "dryrun ranks: 8 ranks, layout cpu, backend gloo":
+        raise AssertionError(f"dryrun_multichip(8) printed {lines}")
 
 
 def run_dryrun_lanes():
@@ -4103,6 +4238,311 @@ def run_sharded_trainer(dev, smi, single):
     del model
     torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------- phases 10d and 4o: the mesh with a rank per position
+# eight ranks, one per position of dp2 x sp2 x tp2 (tpu/launch.py), all on
+# the one card: NCCL refuses two ranks on one device, so the layout is
+# ranks_share_card over gloo, each CUDA tensor staged through pinned host
+# memory. One launch carries both phases.
+RANK_AXES = {"dp": 2, "sp": 2, "tp": 2}
+RANK_FP32_STEPS = 3          # phase 10b's fp32 shapes, stepped on both sides
+RANK_FP32_TOL = 1e-4         # losses (relative) and parameters (absolute)
+RANK_NULL_PROGRAMS = 50      # 4o: programs timed with nothing in them
+
+
+def rank_null(mesh):
+    """A rank program that does nothing."""
+    return None
+
+
+def rank_train_launches(n_layers, coords):
+    """One rank's kernel launches in one sharded step: its ring position
+    sp runs sp + 1 live causal hops a layer, forward and backward, and
+    every rank runs each RMSNorm on its own block."""
+    hops = n_layers * (coords["sp"] + 1)
+    return {"flash_carry": hops, "flash_bwd_dq": hops,
+            "flash_bwd_dkv": hops, "rmsnorm": 2 * n_layers + 1,
+            "rmsnorm_bwd": 2 * n_layers + 1}
+
+
+def rank_device_time(prof):
+    """(kernel µs, memcpy µs, device busy µs with overlaps merged) of one
+    rank's profile: its own CUDA work, the staging copies apart. The
+    profiler files gloo's host-side waits (``gloo:*``) under the device
+    too; they are left out."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("gloo:"))
+    kernel = sum(b - a for a, b, n in spans if not n.startswith("Memcpy"))
+    memcpy = sum(b - a for a, b, n in spans if n.startswith("Memcpy"))
+    busy, end = 0.0, -math.inf
+    for a, b, _ in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return kernel, memcpy, busy
+
+
+def rank_profiled_step(mesh, key, tokens, targets):
+    """A rank program: one step of the sharded trainer under
+    torch.profiler on this rank: its wall, its device time (kernels and
+    staging copies) and its time in collectives and staging."""
+    from brpc_tpu_torch.tpu import launch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    launch.stats.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train._rank_step(mesh, key, tokens, targets)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernel, memcpy, busy = rank_device_time(prof)
+    return {"wall_us": wall_us, "device_kernel_us": kernel,
+            "device_memcpy_us": memcpy, "device_busy_us": busy,
+            **launch.stats.snapshot()}
+
+
+def rank_step_parity(dev, ranks):
+    """Phase 10d, fp32: phase 10b's fp32 configuration (the flagship's
+    widths at 2 layers, B 2, S 1024, every kernel on, TF32 off), stepped
+    RANK_FP32_STEPS times by the single-controller step over dp2 x sp2 x
+    tp2 laid on the card and by the step over the ranks, from the same
+    parameters: losses and parameters within RANK_FP32_TOL."""
+    cfg = train.ModelConfig(**FLAGSHIP, n_layers=2, use_flash_attention=True,
+                            use_pallas_norm=True, use_fused_xent=True)
+    batch = train.demo_batch(torch.Generator().manual_seed(1), cfg, 2, 1024,
+                             device=dev)
+    losses = {}
+    trees = {}
+    for name, mesh in (("replayed", card_mesh(dev, MESH_AXES)),
+                       ("ranks", ranks.mesh)):
+        model = train.TrainLM(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        step, _, _ = train.make_train_step(cfg, mesh, lr=TRAIN_LR)
+        losses[name] = [float(step(model, batch))
+                        for _ in range(RANK_FP32_STEPS)]
+        if mesh.ranked:
+            step.gather(model)
+        trees[name] = [p.detach() for p in
+                       train._leaves(model.params_tree())]
+        del model, step
+    worst = max(float((a - b).abs().max()) for a, b in
+                zip(trees["ranks"], trees["replayed"]))
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(losses["ranks"], losses["replayed"]))
+    del trees
+    torch.cuda.empty_cache()
+    if not (worst <= RANK_FP32_TOL and loss_err <= RANK_FP32_TOL):
+        raise AssertionError(f"10d fp32: ranks' losses {losses['ranks']} vs "
+                             f"replayed {losses['replayed']} (rel "
+                             f"{loss_err}), parameters max |diff| {worst}")
+    return {"steps": RANK_FP32_STEPS, "losses": losses,
+            "loss_rel_err_max": loss_err, "param_abs_err_max": worst}
+
+
+def run_rank_trainer(dev, smi, ranks, single):
+    """Phase 10d: the sharded flagship over the ranks. fp32 parity with
+    the single-controller step (``rank_step_parity``); then phase 10b's
+    bf16 main path (phase 10's model, batch, lr and steps) through
+    ``train.make_train_step`` over the ranks: held at its shapes as 10b
+    holds it (``hold_sharded_bf16``), every rank's counts reset just
+    before the steps and read just after, each rank's launches as its
+    position implies (``rank_train_launches``), losses finite, falling
+    and within rtol 1e-4 of phase 10's; ms/step beside phase 10's, each
+    rank's time in collectives and staging per step, and one profiled
+    step on every rank."""
+    fp32 = rank_step_parity(dev, ranks)
+    cfg = train.ModelConfig(**FLAGSHIP, n_layers=TRAIN_LAYERS,
+                            dtype=torch.bfloat16, use_flash_attention=True,
+                            use_pallas_norm=True, use_fused_xent=True)
+    model = train.TrainLM(cfg, torch.Generator().manual_seed(0), device=dev)
+    batch = train.demo_batch(torch.Generator().manual_seed(1), cfg, TRAIN_B,
+                             TRAIN_S, device=dev)
+    held_bf16 = hold_sharded_bf16(model, batch, ranks.mesh)
+    step, _, _ = train.make_train_step(cfg, ranks.mesh, lr=TRAIN_LR)
+    step.load(model)
+    ranks.stats(reset=True)
+    ranks.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)))  # waits for every rank
+        step_s.append(time.perf_counter() - t0)
+    counts = ranks.launches()
+    rank_stats = ranks.stats(reset=True)
+    m = ranks.mesh
+    for r, got in enumerate(counts):
+        want = rank_train_launches(TRAIN_LAYERS, m.coords(r))
+        expect_launches({k: v / TRAIN_STEPS for k, v in got.items()}, want,
+                        f"10d rank {r} {m.coords(r)} launches per step")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"10d losses {losses}: not finite or not "
+                             f"falling")
+    for mine, theirs in zip(losses, single["losses"]):
+        if not abs(mine - theirs) <= 1e-4 * abs(theirs):
+            raise AssertionError(f"10d losses {losses} vs one device's "
+                                 f"{single['losses']}")
+    tokens, targets = (t.cpu() for t in batch)
+    profiled = ranks.run(rank_profiled_step, step.key, tokens, targets)
+    ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+    stats = {
+        "card": smi, "ranks": ranks.describe(), "fp32": fp32,
+        "held_bf16": held_bf16, "losses": losses, "step_s": step_s,
+        "ms_per_step_median": ms,
+        "tokens_per_s": TRAIN_B * TRAIN_S / ms * 1e3,
+        "single_device_ms_per_step": single["ms_per_step_median"],
+        "ms_ratio_to_single": ms / single["ms_per_step_median"],
+        "launches_per_rank": counts,
+        "per_rank_per_step": [
+            {"coords": m.coords(r),
+             "collective_ms": st["collective_s"] * 1e3 / TRAIN_STEPS,
+             "staging_ms": st["staging_s"] * 1e3 / TRAIN_STEPS,
+             "staged_mib": st["staged_bytes"] / TRAIN_STEPS / 2 ** 20,
+             "collectives": st["collectives"] / TRAIN_STEPS,
+             "profiled_step": prof}
+            for r, (st, prof) in enumerate(zip(rank_stats, profiled))],
+    }
+    print(json.dumps({"rank_trainer": stats}), flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rank_windows(dev, ranks, windows):
+    """Phase 4g's mesh engine (llm_server widths, ShardedKVCache 256 x 16
+    per shard, armed, prefix cache off) over the ranks: each window's
+    tokens, stats, the shard of each request, and every rank's launches
+    (all ranks' counts reset just before its requests, read just
+    after); the audit of every decode step on rank 0's engine thread."""
+    from brpc_tpu_torch.serving import MeshTransformer, ShardedKVCache
+
+    cfg = ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=2,
+                      max_context=1024, seed=0, attn="auto",
+                      ring_threshold=4096)
+    kv = ShardedKVCache(KVCacheConfig(block_size=16, num_blocks=256),
+                        cfg.n_layers, cfg.kv_dim, mesh=ranks.mesh)
+    kv._check = True
+    model = MeshTransformer(cfg, kv)
+    engine = ServingEngine(model, kv, EngineConfig(
+        max_batch=8, token_budget=TOKEN_BUDGET, idle_wait_s=0.001),
+        prefix_cache=False).start()
+    deltas = audit_steps(engine)
+    out = {}
+    try:
+        serve(engine, [(16, 2)])  # warm-up, uncounted
+        for name, requests in windows:
+            ranks.reset_launches()
+            seqs = []
+            results, wall = serve(engine, requests, seqs=seqs)
+            engine.kv.store.fence()
+            row = window_stats(results, wall)
+            row["tokens"] = [r.tokens for r in results]
+            row["shards"] = [kv.shard_of(q.seq_id) for q in seqs]
+            row["launches"] = [c.get("flash_attention", 0)
+                               for c in ranks.launches()]
+            out[name] = row
+        snap = engine.snapshot()
+    finally:
+        engine.stop()
+    kv.assert_idle("after the 4o windows")
+    model.close()
+    kv.close()
+    out["snapshot"] = snap
+    out["step_audit"] = deltas
+    return out
+
+
+def run_rank_serving(dev, smi, ranks, n_layers, direct, mesh_row,
+                     mesh_tokens):
+    """Phase 4o: mesh serving over the ranks. Phase 4g's windows
+    (PROMPT_LENS, the corpus schedule twice) through the MeshTransformer
+    whose dp shards' pools live on their own ranks: tokens equal phase
+    4g's and, on PROMPT_LENS, phase 4's; the serving kernel launched by
+    each tp rank at sp 0 of a request's shard once a layer, 0 times
+    elsewhere (so n_layers x prefills per tp index over the dp shards);
+    every decode step (1, 1) on rank 0's engine thread; tokens/s and
+    TTFT beside 4g's."""
+    windows = [("prompt_lens", list(zip(PROMPT_LENS, MAX_NEW))),
+               ("corpus_1", CORPUS_SCHEDULE), ("corpus_2", CORPUS_SCHEDULE)]
+    got = rank_windows(dev, ranks, windows)
+    m = ranks.mesh
+    row = {"card": smi, "ranks": ranks.describe()}
+    for name, requests in windows:
+        w = got[name]
+        if w["tokens"] != mesh_tokens[name]:
+            raise AssertionError(f"4o {name}: tokens {w['tokens']} != "
+                                 f"phase 4g's {mesh_tokens[name]}")
+        if name == "prompt_lens" and \
+                w["tokens"] != [list(r.tokens) for r in direct]:
+            raise AssertionError(f"4o prompt_lens: tokens {w['tokens']} "
+                                 f"!= phase 4's")
+        want = []
+        for r in range(m.devices.size):
+            c = m.coords(r)
+            prefills = sum(1 for sh in w["shards"] if sh == c["dp"])
+            want.append(n_layers * prefills if c["sp"] == 0 else 0)
+        if w["launches"] != want:
+            raise AssertionError(f"4o {name}: flash launches per rank "
+                                 f"{w['launches']}, want {want}")
+        per_tp = [sum(n for r, n in enumerate(w["launches"])
+                      if m.coords(r)["tp"] == t)
+                  for t in range(m.shape["tp"])]
+        if per_tp != [n_layers * len(requests)] * m.shape["tp"]:
+            raise AssertionError(f"4o {name}: per tp rank {per_tp}")
+        g = mesh_row[name]
+        row[name] = {
+            "launches_per_rank": w["launches"], "launches_per_tp": per_tp,
+            **{f"ranks_{k}": w[k] for k in ("tokens_per_s", "ttft_us_p50",
+                                            "wall_s")},
+            **{f"4g_{k}": g[f"mesh_{k}"] for k in ("tokens_per_s",
+                                                  "ttft_us_p50", "wall_s")},
+            "tokens_per_s_over_4g": w["tokens_per_s"] / g[
+                "mesh_tokens_per_s"]}
+    audit = got["step_audit"]
+    if not audit or any(d != (1, 1) for d in audit):
+        raise AssertionError(f"4o decode steps not (1, 1): {audit}")
+    # what one program costs with no work in it: the header broadcast,
+    # every rank's call and the gather to rank 0
+    rtt = []
+    for _ in range(RANK_NULL_PROGRAMS):
+        t0 = time.perf_counter()
+        ranks.run(rank_null)
+        rtt.append((time.perf_counter() - t0) * 1e3)
+    row["null_program_ms_p50"] = pct(rtt, 50)
+    steps = got["snapshot"]["shard_steps"]
+    if sorted(steps) != [0, 1] or not all(s["seq_steps"] for s in
+                                          steps.values()):
+        raise AssertionError(f"4o: both shards must serve: {steps}")
+    row.update(decode_steps_audited=len(audit), shard_steps=steps)
+    print(json.dumps({"rank_serving": row}), flush=True)
+    return [sum(w) for w in zip(*(got[n]["launches"] for n, _ in windows))]
+
+
+def run_ranks(dev, smi, n_layers, direct, mesh_row, single):
+    """Phases 4o and 10d over one launch of eight ranks sharing the card;
+    the ranks' layout and backend printed first, the group closed at the
+    end (its workers stopped)."""
+    from brpc_tpu_torch.tpu import launch
+
+    t0 = time.perf_counter()
+    with launch.launch(RANK_AXES, device="cuda") as ranks:
+        d = ranks.describe()
+        if (d["layout"], d["backend"]) != ("ranks_share_card", "gloo"):
+            raise AssertionError(f"ranks on one card: {d}")
+        print(json.dumps({"ranks": dict(d, card=smi, start_s=
+                                        time.perf_counter() - t0)}),
+              flush=True)
+        serving = run_rank_serving(dev, smi, ranks, n_layers, direct,
+                                   mesh_row, LAST_ROWS["mesh_tokens"])
+        training = run_rank_trainer(dev, smi, ranks, single)
+    log(f"phases 4o and 10d over ranks in {time.perf_counter() - t0:.1f}s")
+    return serving, training
 
 
 # ---------------------------------------------------------------------------
@@ -5464,8 +5904,11 @@ def main():
     counts, single = run_trainer(dev, smi)
     sharded_parity(dev)
     sharded_counts = run_sharded_trainer(dev, smi, single)
+    rank_serving, rank_counts = run_ranks(dev, smi, n_layers, auto, mesh,
+                                          single)
     xent = check_xent(dev)
     run_graft_entry(dev)
+    run_dryrun_ranks()
     run_dryrun_lanes()
     qgrid = check_qgrid(dev)
     carry = check_carry(dev)
@@ -5516,8 +5959,14 @@ def main():
             e["launches_examples"] = example_launches[e["name"]]
         if e["name"] in ("flash_carry", "flash_bwd_dq", "flash_bwd_dkv"):
             e["launches_mesh_ring"] = mesh["ring"]["launches"][e["name"]]
+        if e["name"] == "flash_attention":
+            # phase 4o: each rank's launches over its windows
+            e["launches_mesh_ranks"] = rank_serving
         if e["name"] in ("rmsnorm", "rmsnorm_bwd", "flash_carry",
                          "flash_bwd_dq", "flash_bwd_dkv"):
+            # phase 10d: each rank's launches over the steps
+            e["launches_rank_train"] = [c.get(e["name"], 0)
+                                        for c in rank_counts]
             e["launches_sharded_train"] = sharded_counts[e["name"]]
             e["launches_sharded_train_per_step"] = (
                 sharded_counts[e["name"]] / TRAIN_STEPS)

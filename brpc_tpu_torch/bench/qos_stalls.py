@@ -64,7 +64,8 @@ class Stalls:
     def __enter__(self):
         gc.callbacks.append(self._gc)
         self._series.tick = self._timed_tick
-        threading.Thread(target=self._watch, daemon=True).start()
+        threading.Thread(target=self._watch, name="qos-stall-watch",
+                         daemon=True).start()
         return self
 
     def __exit__(self, *exc):

@@ -82,7 +82,8 @@ def closed_loop(n, one):
                 return
             rows[i] = one(i)
 
-    threads = [threading.Thread(target=worker) for _ in range(CONCURRENCY)]
+    threads = [threading.Thread(target=worker, name=f"rpc-front-{i}")
+               for i in range(CONCURRENCY)]
     for t in threads:
         t.start()
     for t in threads:

@@ -230,7 +230,8 @@ def run_calls(stub, payload, threads, calls):
         except BaseException as e:  # noqa: BLE001
             failures.append(e)
 
-    ts = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    ts = [threading.Thread(target=worker, args=(i,), name=f"echo-{i}")
+          for i in range(threads)]
     for t in ts:
         t.start()
     barrier.wait()

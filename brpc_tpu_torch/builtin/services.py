@@ -6,10 +6,10 @@ User-Agent). Registered into the brpc_tpu_torch.builtin registry at import.
 
 The port's copy of the JAX package's ``builtin/services.py``: every page
 it registers is here. ``/fleet`` and ``/slo`` read the fleet observer and
-the SLO engine, which wait for ROADMAP Queue 1 item 2(b)10; until then
-each answers 501 naming that item. ``/serving`` reads each engine's
-host-side counters (``ServingEngine.snapshot``), never a device tensor,
-so a fetch issues no device sync.
+the SLO engine (``fleet/``), ``/tpu`` carries the shard plane's section
+when the server runs one. ``/serving`` reads each engine's host-side
+counters (``ServingEngine.snapshot``), never a device tensor, so a fetch
+issues no device sync.
 """
 
 from __future__ import annotations
@@ -161,9 +161,8 @@ def vars_service(server, http: HttpMessage):
         glob = http.query.get("name", "*")
         dump = global_series().dump(glob)
         return 200, CONTENT_JSON, json.dumps(
-            # shard workers reporting: the sharded dispatch plane is not
-            # ported (ROADMAP Queue 1 item 2(b)9), so none
-            {"workers": 0,
+            {"workers": getattr(server, "shard_worker_count", 0)
+             if server is not None else 0,
              "series": dump,
              # exact last values + merge op + prometheus type per var —
              # the fleet observer's scrape unit (Adder sums over members
@@ -455,6 +454,9 @@ def tpu_service(server, http: HttpMessage):
 
     state["wakeup"] = _wakeup.stats()
     state["rtc"] = _rtc.stats()
+    plane = getattr(server, "_shard_plane", None) if server else None
+    if plane is not None:
+        state["shard"] = plane.state_dict()
     if http.query.get("format", "") == "json":
         return 200, CONTENT_JSON, json.dumps(state, indent=2) + "\n"
 
@@ -524,6 +526,25 @@ def tpu_service(server, http: HttpMessage):
             f"  {name}: ema_us={m['ema_us']} samples={m['samples']} "
             f"hits={m['hits']} demoted={m['demoted']} "
             f"opted_in={m['opted_in']}")
+    shard = state.get("shard")
+    if shard is not None:
+        lines.append("")
+        lines.append("== shard plane ==")
+        lines.append(
+            f"workers={shard['workers_configured']} "
+            f"generation={shard['generation']} "
+            f"forwarded={shard['forwarded']} "
+            f"fallback={shard['fallback']} "
+            f"fanin_batches={shard['fanin_batches']} "
+            f"fanin_frames={shard['fanin_frames']}")
+        for wd in shard["workers"]:
+            lines.append(
+                f"  {wd['role']}: pid={wd['pid']} alive={wd['alive']} "
+                f"gen={wd['gen']} respawns={wd['respawns']} "
+                f"inflight_cids={wd['inflight_cids']} "
+                f"lease_held={wd['lease_held']} "
+                f"lease_free={wd['lease_free']} "
+                f"dispatched={wd['dispatched']}")
     return 200, CONTENT_TEXT, "\n".join(lines) + "\n"
 
 
@@ -759,23 +780,96 @@ def serving_service(server, http: HttpMessage):
     return 200, CONTENT_TEXT, "\n".join(out) + "\n"
 
 
-# ----------------------------------------------------------------- fleet, slo
-NOT_IMPLEMENTED = 501
-
-
+# --------------------------------------------------------------------- fleet
 def fleet_service(server, http: HttpMessage):
-    """The fleet observer's page (the reference's member table, cluster
-    vars and stitched traces): not ported yet."""
-    return NOT_IMPLEMENTED, CONTENT_TEXT, (
-        "/fleet: the fleet observer is not ported (ROADMAP Queue 1 item "
-        "2(b)10)\n")
+    """Fleet observer state: per-member liveness/staleness, cluster_* var
+    coverage, serving shard-map union, fleet-wide firing rules.
+
+    GET /fleet                      member table + cluster summary
+        ?format=json                structured snapshot
+    GET /fleet/trace/<trace_id>     retained trace stitched across live
+                                    members (merge_trace_docs), JSON
+    """
+    from brpc_tpu_torch.fleet.observer import global_observer
+
+    obs = global_observer()
+    sub = _sub_path(http)
+    if sub.startswith("trace/"):
+        if obs is None:
+            return 404, CONTENT_TEXT, "no fleet observer running\n"
+        doc = obs.fleet_trace(sub[len("trace/"):])
+        if not doc.get("spans"):
+            return 404, CONTENT_TEXT, "no spans on any live member\n"
+        return 200, CONTENT_JSON, json.dumps(doc, indent=2) + "\n"
+    if sub:
+        return 404, CONTENT_TEXT, f"no /fleet/{sub}\n"
+    if obs is None:
+        return 200, CONTENT_TEXT, (
+            "no fleet observer running\n"
+            "(FleetObserver('list://h1:p1,h2:p2').start() then "
+            "set_global_observer(obs))\n")
+    doc = obs.to_dict()
+    if http.query.get("format", "") == "json":
+        return 200, CONTENT_JSON, json.dumps(doc, indent=2) + "\n"
+    lines = [f"fleet: {doc['live']}/{len(doc['members'])} members live, "
+             f"{doc['cluster_vars']} cluster vars, "
+             f"scrape interval {doc['interval_s']:g}s",
+             "",
+             f"{'member':24} {'state':7} {'age_s':>8} {'ok':>6} "
+             f"{'fail':>6} {'vars':>6}  firing"]
+    for m in doc["members"]:
+        state = "live" if m["live"] else (
+            "stale" if m["stale"] else "down")
+        age = f"{m['age_s']:.1f}" if m["age_s"] is not None else "-"
+        lines.append(
+            f"{m['addr']:24} {state:7} {age:>8} {m['scrapes_ok']:>6} "
+            f"{m['scrapes_failed']:>6} {m['vars']:>6}  "
+            f"{','.join(m['firing']) or '-'}")
+        if m["last_error"]:
+            lines.append(f"  last_error: {m['last_error']}")
+    if doc["serving_shards"]:
+        lines.append("")
+        lines.append("== serving shard map (union) ==")
+        for key, shard in sorted(doc["serving_shards"].items()):
+            lines.append(f"{key} -> {shard}")
+    return 200, CONTENT_TEXT, "\n".join(lines) + "\n"
 
 
+# ----------------------------------------------------------------------- slo
 def slo_service(server, http: HttpMessage):
-    """SLO objectives and their burn rates: not ported yet."""
-    return NOT_IMPLEMENTED, CONTENT_TEXT, (
-        "/slo: the SLO engine is not ported (ROADMAP Queue 1 item "
-        "2(b)10)\n")
+    """SLO objectives and their error-budget burn rates (?format=json)."""
+    from brpc_tpu_torch.fleet.slo import global_slo
+
+    doc = global_slo().to_dict()
+    if http.query.get("format", "") == "json":
+        return 200, CONTENT_JSON, json.dumps(doc, indent=2) + "\n"
+    if not doc["objectives"]:
+        return 200, CONTENT_TEXT, (
+            "no slo objectives installed\n"
+            "(set the slo_objectives flag: "
+            "'name:var=<stem>,bound_ms=...,objective=...')\n")
+    lines = [f"burn threshold: {doc['threshold']:g}  "
+             f"(series source: {doc['source']})",
+             "",
+             f"{'objective':20} {'burn':>8} {'fast':>8} {'slow':>8} "
+             f"{'budget':>8}  rule"]
+    for o in doc["objectives"]:
+        rule = o.get("rule") or {}
+        lines.append(
+            f"{o['name']:20} {o['burn']:>8.3f} {o['burn_fast']:>8.3f} "
+            f"{o['burn_slow']:>8.3f} {o['budget_left']:>8.3f}  "
+            f"{rule.get('state', 'no rule')}")
+        bound = o["latency_bound_us"]
+        parts = []
+        if o["latency_var"] and bound:
+            parts.append(f"p99({o['latency_var']}) <= {bound:g}us")
+        if o["errors_var"]:
+            parts.append(f"errors({o['errors_var']}/{o['total_var']})")
+        tenant = f" tenant={o['tenant']}" if o["tenant"] else ""
+        lines.append(f"  {' and '.join(parts)} for >= "
+                     f"{1.0 - o['objective']:.2%} of seconds{tenant} "
+                     f"(windows {o['fast_window_s']}s/{o['slow_window_s']}s)")
+    return 200, CONTENT_TEXT, "\n".join(lines) + "\n"
 
 
 # -------------------------------------------------------------------- logoff
@@ -823,7 +917,8 @@ register_builtin("serving", serving_service,
                  "depth, step timings, qos tenant lanes, per-shard "
                  "occupancy/latency (?format=json)")
 register_builtin("fleet", fleet_service,
-                 "fleet observer (not ported: ROADMAP Queue 1 item 2(b)10)")
+                 "fleet observer: member liveness, cluster_* merge, "
+                 "serving shard union (/fleet/trace/<tid>, ?format=json)")
 register_builtin("slo", slo_service,
-                 "slo objectives and error-budget burn rates (not ported: "
-                 "ROADMAP Queue 1 item 2(b)10)")
+                 "slo objectives and error-budget burn rates "
+                 "(?format=json)")

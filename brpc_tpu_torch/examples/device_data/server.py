@@ -35,7 +35,9 @@ def main(argv=None):
     stop = []
     signal.signal(signal.SIGINT, lambda *a: stop.append(1))
     signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
-    while not stop:
+    # signal.pause() parks the thread until SIGINT/SIGTERM arrives; each wakeup
+    # re-tests the flag the handler set
+    while not stop:  # tpulint: disable=bounded-spin
         signal.pause()
     server.stop()
     server.join()

@@ -107,7 +107,7 @@ def main(argv=None):
         def run(i=i):
             rc[i] = _run_one(stub, args.prompt_len + i,
                              args.max_new_tokens, f"req{i}")
-        t = threading.Thread(target=run)
+        t = threading.Thread(target=run, name=f"generate-{i}")
         t.start()
         threads.append(t)
     for t in threads:

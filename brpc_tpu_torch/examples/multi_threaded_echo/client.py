@@ -37,13 +37,16 @@ def main(argv=None):
 
     def worker():
         req = echo_pb2.EchoRequest(message="bench", payload=payload)
-        while not stop.is_set():
+        # a load generator: each iteration blocks in one synchronous Echo RPC
+        # until its response arrives
+        while not stop.is_set():  # tpulint: disable=bounded-spin
             try:
                 stub.Echo(req)
             except RpcError:
                 errors_seen[0] += 1
 
-    threads = [threading.Thread(target=worker) for _ in range(args.threads)]
+    threads = [threading.Thread(target=worker, name=f"echo-{i}")
+               for i in range(args.threads)]
     for t in threads:
         t.start()
     deadline = time.time() + args.seconds

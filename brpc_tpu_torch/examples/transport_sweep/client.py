@@ -48,7 +48,9 @@ def run_size(stub, size, threads, seconds, use_attachment):
     lats = [[] for _ in range(threads)]
 
     def worker(idx):
-        while not stop.is_set():
+        # a load generator: each iteration blocks in one synchronous Echo RPC
+        # until its response arrives
+        while not stop.is_set():  # tpulint: disable=bounded-spin
             t0 = time.perf_counter()
             if use_attachment:
                 cntl = Controller()
@@ -61,7 +63,8 @@ def run_size(stub, size, threads, seconds, use_attachment):
                 assert len(r.payload) == size
             lats[idx].append(time.perf_counter() - t0)
 
-    ts = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    ts = [threading.Thread(target=worker, args=(i,), name=f"sweep-{i}")
+          for i in range(threads)]
     t0 = time.perf_counter()
     for t in ts:
         t.start()

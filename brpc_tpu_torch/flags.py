@@ -237,10 +237,36 @@ rtc_max_body = define(
     "ride the run-to-completion path", validator=_positive)
 tpu_shard_workers = define(
     "tpu_shard_workers", 0,
-    "spread the Python service lane over this many worker OS processes; "
-    "the sharded dispatch plane is not ported, so Server.start refuses "
-    "any value above 0 (ROADMAP Queue 1 item 2(b)9)",
-    validator=_non_negative)
+    "spread the Python service lane over this many worker OS processes "
+    "(cid-sharded dispatch plane); 0 disables sharding entirely — the "
+    "in-process dispatch path is untouched", validator=_non_negative)
+tpu_shard_rebalance_pct = define(
+    "tpu_shard_rebalance_pct", 60,
+    "reclaim lease credits from a sibling worker only when its idle "
+    "share exceeds this percent of a fair per-worker split (lower = "
+    "eager rebalancing, higher = less reclaim churn)",
+    validator=lambda v: 0 < v <= 100)
+tpu_shard_respawn_backoff_ms = define(
+    "tpu_shard_respawn_backoff_ms", 50,
+    "base backoff before respawning a dead shard worker (multiplied by "
+    "the slot's respawn count)", validator=_positive)
+tpu_shard_respawn_max = define(
+    "tpu_shard_respawn_max", 3,
+    "stop respawning a worker slot after this many deaths; its cids "
+    "then route to in-process fallback", validator=_non_negative)
+tpu_shard_ring_mb = define(
+    "tpu_shard_ring_mb", 4,
+    "size in MiB of each parent<->worker shm doorbell ring",
+    validator=_positive)
+tpu_shard_forward_max = define(
+    "tpu_shard_forward_max", 128 * 1024,
+    "requests larger than this stay on the in-process dispatch path "
+    "(forwarding copies the frame through the shm ring once)",
+    validator=_positive)
+shard_vars_interval_s = define(
+    "shard_vars_interval_s", 1.0,
+    "seconds between W_VARS windowed var snapshots a shard worker ships "
+    "to the parent for fleet-wide /vars aggregation", validator=_positive)
 serving_shard_skew_ratio = define(
     "serving_shard_skew_ratio", 0.25,
     "serving_shard_skew watch rule fires when any KV shard's occupancy "

@@ -14,9 +14,10 @@ can't flap a rule. Transitions bump ``g_watch_transitions``, update the
 ``/watch`` builtin, and emit a short structured span (service ``watch``) so
 firings land in the span DB, ``/rpcz`` and OTLP export.
 
-``install_default_rules()`` pre-wires the canonical failure signals over the
-variables the port exports: the server's deadline-expiry rate, the prefix
-cache's eviction rate and the speculative lane's accept rate.
+``install_default_rules()`` pre-wires the plane's canonical failure signals:
+deadline-expiry rate, tunnel healer trips, block-pool/credit exhaustion,
+shard worker death and the serving plane's KV, shard, prefix, migration,
+speculative and QoS signals.
 """
 
 from __future__ import annotations
@@ -269,14 +270,26 @@ def install_default_rules() -> None:
 
 
 def _add_default_rules() -> None:
-    # the rules over variables the port exports; the reference's tunnel,
-    # shard-worker, KV-exhaustion and QoS rules come back when their
-    # variables are ported
+    # the reference's rules, in its order
     from brpc_tpu_torch import flags as _flags
     w = _global_watch
     w.add(WatchRule(
         "deadline_expiry_rate", "g_server_deadline_expired", KIND_RATE,
         ">", 0.5, window_s=10, for_ticks=2, clear_ticks=5))
+    w.add(WatchRule(
+        "tunnel_healer_trips", "g_tunnel_reconnect_failures", KIND_DELTA,
+        ">=", 1, window_s=30, for_ticks=1, clear_ticks=5))
+    w.add(WatchRule(
+        "block_pool_exhaustion", "g_tunnel_credit_stalls", KIND_RATE,
+        ">", 10, window_s=10, for_ticks=2, clear_ticks=5))
+    w.add(WatchRule(
+        "shard_worker_death", "g_shard_worker_deaths", KIND_DELTA,
+        ">=", 1, window_s=60, for_ticks=1, clear_ticks=10))
+    # serving plane: sustained admission rejects mean the paged KV pool is
+    # pinned above its watermark, clients are being shed EOVERCROWDED
+    w.add(WatchRule(
+        "serving_kv_exhaustion", "g_serving_kv_admission_rejects",
+        KIND_DELTA, ">=", 1, window_s=10, for_ticks=1, clear_ticks=5))
     # sharded serving: one KV shard filling while its siblings idle means
     # routing (or a hot sequence) is concentrating load. Bound: the
     # reloadable serving_shard_skew_ratio flag

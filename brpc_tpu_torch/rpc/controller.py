@@ -228,7 +228,7 @@ class Controller:
             _cid.id_error(cid, rc)
 
     # ----------------------------------------------------- error/retry logic
-    def _on_id_error(self, code: int) -> None:
+    def _on_id_error(self, code: int, text: str = "") -> None:
         """Runs with the call-id lock held."""
         if self._finished:
             _cid.id_unlock(self._call_id)
@@ -271,13 +271,20 @@ class Controller:
             self._issue_rpc()
             _cid.id_unlock(self._call_id)
             return
-        self.set_failed(code)
+        self.set_failed(code, text)
         self._finish_locked()
 
     def _on_response(self, meta, payload: bytes, attachment: bytes) -> None:
         """Runs with the call-id lock held (version already verified)."""
         if self._finished:
             _cid.id_unlock(self._call_id)
+            return
+        if meta.response.error_code == errors.EFAILEDSOCKET:
+            # the server's lane to the handler failed before it answered
+            # (a shard worker died with the call): a socket failure, so
+            # the retry policy and max_retry decide, as on the fast path
+            self._on_id_error(errors.EFAILEDSOCKET,
+                              meta.response.error_text)
             return
         if meta.response.error_code != errors.OK:
             self.set_failed(meta.response.error_code,

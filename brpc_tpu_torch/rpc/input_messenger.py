@@ -139,6 +139,15 @@ class InputMessenger:
         if batch_hook is not None:
             batch_hook.cut_batch_begin()
         try:
+            # sharded dispatch plane: an adopted tunnel endpoint skims
+            # complete cid-addressed request frames to worker processes
+            # BEFORE the in-process parser sees them (never mid-body —
+            # a pending cursor owns the stream until it completes). The
+            # pump never blocks: it pushes to a shm ring or declines.
+            lane = getattr(sock, "shard_lane", None)
+            if lane is not None and getattr(sock, "pending_body",
+                                            None) is None:
+                count += lane.pump(sock)
             while True:
                 # streaming parse: a protocol that cracked a header but saw
                 # an incomplete body registered a pending-body cursor; feed

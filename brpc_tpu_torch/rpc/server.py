@@ -17,8 +17,9 @@ engine's TPUC tunnel on a native listener). ``start`` adds the builtin
 Health and view services, as the reference does; Health answers over
 trpc_std, gRPC and HTTP. The byte-service protocols (redis, mongo, rtmp,
 thrift, nshead) answer through the handler registries that
-``ServerOptions`` names. The sharded dispatch plane (item 2(b)9) is not ported yet and
-raises at ``start``.
+``ServerOptions`` names. With ``tpu_shard_workers > 0`` the sharded dispatch
+plane (``shard/``) spawns its workers at ``start`` and adopts every tunnel
+endpoint, whose small unary requests its workers then answer.
 """
 
 from __future__ import annotations
@@ -211,6 +212,11 @@ class ServerOptions:
     # handler issuing a sync downstream RPC would deadlock the process's
     # completion loop. Off = fast requests run on a dispatch worker.
     usercode_inline: bool = False
+    # sharded dispatch plane (brpc_tpu_torch/shard): "module:attr" naming
+    # the factory each worker process calls to build its service list.
+    # Only consulted when tpu_shard_workers > 0; None = default echo
+    # factory.
+    shard_factory: Optional[str] = None
 
 
 class Server:
@@ -234,6 +240,7 @@ class Server:
         self._method_cache = {}         # (service, method) -> MethodEntry
         self._ssl_ctx = None            # built lazily from options.ssl
         self._master_service = None     # catch-all generic service
+        self._shard_plane = None        # sharded dispatch plane (shard/)
         self._native_lid = None         # native dataplane listener id
         self._native_dp = None
         self._native_echoes = []        # (service, method) C++ fast paths
@@ -250,6 +257,13 @@ class Server:
             # settle-time retention front of the same dump stream; inert
             # until the reloadable rpc_dump_tail flag turns it on
             self.tail_retainer = TailRetainer(self.rpc_dumper)
+
+    @property
+    def shard_worker_count(self) -> int:
+        """Shard workers currently reporting W_VARS snapshots (the
+        ``workers=N`` of the fleet-aggregated /vars view)."""
+        plane = self._shard_plane
+        return plane.fleet.workers_reporting() if plane is not None else 0
 
     # -------------------------------------------------------------- services
     def set_master_service(self, service: "Service") -> "Server":
@@ -306,11 +320,14 @@ class Server:
         install_default_rules()
         from brpc_tpu_torch import flags as _flags
 
-        # not ported yet: refused, never passed over
-        if int(_flags.get("tpu_shard_workers")) > 0:
-            raise NotImplementedError(
-                "tpu_shard_workers > 0: the sharded dispatch plane is not "
-                "ported (ROADMAP Queue 1 item 2(b)9)")
+        if (self._shard_plane is None
+                and int(_flags.get("tpu_shard_workers")) > 0):
+            # sharded dispatch plane: worker processes spawn now so they
+            # are READY by the time the first tunnel endpoint is adopted
+            from brpc_tpu_torch.shard.plane import ShardPlane
+
+            self._shard_plane = ShardPlane(
+                server=self, factory=self.options.shard_factory)
         if "Health" not in self._services:
             # builtin grpc.health.v1.Health (reference server.cpp:499-601
             # AddBuiltinServices / grpc_health_check_service); served over
@@ -496,6 +513,11 @@ class Server:
             conns = list(self._connections)
             eps = list(self._tpu_endpoints)
             self._tpu_endpoints.clear()
+        if self._shard_plane is not None:
+            # BEFORE endpoint close: leased credits must be home when the
+            # CreditLedger audits each window at teardown
+            self._shard_plane.shutdown()
+            self._shard_plane = None
         for e in eps:
             e.close()   # BYE + pool teardown; also fails the bootstrap conn
         for c in conns:
@@ -632,6 +654,8 @@ class Server:
     def _register_tpu_endpoint(self, ep) -> None:
         with self._conn_lock:
             self._tpu_endpoints.add(ep)
+        if self._shard_plane is not None:
+            self._shard_plane.adopt_endpoint(ep)
 
     def connection_count(self) -> int:
         with self._conn_lock:

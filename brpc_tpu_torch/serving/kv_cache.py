@@ -61,9 +61,31 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from brpc_tpu_torch.metrics.reducer import Adder
 from brpc_tpu_torch.metrics.status import PassiveStatus
 from brpc_tpu_torch.tpu import launch
 from brpc_tpu_torch.tpu.device_lane import global_store, resolve_device
+
+
+g_serving_kv_block_allocs = Adder("g_serving_kv_block_allocs")
+g_serving_kv_block_frees = Adder("g_serving_kv_block_frees")
+g_serving_kv_admission_rejects = Adder("g_serving_kv_admission_rejects")
+
+_caches: "weakref.WeakSet[PagedKVCache]" = weakref.WeakSet()
+
+
+def _sum_caches(attr) -> int:
+    return sum(attr(c) for c in list(_caches))
+
+
+g_serving_kv_blocks_total = PassiveStatus(
+    lambda: _sum_caches(lambda c: c.num_blocks)) \
+    .expose("g_serving_kv_blocks_total")
+g_serving_kv_blocks_total.prometheus_type = "gauge"
+g_serving_kv_blocks_used = PassiveStatus(
+    lambda: _sum_caches(lambda c: c.used_blocks)) \
+    .expose("g_serving_kv_blocks_used")
+g_serving_kv_blocks_used.prometheus_type = "gauge"
 
 
 class KVCacheFull(Exception):
@@ -129,6 +151,10 @@ class PagedKVCache:
         self.admission_rejects = 0
         self.cow_splits = 0
         self._check = os.environ.get("BRPC_TPU_CHECK", "") == "1"
+        if device_pools:
+            # ledger-only shards are accounted by their ShardedKVCache,
+            # not double-counted in the fleet totals
+            _caches.add(self)
 
     # ------------------------------------------------------------- geometry
     @property
@@ -176,6 +202,7 @@ class PagedKVCache:
     def note_rejected(self) -> None:
         with self._lock:
             self.admission_rejects += 1
+        g_serving_kv_admission_rejects.put(1)
 
     # ----------------------------------------------------------- block ops
     def _take_block_locked(self) -> int:
@@ -203,12 +230,14 @@ class PagedKVCache:
                 raise ValueError(f"sequence {seq_id} already has a table")
             if len(self._free) < need:
                 self.admission_rejects += 1
+                g_serving_kv_admission_rejects.put(1)
                 raise KVCacheFull(
                     f"need {need} blocks, {len(self._free)} free")
             table = [self._take_block_locked() for _ in range(need)]
             self._tables[seq_id] = table
             self._seq_len[seq_id] = ntokens
             self._audit_locked()
+        g_serving_kv_block_allocs.put(need)
         return list(table)
 
     def extend_sequence(self, seq_id: int, new_len: int) -> List[int]:
@@ -219,11 +248,15 @@ class PagedKVCache:
             if table is None:
                 raise KeyError(f"unknown sequence {seq_id}")
             need = self.blocks_for(new_len)
+            grew = 0
             while len(table) < need:
                 table.append(self._take_block_locked())
+                grew += 1
             self._seq_len[seq_id] = new_len
             self._quiesced.discard(seq_id)
             self._audit_locked()
+        if grew:
+            g_serving_kv_block_allocs.put(grew)
         return list(table)
 
     def truncate_sequence(self, seq_id: int, new_len: int) -> int:
@@ -242,6 +275,8 @@ class PagedKVCache:
                                         new_len)
             self._quiesced.discard(seq_id)
             self._audit_locked()
+        if freed:
+            g_serving_kv_block_frees.put(freed)
         return freed
 
     def fork_sequence(self, src_seq: int, dst_seq: int) -> List[int]:
@@ -308,6 +343,8 @@ class PagedKVCache:
                 self._cache_ref[block] = held - 1
             freed = self._drop_block_locked(block)
             self._audit_locked()
+        if freed:
+            g_serving_kv_block_frees.put(freed)
         return freed
 
     def block_ref(self, block: int) -> int:
@@ -337,6 +374,7 @@ class PagedKVCache:
             if self._ref.get(src, 0) == 1:
                 return src  # exclusive already: no split needed
             dst = self._take_block_locked()
+        g_serving_kv_block_allocs.put(1)
         # the page copy runs OUTSIDE the ledger lock (it launches); the
         # source stays referenced by this sequence until the swap below
         (self._cow_copy_fn or self._cow_copy_block_device)(dst, src)
@@ -421,6 +459,8 @@ class PagedKVCache:
             for b in table:
                 freed += self._drop_block_locked(b)
             self._audit_locked()
+        if freed:
+            g_serving_kv_block_frees.put(freed)
         return freed
 
     def block_table(self, seq_id: int) -> Optional[List[int]]:
@@ -481,7 +521,10 @@ class PagedKVCache:
 
     def pools_written(self) -> None:
         """Note an in-place write of the pools (once per launch)."""
-        self.update_pools(self.k_pool, self.v_pool)
+        # this re-registers the same tensors after a write; the writer (the
+        # model's scatter, the cow copy) ran assert_writable/cow_block before
+        # it launched
+        self.update_pools(self.k_pool, self.v_pool)  # tpulint: disable=cow-before-write
 
     # ---------------------------------------------------------------- audit
     def _audit_locked(self) -> None:
@@ -539,6 +582,9 @@ class PagedKVCache:
                                  "; ".join(problems))
 
     def close(self) -> None:
+        # a closed cache leaves the /vars pool totals now, not at its
+        # garbage collection
+        _caches.discard(self)
         self.store.free(self.k_handle)
         self.store.free(self.v_handle)
 
@@ -652,6 +698,7 @@ class ShardedKVCache:
             self.v_pools = torch.zeros_like(self.k_pools)
             self.k_handle, _ = self.store.adopt(self.k_pools)
             self.v_handle, _ = self.store.adopt(self.v_pools)
+        _caches.add(self)   # fleet totals (/vars) see the aggregate
         _sharded.add(self)  # the skew gauge sees the per-shard spread
 
     # ------------------------------------------------------------- geometry
@@ -735,6 +782,7 @@ class ShardedKVCache:
     def note_rejected(self) -> None:
         with self._lock:
             self.admission_rejects += 1
+        g_serving_kv_admission_rejects.put(1)
 
     # ----------------------------------------------------------- block ops
     def alloc_sequence(self, seq_id: int, ntokens: int,
@@ -900,7 +948,10 @@ class ShardedKVCache:
         """Note an in-place write of the stacked pools (once per
         launch)."""
         if not self.ranked:
-            self.update_pools(self.k_pools, self.v_pools)
+            # re-registers the same stacked tensors after a write; the writer
+            # (the mesh model's scatter, the shard's cow copy) proved
+            # exclusivity first
+            self.update_pools(self.k_pools, self.v_pools)  # tpulint: disable=cow-before-write
 
     # ---------------------------------------------------------------- audit
     def assert_idle(self, context: str = "") -> None:
@@ -914,6 +965,7 @@ class ShardedKVCache:
                     f"for {sorted(self._shard_of)} still pinned")
 
     def close(self) -> None:
+        _caches.discard(self)
         if not self.ranked:
             self.store.free(self.k_handle)
             self.store.free(self.v_handle)

@@ -38,8 +38,8 @@ transport-independent.
 The port's copy of ``brpc_tpu/tpu/transport.py``: the wire format (TPUC
 frames, the HELLO body, DATA/ACK bodies) is the JAX package's byte for
 byte, so a process of either package dials the other. The sharded
-dispatch plane's hooks (a worker pool posting leased blocks) are not
-ported with it (ROADMAP Queue 1 item 2(b)9).
+dispatch plane (``shard/``) hooks in through ``shard_lane`` on both of an
+endpoint's virtual sockets, ``fan_in_flush`` and ``post_worker_segments``.
 """
 
 from __future__ import annotations
@@ -1198,6 +1198,9 @@ class TpuEndpoint:
                     pv.remote = self.vsock.remote
                     pv.owner_server = self.vsock.owner_server
                     pv.cut_batch_hook = self
+                    # shard plane: both lanes of one tunnel pump through
+                    # the same cid-sharded forwarding state
+                    pv.shard_lane = getattr(self.vsock, "shard_lane", None)
                     self._pri_vsock = pv
         return pv
 
@@ -1343,6 +1346,64 @@ class TpuEndpoint:
             # stream contract is broken for both lanes
             self.fail(errors.EFAILEDSOCKET, "doorbell flush failed")
         return rc
+
+    def fan_in_flush(self, frames) -> int:
+        """Shard-plane doorbell fan-in: the collector drained a round of
+        small responses (whole TRPC packets, bytes) from the worker rings
+        and banks them here as ONE ctrl write of FT_DATA_PRI frames — the
+        multi-process analogue of the cut-batch coalesced doorbell."""
+        if self._failed:
+            return errors.EFAILEDSOCKET
+        if self.peer_version >= 3:
+            return self._flush_doorbell(
+                [([memoryview(f)], len(f)) for f in frames], [])
+        rc = 0
+        for f in frames:
+            rc = self.send_packet(IOBuf(f))
+            if rc != 0:
+                return rc
+        return rc
+
+    def post_worker_segments(self, segs, epoch: int) -> int:
+        """Post a bulk response a shard worker already memcpy'd into
+        leased window blocks: the parent only writes the FT_DATA seg-list
+        frames (no payload touch). ``segs`` is [(block_idx, length), ...]
+        in packet byte order; the credits ride to the peer and come home
+        as FT_ACKs exactly like _send_blocks credits. Frame boundaries
+        align with packet boundaries for every main-lane sender, so one
+        _send_lock hold around all frames keeps the stream sane."""
+        if self._failed:
+            return errors.EFAILEDSOCKET
+        if epoch != self.epoch or self.window is None:
+            # stale lease generation: the window these indices belonged to
+            # is already torn down — nothing to release, nothing to send
+            g_tunnel_stale_epoch_frames.put(1)
+            return errors.EFAILEDSOCKET
+        total = sum(ln for _, ln in segs)
+        with self._send_lock:
+            prev_ph = _prof.set_phase("send")
+            try:
+                if self._failed:
+                    return errors.EFAILEDSOCKET
+                for k in range(0, len(segs), MAX_SEGS_PER_FRAME):
+                    chunk = segs[k:k + MAX_SEGS_PER_FRAME]
+                    body = struct.pack(DATA_BODY_HDR, self.epoch, 0,
+                                       len(chunk))
+                    body += b"".join(struct.pack(SEG_FMT, i, ln)
+                                     for i, ln in chunk)
+                    rc = self._write_data_frame(_pack_frame(FT_DATA, body))
+                    if rc != 0:
+                        # like a mid-packet _send_blocks failure: frames
+                        # (or the peer's expectation of them) are torn —
+                        # the fail path owns the outstanding credits
+                        self.fail(rc, "shard segment post failed")
+                        return rc
+                    g_tunnel_out_bytes.put(sum(ln for _, ln in chunk))
+            finally:
+                _prof.set_phase(prev_ph)
+        self.vsock.out_bytes += total
+        self.vsock.out_messages += 1
+        return 0
 
     @poller_context
     def cut_body_complete(self) -> None:

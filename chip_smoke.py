@@ -5,7 +5,7 @@
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
 (nvcc, sm_90a, one process per source, all at once) and, beside them, the
 native core from ``brpc_tpu_torch/native`` (g++; one line: its version,
-seconds and libraries under ``build/``). Then eighteen paths:
+seconds and libraries under ``build/``). Then twenty paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -229,6 +229,24 @@ seconds and libraries under ``build/``). Then eighteen paths:
   plane over the native tunnel, its copy launches as the calls imply
   and its bytes exact; 1 MiB GB/s, 64 B QPS and depth-1 p50 / p99
   beside phase 20's Python lane and the trpc_std rows.
+- The fleet plane (phase 4p, after the gRPC phase): a ``FleetObserver``
+  over phase 4i's two shards: after a routed window the cluster value of
+  every ``g_serving_*`` variable equals its merge over the members'
+  /vars, ``/fleet`` lists both live, an SLO objective bounded under the
+  routed p50 fires ``slo_burn_<name>`` while one far above stays at burn
+  0, the trace diff aligns two routed windows' server spans, a stopped
+  member goes stale and drops out of the merge; a Server with
+  ``ServerOptions(auth=SharedSecretAuthenticator(...))`` gives phase 4's
+  tokens to the right secret and EAUTH, with no launch, to a wrong or
+  missing one.
+- The sharded dispatch plane (phase 20s, last): a ``tpu://`` Server with
+  ``tpu_shard_workers=2`` beside phase 4's engine: phase 20's sweep at
+  depth 8 byte-equal to a workers-0 server's, every small frame
+  forwarded and none falling back; streamed Generates over the sharded
+  tunnel with phase 4's tokens, the kernel launched on the parent's
+  engine thread, none forwarded; a worker crash during an echo soak
+  losing no call and firing ``shard_worker_death``; no worker on the card;
+  no shard segment or worker left after shutdown.
 
 Exits non-zero, with no result line, on any failure, without a card, or
 without the package beside it.
@@ -242,6 +260,7 @@ error, time, plain and library times and its bound.
 import contextlib
 import dataclasses
 import gc
+import glob
 import io
 import itertools
 import json
@@ -512,6 +531,9 @@ def check_against_cpu(dev):
     for a, b in ((models[0].kv.k_pool, models[1].kv.k_pool),
                  (models[0].kv.v_pool, models[1].kv.v_pool)):
         errs.append(float((a[:, bs:].cpu() - b[:, bs:]).abs().max()))
+    for m in models:  # out of the pool gauges now, not at a collection
+        m.close()
+        m.kv.close()
     if toks[0] != toks[1] or max(errs) > CPU_TOL:
         raise AssertionError(f"card vs CPU: tokens {toks[0]} vs {toks[1]}, "
                              f"pool max err {max(errs)} (tol {CPU_TOL})")
@@ -5794,6 +5816,735 @@ def slice3_rows(xent, qgrid, carry, train_counts, ring_counts):
     return out
 
 
+# ------------------------------- phase 4p: fleet, SLO and auth over 4i's shards
+SLO_FAST_S, SLO_SLOW_S = 2, 4     # the objectives' own windows, short
+SLO_OBJECTIVE = 0.25              # as tests/test_fleet.py sets it
+AUTH_SECRET = b"chip-smoke-secret"
+
+
+def http_json(hostport, path):
+    from brpc_tpu_torch.policy.http_protocol import http_fetch
+
+    resp = http_fetch(hostport, "GET", path, timeout=30.0)
+    if resp.status != 200:
+        raise AssertionError(f"GET {hostport}{path} -> {resp.status}")
+    return json.loads(bytes(resp.body))
+
+
+def hostport_of(server):
+    ep = server.listen_endpoint()
+    return f"{ep.host}:{ep.port}"
+
+
+def rpcz_doc(hostport):
+    """Every server span the process holds, as ``/rpcz?format=json``."""
+    return {"spans": [s for s in http_json(
+        hostport, "/rpcz?format=json&count=100000")["spans"]
+        if s.get("kind") == "server"]}
+
+
+KV_VARS = ("g_serving_kv_block_allocs", "g_serving_kv_block_frees",
+           "g_serving_kv_admission_rejects", "g_serving_kv_blocks_total",
+           "g_serving_kv_blocks_used")
+
+
+def exact_merge(obs, members, prefix="g_serving_"):
+    """After one ``scrape_once``: every ``prefix`` counter's cluster value
+    (and the two KV pool gauges') equals its merge op over the members'
+    /vars values, read again now (the engines are idle, so counters and
+    pools stand still; windowed rates and percentiles slide with the
+    clock and are left out). Returns {name: [op, cluster value, member
+    values]}."""
+    from brpc_tpu_torch.fleet import merge_values
+
+    docs = [http_json(hp, "/vars?series=json")["vars"] for hp in members]
+    out = {}
+    for name in sorted(set().union(*docs)):
+        # a variable some member has not made (member A's process has run
+        # the earlier phases, B's has not) merges over those that report
+        # it, as the observer merges
+        recs = [d[name] for d in docs if name in d]
+        if not name.startswith(prefix) or (
+                recs[0][1] != "counter" and name not in KV_VARS):
+            continue
+        if name in KV_VARS and len(recs) != len(docs):
+            raise AssertionError(f"{name} missing from a member's /vars")
+        op = recs[0][0]
+        want = merge_values(op, [r[2] for r in recs])
+        got = obs.cluster_value(name)
+        if got != want:
+            raise AssertionError(f"cluster_{name} = {got}, the members' "
+                                 f"{op} is {want} ({recs})")
+        out[name] = [op, got, [r[2] for r in recs]]
+    return out
+
+
+def slo_windows(obs, engine, stop_when, generate, deadline_s=60.0):
+    """Generates keep coming (one thread through ``generate``) while the
+    observer scrapes and the SLO engine evaluates, until ``stop_when()``
+    holds or the deadline passes."""
+    from brpc_tpu_torch.metrics import global_collector
+    from brpc_tpu_torch.metrics.series import global_series
+
+    stop = threading.Event()
+    errs = []
+
+    def load():
+        i = 0
+        while not stop.is_set():
+            try:
+                generate(serving_pb2.GenerateRequest(
+                    prompt_len=PROMPT_LENS[i % len(PROMPT_LENS)],
+                    max_new_tokens=4))
+            except Exception as e:  # reported below
+                errs.append(repr(e))
+                return
+            i += 1
+
+    t = threading.Thread(target=load, name="slo-load", daemon=True)
+    t.start()
+    deadline = time.monotonic() + deadline_s
+    rounds = 0
+    try:
+        while time.monotonic() < deadline and not stop_when():
+            global_collector().tick_all()
+            obs.scrape_once()
+            engine.evaluate(global_series())
+            global_collector().tick_all()
+            rounds += 1
+            time.sleep(0.5)
+    finally:
+        stop.set()
+        t.join(120)
+    if errs:
+        raise AssertionError(f"Generates failed during the SLO windows: "
+                             f"{errs[:3]}")
+    return rounds
+
+
+def run_auth(dev, n_layers, direct):
+    """4p's auth: phase 4's engine behind ``ServerOptions(auth=
+    SharedSecretAuthenticator)``; the right secret's streamed Generates
+    give phase 4's tokens, a wrong or missing secret gets EAUTH with no
+    admission and no kernel launch."""
+    from brpc_tpu_torch.policy.auth import SharedSecretAuthenticator
+
+    engine = build_engine(dev, "auto")
+    server = rpc.Server(rpc.ServerOptions(
+        auth=SharedSecretAuthenticator(AUTH_SECRET)))
+    server.add_service(LlmServingService(engine)).start("127.0.0.1:0")
+    ep = str(server.listen_endpoint())
+    row = {}
+    try:
+        def stub(auth):
+            return rpc.Stub(rpc.Channel(rpc.ChannelOptions(
+                timeout_ms=600000, max_retry=0, auth=auth)).init(ep),
+                client.DESC)
+        good = stub(SharedSecretAuthenticator(AUTH_SECRET, user="smoke"))
+        serve_rpc(good, [(16, 2)])  # warm-up
+        pallas_ops.launches.reset()
+        out, row["authenticated"] = serve_rpc(
+            good, list(zip(PROMPT_LENS, MAX_NEW)))
+        engine.kv.store.fence()
+        launches = pallas_ops.launches.of_thread(engine._thread.ident,
+                                                 "flash_attention")
+        if launches != n_layers * len(PROMPT_LENS):
+            raise AssertionError(f"authenticated Generates launched the "
+                                 f"kernel {launches} times")
+        for plen, g, d in zip(PROMPT_LENS, out, direct):
+            if list(g.response.tokens) != d.tokens:
+                raise AssertionError(f"prompt {plen}: authenticated tokens "
+                                     f"differ from phase 4's")
+        before = (engine.steps, engine.tokens_generated,
+                  engine.prefill_tokens,
+                  pallas_ops.launches["flash_attention"])
+        refused = {}
+        for what, auth in (("wrong", SharedSecretAuthenticator(b"wrong")),
+                           ("missing", None)):
+            try:
+                stub(auth).Generate(serving_pb2.GenerateRequest(
+                    prompt_len=100, max_new_tokens=4))
+            except rpc.RpcError as e:
+                refused[what] = e.error_code
+            else:
+                raise AssertionError(f"a {what} secret was served")
+        engine.kv.store.fence()
+        after = (engine.steps, engine.tokens_generated,
+                 engine.prefill_tokens,
+                 pallas_ops.launches["flash_attention"])
+        if set(refused.values()) != {rpc.errors.EAUTH} or after != before:
+            raise AssertionError(f"refusals {refused}, steps/tokens/prefill/"
+                                 f"launches {before} -> {after}")
+        row.update(refused=refused, launches=launches,
+                   steps_tokens_prefill_launches_unchanged=list(after))
+    finally:
+        server.stop()
+        server.join(timeout=5)
+        engine.stop()
+    engine.kv.assert_idle("after the auth server")
+    engine.model.close()
+    engine.kv.close()
+    return row, launches
+
+
+def fleet_member_main(conn, device):
+    """4p's member B in a process of its own (``FleetMember``): phase 4's
+    engine on the card behind its own Server (``build_shard``), so its
+    /vars, /serving and /rpcz are its own process's. It answers
+    ("reset",) by clearing its spans and launch counts, ("launches",)
+    with its flash launches since the reset (after a fence), ("stop",) by
+    stopping its server (the member's death) and None by closing the
+    shard, with any fault of the close, and exiting."""
+    from brpc_tpu_torch.trace import span as trace_span
+
+    try:
+        flags.set_flag("rpcz_sample_ratio", 1.0)
+        server, engine = build_shard(torch.device(device))
+    except Exception as e:  # noqa: BLE001 — raised again in the parent
+        conn.send(("error", repr(e)))
+        return
+    conn.send(("ready", hostport_of(server), str(server.listen_endpoint())))
+    stopped = False
+    while True:
+        if not conn.poll(FleetMember.TIMEOUT_S):
+            break  # the parent is gone: close and exit
+        msg = conn.recv()
+        if msg is None:
+            break
+        try:
+            if msg == ("reset",):
+                trace_span.reset_for_test()
+                pallas_ops.launches.reset()
+                conn.send(("ok", None))
+            elif msg == ("launches",):
+                engine.kv.store.fence()
+                conn.send(("ok", pallas_ops.launches["flash_attention"]))
+            elif msg == ("stop",):
+                server.stop()
+                server.join(timeout=5)
+                stopped = True
+                conn.send(("ok", None))
+        except Exception as e:  # noqa: BLE001 — raised again in the parent
+            conn.send(("error", repr(e)))
+    try:
+        if stopped:
+            engine.stop()
+            engine.kv.assert_idle("fleet member B")
+            engine.model.close()
+            engine.kv.close()
+        else:
+            close_shard(server, engine, "fleet member B")
+        conn.send(("closed", None))
+    except Exception as e:  # noqa: BLE001 — raised again in the parent
+        conn.send(("closed", repr(e)))
+
+
+class FleetMember:
+    """Phase 4p's member B, spawned (``fleet_member_main``): with both
+    members in one process each member's /vars would be that process's
+    registry, and the cluster merge could not tell a member read twice
+    from two members. ``hostport`` and ``endpoint`` name its server."""
+
+    TIMEOUT_S = 300.0
+
+    def __init__(self, dev):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=fleet_member_main,
+                                 args=(child, str(dev)), daemon=True,
+                                 name="fleet-member-b")
+        self._proc.start()
+        child.close()
+
+    def wait_ready(self):
+        got = self._recv(180.0)
+        if got[0] != "ready":
+            raise AssertionError(f"fleet member B did not start: {got}")
+        self.hostport, self.endpoint = got[1], got[2]
+
+    def _recv(self, timeout):
+        if not self._conn.poll(timeout):
+            self._kill()
+            raise AssertionError(f"fleet member B gave no answer in "
+                                 f"{timeout:.0f}s")
+        try:
+            return self._conn.recv()
+        except EOFError:
+            self._kill()
+            raise AssertionError(f"fleet member B exited "
+                                 f"({self._proc.exitcode})") from None
+
+    def ask(self, *cmd):
+        self._conn.send(cmd)
+        status, got = self._recv(self.TIMEOUT_S)
+        if status != "ok":
+            raise AssertionError(f"fleet member B failed {cmd}: {got}")
+        return got
+
+    def close(self):
+        """Close the shard and end the process; returns the close's
+        fault, or None."""
+        fault = None
+        if self._proc.is_alive():
+            try:
+                self._conn.send(None)
+                got = self._recv(120.0)
+                fault = got[1] if got[0] == "closed" else repr(got)
+            except (AssertionError, BrokenPipeError, OSError) as e:
+                fault = repr(e)
+            self._proc.join(30)
+        self._kill()
+        return fault
+
+    def _kill(self):
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join(10)
+
+
+def run_fleet(dev, smi, n_layers, direct):
+    """Phase 4p: the fleet plane over phase 4i's two serving shards
+    (``build_shard``: phase 4's engine on the card behind its own Server,
+    whose port also answers HTTP), a ``FleetObserver`` over ``list://``
+    of both. Member A lives in this process and member B in a process of
+    its own (``FleetMember``), so the two /vars pages are two registries.
+    After a routed PROMPT_LENS window (engines idle), one
+    ``scrape_once``: every ``g_serving_*`` counter's cluster value equals
+    the sum of the members' /vars values read in the same quiet window,
+    the three ``g_serving_kv_*`` counters among them, and the two pool
+    gauges merge by avg, as the reference merges gauges (windowed rates
+    and percentiles slide with the clock, so they are not compared).
+    ``/fleet`` lists both live, each member's /serving its one engine. Two SLO objectives on
+    ``LlmService.Generate`` (short windows through their own parameters):
+    one bound far above the p99 stays at burn 0 and quiet, one under the
+    routed p50 burns above 1 and ``slo_burn_<name>`` fires. The trace
+    diff aligns the two routed windows' server spans. Member B's server
+    stops: the next scrape marks it stale and each cluster value is
+    member A's alone. Then the auth server (``run_auth``)."""
+    from brpc_tpu_torch.fleet import FleetObserver, SloObjective, global_slo
+    from brpc_tpu_torch.fleet import set_global_observer
+    from brpc_tpu_torch.metrics.variable import list_exposed
+    from brpc_tpu_torch.metrics.watch import STATE_FIRING, global_watch
+    from brpc_tpu_torch.serving import ShardedLlmChannel
+    from brpc_tpu_torch.trace import diff as trace_diff
+    from brpc_tpu_torch.trace import span as trace_span
+
+    row = {"card": smi}
+    opts = rpc.ChannelOptions(protocol="trpc_std", timeout_ms=600000)
+    member_b = FleetMember(dev)
+    ratio = flags.get("rpcz_sample_ratio")
+    flags.set_flag("rpcz_sample_ratio", 1.0)
+    slo = global_slo()
+    obs, closed = None, None
+    try:
+        server_a, engine_a = build_shard(dev)
+        member_b.wait_ready()
+        members = [hostport_of(server_a), member_b.hostport]
+        url = (f"list://{server_a.listen_endpoint()} 0/2,"
+               f"{member_b.endpoint} 1/2")
+        obs = FleetObserver(f"list://{members[0]},{members[1]}")
+        ch = ShardedLlmChannel(url, 2, options=opts)
+        routed_window(ch.generate, [(16, 2)] * 4)  # warm both, uncounted
+        windows, split = [], []
+        for k in range(2):
+            trace_span.reset_for_test()
+            pallas_ops.launches.reset()
+            member_b.ask("reset")
+            out, row[f"routed_{k}"] = routed_window(
+                ch.generate, list(zip(PROMPT_LENS, MAX_NEW)))
+            engine_a.kv.store.fence()
+            same_tokens(f"4p routed window {k} against phase 4", out, direct)
+            split.append([pallas_ops.launches["flash_attention"],
+                          member_b.ask("launches")])
+            if sum(split[-1]) != n_layers * len(PROMPT_LENS) or \
+                    not all(split[-1]):
+                raise AssertionError(f"4p: the routed window launched the "
+                                     f"kernel {split[-1]} times on A and B, "
+                                     f"not layers x prefills on both")
+            docs = [rpcz_doc(m) for m in members]
+            windows.append({"spans": docs[0]["spans"] + docs[1]["spans"]})
+        row["launches_a_b"] = split
+        launches = n_layers * len(PROMPT_LENS)
+        # the trace diff: both windows' Generate server spans align
+        base = trace_diff.load_profiles(windows[0])
+        new = trace_diff.load_profiles(windows[1])
+        gen = "LlmService.Generate"
+        if gen not in base or base.keys() != new.keys() or any(
+                base[m].count != new[m].count for m in base) or \
+                base[gen].count != len(PROMPT_LENS):
+            raise AssertionError(f"rpcz records do not align: "
+                                 f"{[(m, p.count) for m, p in base.items()]}"
+                                 f" vs {[(m, p.count) for m, p in new.items()]}")
+        regs = trace_diff.diff_profiles(base, new, q=0.5)
+        phases = sorted(set(base[gen].phases) | set(new[gen].phases))
+        row["trace_diff"] = {
+            "aligned": {m: p.count for m, p in base.items()},
+            "p50_us": {ph: [base[gen].phase_percentile(ph, 0.5),
+                            new[gen].phase_percentile(ph, 0.5)]
+                       for ph in phases},
+            "regressions_p50": [r.describe() for r in regs]}
+        # exact merge, idle engines, one scrape: a closed cache has left
+        # the pool gauges, so they stand still between the two reads
+        if obs.scrape_once() != 2:
+            raise AssertionError(f"scrape: {obs.to_dict()['members']}")
+        merged = exact_merge(obs, members)
+        kv_names = KV_VARS
+        if any(n not in merged for n in kv_names) or \
+                merged["g_serving_kv_block_allocs"][1] <= 0:
+            raise AssertionError(f"the KV variables did not merge: "
+                                 f"{ {n: merged.get(n) for n in kv_names} }")
+        row["merge"] = {"counters": len(merged) - 2,
+                        "kv": {n: merged[n] for n in kv_names}}
+        set_global_observer(obs)
+        page = http_json(members[0], "/fleet?format=json")
+        if page["live"] != 2 or sorted(m["addr"] for m in page["members"]) \
+                != sorted(members):
+            raise AssertionError(f"/fleet: {page}")
+        engines = [len(m.serving.get("engines") or [])
+                   for m in obs.members()]
+        if engines != [1, 1]:  # each page lists its own process's engine
+            raise AssertionError(f"/serving scraped engines {engines}")
+        row["fleet_page"] = {"live": page["live"],
+                             "serving_engines": engines,
+                             "serving_shard_union":
+                                 len(obs.serving_shard_union())}
+        # SLO over the fleet-merged series
+        stem = next(n for n in list_exposed()
+                    if n.lower().startswith("rpc_method_llmservice_generate")
+                    and n.endswith("_latency_p99"))
+        bound_low = row["routed_0"]["latency_us_p50"] / 2
+        slo.install()
+        slo.attach_observer(obs)
+        for name, bound in (("gen_loose", 1e9), ("gen_tight", bound_low)):
+            slo.add(SloObjective(name, latency_var=stem,
+                                 latency_bound_us=bound,
+                                 objective=SLO_OBJECTIVE,
+                                 fast_window_s=SLO_FAST_S,
+                                 slow_window_s=SLO_SLOW_S))
+        rules = {r.name: r for r in global_watch().rules()}
+        tight, loose = rules["slo_burn_gen_tight"], rules["slo_burn_gen_loose"]
+        rounds = slo_windows(obs, slo, lambda: tight.state == STATE_FIRING,
+                             ch.generate)
+        doc = {o["name"]: o for o in http_json(
+            members[0], "/slo?format=json")["objectives"]}
+        if tight.state != STATE_FIRING or doc["gen_tight"]["burn"] <= 1.0:
+            raise AssertionError(f"the tight objective did not fire: "
+                                 f"{tight.state} {doc['gen_tight']}")
+        if loose.state == STATE_FIRING or doc["gen_loose"]["burn"] != 0.0:
+            raise AssertionError(f"the loose objective burned: "
+                                 f"{loose.state} {doc['gen_loose']}")
+        row["slo"] = {"latency_var": stem, "rounds": rounds,
+                      "tight_bound_us": bound_low,
+                      **{k: {f: doc[k][f] for f in (
+                          "burn", "burn_fast", "burn_slow")}
+                         | {"state": rules[f"slo_burn_{k}"].state}
+                         for k in doc}}
+        # member death
+        member_b.ask("stop")
+        if obs.scrape_once() != 1:
+            raise AssertionError("the scrape after B's stop saw 2 members")
+        dead = [m for m in obs.members() if m.addr == members[1]][0]
+        if dead.live() or not dead.stale():
+            raise AssertionError(f"member B not stale: {dead.to_dict()}")
+        alone = http_json(members[0], "/vars?series=json")["vars"]
+        both = {n: merged[n][2] for n in kv_names[:3]}
+        for name in kv_names[:3]:
+            if obs.cluster_value(name) != alone[name][2]:
+                raise AssertionError(f"after B's death cluster_{name} = "
+                                     f"{obs.cluster_value(name)}, A alone "
+                                     f"has {alone[name][2]}")
+        if all(b[0] == b[1] for b in both.values()):
+            raise AssertionError(f"A and B read alike, so the merge gate "
+                                 f"could not tell them apart: {both}")
+        row["member_death"] = {"live": len(obs.live_members()),
+                               "stale": dead.addr,
+                               "cluster_equals_a": list(kv_names[:3])}
+    finally:
+        slo.clear()
+        slo.attach_observer(None)
+        set_global_observer(None)
+        if obs is not None:
+            obs.hide_all()
+        flags.set_flag("rpcz_sample_ratio", ratio)
+        if "server_a" in locals():
+            close_shard(server_a, engine_a, "fleet member A")
+        closed = member_b.close()
+    if closed:
+        raise AssertionError(f"fleet member B's close: {closed}")
+    row["auth"], auth_launches = run_auth(dev, n_layers, direct)
+    print(json.dumps({"fleet": row}), flush=True)
+    return {"routed_per_window": launches, "auth": auth_launches}
+
+
+# ------------------------------- phase 20s: the sharded dispatch plane
+SHARD_FACTORY = "brpc_tpu_torch.shard.testing:echo_services"
+SHARD_DEPTH = 8                  # every size at depth 8
+SHARD_SOAK_S = 2.0
+
+
+def shard_sweep(stub, sweep):
+    """The echo sweep at depth SHARD_DEPTH: per size, the digest set of
+    every response's bytes (each must be the request's pattern echoed),
+    QPS and GB/s."""
+    import hashlib
+
+    from brpc_tpu_torch.bench import tpu_lane
+
+    out = {}
+    for size, _, calls in sweep:
+        payload = tpu_lane.pattern(size, size)
+        req = echo_pb2.EchoRequest(message=f"s{size}", payload=payload)
+        digests, errs = set(), []
+        lock = threading.Lock()
+
+        def run():
+            try:
+                for _ in range(calls):
+                    r = stub.Echo(req)
+                    if r.payload != payload or r.message != req.message:
+                        raise AssertionError(f"{size} B echo differs")
+                    d = hashlib.blake2b(r.SerializeToString()).digest()
+                    with lock:
+                        digests.add(d)
+            except Exception as e:  # reported below
+                errs.append(repr(e))
+
+        threads = [threading.Thread(target=run, name=f"shard-echo-{i}")
+                   for i in range(SHARD_DEPTH)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        if errs or any(t.is_alive() for t in threads):
+            raise AssertionError(f"{size} B sweep failed: {errs[:3]}")
+        n = SHARD_DEPTH * calls
+        out[size] = {"calls": n, "qps": n / wall,
+                     "gb_per_s": 2 * size * n / wall / 1e9,
+                     "digests": digests}
+    return out
+
+
+def shard_server(workers, engine):
+    flags.set_flag("tpu_shard_workers", workers)
+    try:
+        from brpc_tpu_torch.shard.testing import ShardEchoService
+
+        server = rpc.Server(rpc.ServerOptions(shard_factory=SHARD_FACTORY))
+        server.add_service(ShardEchoService())
+        server.add_service(LlmServingService(engine))
+        server.start("tpu://127.0.0.1:0/0")
+    finally:
+        flags.set_flag("tpu_shard_workers", 0)
+    if workers and not server._shard_plane.wait_ready(60.0):
+        server.stop()
+        server.join(timeout=5)
+        raise AssertionError("the shard workers never came up")
+    return server
+
+
+def gpu_pids():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def crash_soak(stub, plane):
+    """SHARD_SOAK_S of unique echoes from 4 threads (max_retry 3, as the
+    reference's chaos test) with ``worker.crash`` armed for worker 0:
+    every call answers its own message, none lost or duplicated."""
+    from brpc_tpu_torch.shard import plane as shard_plane
+
+    c0 = (plane.generation, shard_plane.g_shard_worker_deaths.get_value(),
+          shard_plane.g_shard_respawns.get_value())
+    stop = threading.Event()
+    done, errs = [0] * 4, []
+
+    def run(tid):
+        i = 0
+        try:
+            while not stop.is_set():
+                msg = f"c{tid}-{i}"
+                if stub.Echo(echo_pb2.EchoRequest(message=msg)).message \
+                        != msg:
+                    raise AssertionError(f"{msg} answered wrong")
+                i += 1
+                done[tid] = i
+        except Exception as e:  # reported below
+            errs.append(repr(e))
+
+    flags.set_flag("fault_injection_enabled", True)
+    threads = [threading.Thread(target=run, args=(i,), name=f"soak-{i}")
+               for i in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(SHARD_SOAK_S / 4)
+        fault.arm("worker.crash", mode="oneshot", match={"worker": 0})
+        time.sleep(SHARD_SOAK_S * 3 / 4)
+        stop.set()
+        for t in threads:
+            t.join(120)
+    finally:
+        stop.set()
+        fault.disarm_all()
+        flags.set_flag("fault_injection_enabled", False)
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"the crash soak lost calls: {errs[:3]}")
+    if not plane.wait_ready(60.0):
+        raise AssertionError("worker 0 did not come back")
+    c1 = (plane.generation, shard_plane.g_shard_worker_deaths.get_value(),
+          shard_plane.g_shard_respawns.get_value())
+    if [b - a for a, b in zip(c0, c1)] != [1, 1, 1]:
+        raise AssertionError(f"generation/deaths/respawns {c0} -> {c1}")
+    inflight = [w["inflight_cids"] for w in plane.state_dict()["workers"]]
+    if any(inflight):
+        raise AssertionError(f"cids left in flight: {inflight}")
+    return {"calls": sum(done), "generation": c1[0],
+            "worker0_gen": plane.workers[0].gen,
+            "redispatched": plane.redispatched,
+            "death_errors": plane.death_errors}
+
+
+def run_shard_plane(dev, smi, n_layers, direct):
+    """Phase 20s: one ``tpu://127.0.0.1:0/0`` Server with
+    ``tpu_shard_workers=2`` (factory ``shard.testing:echo_services``) and
+    phase 4's engine on the card behind ``LlmServingService`` in the
+    parent. The echo sweep (phase 20's sizes, QUICK counts, depth 8) runs
+    against it and against a ``tpu_shard_workers=0`` server in this run:
+    responses byte-equal to the request patterns and across the two, the
+    frames at or under ``tpu_shard_forward_max`` all forwarded and none
+    falling back, fan-in and leased-segment posts seen. PROMPT_LENS as
+    streamed Generates over the sharded tunnel: phase 4's tokens, the
+    kernel launched layers x prefills on the parent's engine thread, no
+    call forwarded. A 2 s echo soak with ``worker.crash`` armed for worker
+    0: nothing lost or duplicated, generation, deaths and respawns each
+    +1, ``shard_worker_death`` firing on /watch. No worker appears among
+    the card's compute processes or maps a CUDA library; after shutdown
+    no shard segment is left in /dev/shm and no worker runs."""
+    from brpc_tpu_torch.bench import tpu_lane
+    from brpc_tpu_torch.shard import plane as shard_plane
+
+    sweep = tpu_lane.SWEEP
+    fmax = int(flags.get("tpu_shard_forward_max"))
+    small = sum(SHARD_DEPTH * c for s, _, c in sweep if s + 256 <= fmax)
+    shm_glob = f"/dev/shm/brpctpu_torch_shard_{os.getpid():x}_*"
+    row = {"card": smi, "depth": SHARD_DEPTH, "forward_max": fmax}
+    engine = build_engine(dev, "auto")
+    sweeps, pids = {}, []
+    try:
+        for workers in (0, 2):
+            server = shard_server(workers, engine)
+            plane = server._shard_plane
+            try:
+                ep = str(server.listen_endpoint())
+                stub = rpc.Stub(rpc.Channel(rpc.ChannelOptions(
+                    timeout_ms=600000, max_retry=3)).init(ep),
+                    echo_pb2.DESCRIPTOR.services_by_name["EchoService"])
+                stub.Echo(echo_pb2.EchoRequest(message="warm"))
+                f0 = (shard_plane.g_shard_forwarded.get_value(),
+                      shard_plane.g_shard_fallback.get_value())
+                sweeps[workers] = shard_sweep(stub, sweep)
+                if not workers:
+                    continue
+                pids = [w.pid for w in plane.workers]
+                f1 = (shard_plane.g_shard_forwarded.get_value(),
+                      shard_plane.g_shard_fallback.get_value())
+                fwd, fb = f1[0] - f0[0], f1[1] - f0[1]
+                if fwd < small or fb:
+                    raise AssertionError(f"forwarded {fwd} of {small} "
+                                         f"small frames, {fb} fell back")
+                deadline = time.monotonic() + 10  # W_STATS lags ~0.5 s
+                while time.monotonic() < deadline:
+                    st = plane.state_dict()
+                    segs = sum(w["resp_segs"] for w in st["workers"])
+                    if segs:
+                        break
+                    time.sleep(0.1)
+                if not st["fanin_frames"] or not segs:
+                    raise AssertionError(f"fan-in {st['fanin_frames']}, "
+                                         f"leased posts {segs}")
+                on_card = gpu_pids() & set(pids)
+                cuda_maps = [p for p in pids if "libcuda" in open(
+                    f"/proc/{p}/maps").read()]
+                if on_card or cuda_maps:
+                    raise AssertionError(f"workers on the card: {on_card}, "
+                                         f"mapping CUDA: {cuda_maps}")
+                # streamed Generates over the sharded tunnel
+                gstub = rpc.Stub(rpc.Channel(rpc.ChannelOptions(
+                    timeout_ms=600000)).init(ep), client.DESC)
+                serve_rpc(gstub, [(16, 2)])  # warm-up
+                g0 = shard_plane.g_shard_forwarded.get_value()
+                pallas_ops.launches.reset()
+                out, row["generate"] = serve_rpc(
+                    gstub, list(zip(PROMPT_LENS, MAX_NEW)))
+                engine.kv.store.fence()
+                launches = pallas_ops.launches.of_thread(
+                    engine._thread.ident, "flash_attention")
+                forwarded = shard_plane.g_shard_forwarded.get_value() - g0
+                for plen, g, d in zip(PROMPT_LENS, out, direct):
+                    if list(g.response.tokens) != d.tokens:
+                        raise AssertionError(f"prompt {plen}: sharded-"
+                                             f"server tokens differ")
+                if launches != n_layers * len(PROMPT_LENS) or forwarded:
+                    raise AssertionError(f"Generate launched {launches}, "
+                                         f"forwarded {forwarded}")
+                row["generate"].update(launches=launches,
+                                       forwarded=forwarded)
+                row["crash"] = crash_soak(stub, plane)
+                deadline = time.monotonic() + 20
+                while time.monotonic() < deadline:
+                    rules = {r["name"]: r["state"] for r in http_json(
+                        hostport_of(server), "/watch?format=json")["rules"]}
+                    if rules.get("shard_worker_death") == "firing":
+                        break
+                    time.sleep(0.25)
+                if rules.get("shard_worker_death") != "firing":
+                    raise AssertionError(f"/watch: {rules}")
+                row["crash"]["watch"] = "firing"
+                pids += [plane.workers[0].pid]
+                row["plane"] = {k: v for k, v in plane.state_dict().items()
+                                if k != "workers"}
+            finally:
+                server.stop()
+                server.join(timeout=5)
+    finally:
+        engine.stop()
+    engine.kv.assert_idle("after phase 20s")
+    engine.model.close()
+    engine.kv.close()
+    for size in sweeps[2]:
+        a, b = sweeps[2][size]["digests"], sweeps[0][size]["digests"]
+        if len(a) != 1 or a != b:
+            raise AssertionError(f"{size} B responses differ between "
+                                 f"workers 2 and 0")
+    left = glob.glob(shm_glob)
+    for pid in pids:  # a spill segment is named after its worker's pid
+        left += glob.glob(f"/dev/shm/brpctpu_torch_spill_{pid:x}_*")
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if left or alive:
+        raise AssertionError(f"left behind: segments {left}, workers "
+                             f"{alive}")
+    row["sweep"] = {str(s): {w: {k: sweeps[w][s][k] for k in (
+        "calls", "qps", "gb_per_s")} for w in (2, 0)} for s in sweeps[2]}
+    row["headline"] = {"qps_64b": [sweeps[2][64]["qps"], sweeps[0][64]["qps"]],
+                       "gb_per_s_1mib": [sweeps[2][1 << 20]["gb_per_s"],
+                                         sweeps[0][1 << 20]["gb_per_s"]],
+                       "workers": [2, 0]}
+    print(json.dumps({"shard_plane": row}), flush=True)
+    return row["generate"]["launches"]
+
+
 class NativeBuild:
     """The native core (``native/core.cpp``, ``native/dataplane.cpp``)
     built with g++ from the checkout's sources on a thread of its own,
@@ -5890,9 +6641,10 @@ def main():
     native_launches = run_native(dev, smi, n_layers, auto, rpc_stats,
                                  http_row)
     grpc_launches = run_grpc(dev, smi, n_layers, auto, rpc_stats, http_row)
+    fleet_launches = run_fleet(dev, smi, n_layers, auto)
     no_protobuf_or_jax("after the disaggregated, long-prompt, mesh, "
                        "combo-channel, router, QoS, batching, HTTP, "
-                       "native and gRPC paths")
+                       "native, gRPC and fleet paths")
 
     profile = profile_engine(dev, auto)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -5921,6 +6673,7 @@ def main():
     copy_times = time_copies(dev)
     tpu = run_tpu_lane(dev, smi, lane["stats"], op_rate)
     native_lane = run_native_lane(dev, smi, tpu_row=LAST_ROWS["tpu_lane"])
+    shard_launches = run_shard_plane(dev, smi, n_layers, auto)
 
     main_row = flash[MAIN_SHAPE]
     kernels = [{
@@ -5941,6 +6694,8 @@ def main():
         "launches_http": http_launches,
         "launches_native": native_launches,
         "launches_grpc": grpc_launches,
+        "launches_fleet": fleet_launches,
+        "launches_shard": shard_launches,
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

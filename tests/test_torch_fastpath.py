@@ -511,9 +511,23 @@ from brpc_tpu_torch.rpc import run_to_completion as _rtc  # noqa: E402
 
 @pytest.fixture()
 def rtc_reset():
+    """Classification starts clean, and with no allocation tracing: a
+    test elsewhere in the process (the JAX package's heap page,
+    ``tests/test_profiling.py``) can leave tracemalloc on, which makes
+    every handler here several times slower and the timing-based
+    classification under test never calls the echo cheap. Tracing is
+    put back as it was found."""
+    import tracemalloc
+
+    tracing = tracemalloc.is_tracing()
+    frames = tracemalloc.get_traceback_limit()
+    if tracing:
+        tracemalloc.stop()
     _rtc._reset_for_test()
     yield
     _rtc._reset_for_test()
+    if tracing:
+        tracemalloc.start(frames)
 
 
 # ------------------------------------------------------- adaptive spin

@@ -529,3 +529,68 @@ def test_a_grpc_generate_on_both_lanes_loads_no_protobuf_or_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n")
+
+
+HOST_SLICE = {
+    "shard/__init__.py", "shard/wire.py", "shard/ring.py",
+    "shard/subwindow.py", "shard/fleet.py", "shard/worker.py",
+    "shard/plane.py", "shard/testing.py", "fleet/observer.py",
+    "fleet/slo.py", "policy/auth.py", "trace/diff.py", "analysis/core.py",
+    "analysis/rules.py", "analysis/__main__.py"}
+
+
+def test_every_reference_module_has_a_port_at_the_same_path():
+    """Each ``brpc_tpu/**/*.py`` has a file at the same relative path
+    under ``brpc_tpu_torch/``, the last host modules among them."""
+    ref = os.path.join(REPO, "brpc_tpu")
+    missing = []
+    for dirpath, dirnames, filenames in os.walk(ref):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        for f in filenames:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ref)
+                if not os.path.exists(os.path.join(PKG, rel)):
+                    missing.append(rel)
+    assert not missing, sorted(missing)
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert HOST_SLICE <= rel, sorted(HOST_SLICE - rel)
+
+
+def test_a_sharded_server_an_observer_and_auth_load_no_protobuf_or_jax():
+    """A sharded tunnel server answers through its workers, a fleet
+    observer scrapes it, an authenticated call goes through, and neither
+    this process nor a worker has loaded protobuf or JAX."""
+    _run(
+        "import sys\n"
+        "from brpc_tpu_torch import flags\n"
+        "import brpc_tpu_torch.rpc as rpc\n"
+        "from brpc_tpu_torch.fleet import FleetObserver\n"
+        "from brpc_tpu_torch.policy.auth import SharedSecretAuthenticator\n"
+        "from brpc_tpu_torch.proto import echo_pb2\n"
+        "from brpc_tpu_torch.shard.testing import ShardEchoService\n"
+        "E = echo_pb2.DESCRIPTOR.services_by_name['EchoService']\n"
+        "flags.set_flag('tpu_shard_workers', 1)\n"
+        "srv = rpc.Server().add_service(ShardEchoService())"
+        ".start('tpu://127.0.0.1:0/0')\n"
+        "assert srv._shard_plane.wait_ready(30)\n"
+        "pid = srv._shard_plane.workers[0].pid\n"
+        "stub = rpc.Stub(rpc.Channel().init(str(srv.listen_endpoint())), E)\n"
+        "assert stub.Echo(echo_pb2.EchoRequest(message='s')).message == 's'\n"
+        "assert srv._shard_plane.forwarded == 1\n"
+        "maps = open(f'/proc/{pid}/maps').read()\n"
+        "assert 'google/protobuf' not in maps and '/jax' not in maps\n"
+        "obs = FleetObserver([str(srv.listen_endpoint()).split('/')[2]])\n"
+        "assert obs.scrape_once() == 1, obs.members()[0].last_error\n"
+        "srv.stop(); srv.join()\n"
+        "flags.set_flag('tpu_shard_workers', 0)\n"
+        "auth = SharedSecretAuthenticator(b'k')\n"
+        "a = rpc.Server(rpc.ServerOptions(auth=auth))"
+        ".add_service(ShardEchoService()).start('127.0.0.1:0')\n"
+        "ch = rpc.Channel(rpc.ChannelOptions(auth=auth))"
+        ".init(str(a.listen_endpoint()))\n"
+        "assert rpc.Stub(ch, E).Echo(echo_pb2.EchoRequest(message='a'))"
+        ".message == 'a'\n"
+        "a.stop(); a.join()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+        "assert not bad, bad\n")

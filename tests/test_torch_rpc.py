@@ -5,8 +5,8 @@ service builds its replies from its own message classes; the responses
 (read raw, as bytes) and the stream frames must be equal as bytes in
 every pairing. The error paths answer with the reference's codes:
 ENOMETHOD, EREQUEST on a garbled body, ERPCTIMEDOUT on a handler that
-sleeps past ``timeout_ms`` and ELOGOFF after ``stop()``. What the port
-does not have yet refuses with NotImplementedError.
+sleeps past ``timeout_ms`` and ELOGOFF after ``stop()``. A dial the
+port cannot make raises rather than falling back.
 """
 
 import threading
@@ -209,16 +209,22 @@ def test_typed_stub_round_trip_on_the_port():
 
 
 def test_what_is_not_ported_refuses():
-    # the sharded dispatch plane (item 2(b)9) is the RPC front's one
-    # unported piece; the engine's gRPC lane dials now, and a dial that
-    # fails raises rather than falling back
+    # a dial of the engine's gRPC lane that fails raises rather than
+    # falling back; the sharded dispatch plane is ported and starts its
+    # workers with the server, no longer refused
     from brpc_tpu_torch.rpc.native_transport import bench_echo_native
     with pytest.raises(RuntimeError, match="dp_bench_echo failed"):
         bench_echo_native("127.0.0.1", 1, grpc=True, duration_ms=100)
     port_flags.set_flag("tpu_shard_workers", "2")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_rpc.Server().start("127.0.0.1:0")
+        srv = port_rpc.Server().start("127.0.0.1:0")
+        try:
+            assert srv._shard_plane.wait_ready(30.0)
+            assert len(srv._shard_plane.workers) == 2
+        finally:
+            srv.stop()
+            srv.join(timeout=2)
+        assert srv._shard_plane is None
     finally:
         port_flags.set_flag("tpu_shard_workers", "0")
     # the reference's eleven protocols in its order, HTTP probed last
@@ -232,9 +238,9 @@ def test_what_is_not_ported_refuses():
             "rtmp", "thrift", "memcache", "nshead", "http"]
 
 
-# Flags the reference defines for features this slice does not port: the
-# port leaves them undefined, so setting one fails instead of passing
-# silently.
+# The shard plane's flags, which the port once left undefined, are now
+# defined with the reference's defaults and validators: a value the
+# reference refuses is refused here too.
 _UNPORTED_FLAGS = (
     "tpu_shard_rebalance_pct",
     "tpu_shard_respawn_backoff_ms", "tpu_shard_respawn_max",
@@ -245,10 +251,13 @@ _UNPORTED_FLAGS = (
 def test_flags_of_unported_features_are_refused(name):
     import brpc_tpu.flags as jax_flags
 
-    assert jax_flags.find(name) is not None
-    assert port_flags.find(name) is None
-    with pytest.raises(port_flags.FlagError, match="unknown flag"):
-        port_flags.set_flag(name, "1")
+    assert port_flags.get(name) == jax_flags.get(name)
+    for bad in ("-1", "0") if name != "tpu_shard_respawn_max" else ("-1",):
+        with pytest.raises(jax_flags.FlagError):
+            jax_flags.set_flag(name, bad)
+        with pytest.raises(port_flags.FlagError):
+            port_flags.set_flag(name, bad)
+    assert port_flags.get(name) == jax_flags.get(name)
 
 
 # The tunnel's flags (tpu/transport.py, rpc/circuit_breaker.py) came with
@@ -333,18 +342,25 @@ def test_default_watch_rules_read_exported_variables():
     server has started and its serving package is loaded."""
     import brpc_tpu_torch.serving  # noqa: F401  (the serving variables)
     import brpc_tpu_torch.serving.migration  # noqa: F401  (loaded lazily)
+    import brpc_tpu_torch.shard.plane  # noqa: F401  (the plane's variables)
+    import brpc_tpu_torch.tpu.transport  # noqa: F401  (the tunnel's)
     from brpc_tpu_torch.metrics import variable
     from brpc_tpu_torch.metrics.watch import global_watch
 
     srv = port_rpc.Server().start("127.0.0.1:0")
     try:
-        rules = global_watch().rules()
-        assert [r.name for r in rules] == ["deadline_expiry_rate",
+        rules = [r for r in global_watch().rules()
+                 if not r.name.startswith("slo_burn_")]
+        assert [r.name for r in rules] == ["block_pool_exhaustion",
+                                           "deadline_expiry_rate",
+                                           "serving_kv_exhaustion",
                                            "serving_migrate_backlog",
                                            "serving_prefix_thrash",
                                            "serving_qos_starvation",
                                            "serving_shard_skew",
-                                           "serving_spec_collapse"]
+                                           "serving_spec_collapse",
+                                           "shard_worker_death",
+                                           "tunnel_healer_trips"]
         for r in rules:
             assert variable.get_exposed(r.var) is not None, r.var
     finally:

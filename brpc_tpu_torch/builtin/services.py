@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 
 import brpc_tpu_torch
@@ -670,12 +671,15 @@ def fault_service(server, http: HttpMessage):
 # ------------------------------------------------------------------- serving
 def serving_service(server, http: HttpMessage):
     """Serving-plane engines: batch occupancy, KV pool watermark, queue
-    depth and step timings. ``?format=json`` for the structured view."""
-    try:
-        from brpc_tpu_torch.serving.engine import active_engines
-    except ImportError:
-        return 200, CONTENT_TEXT, "serving plane not loaded\n"
-    snaps = [e.snapshot() for e in active_engines()]
+    depth and step timings. ``?format=json`` for the structured view.
+
+    No engine can run in a process that never imported the engine module,
+    so the page reads it only from ``sys.modules``: importing it here
+    would load torch inside a scrape (over a second, past a fleet
+    observer's fetch limit under load)."""
+    engine_mod = sys.modules.get("brpc_tpu_torch.serving.engine")
+    active = getattr(engine_mod, "active_engines", None)
+    snaps = [e.snapshot() for e in active()] if active is not None else []
     if http.query.get("format", "") == "json":
         return 200, CONTENT_JSON, json.dumps(
             {"engines": snaps}, indent=2) + "\n"

@@ -45,9 +45,12 @@ adopted once in the DeviceStore. Block tables name (shard, block) pairs:
 a :class:`ShardTable` is the block-id list plus the owning shard, and a
 sequence routes to its shard with the splitmix64 ``shard_for`` of the
 shard plane. fork, extend and free touch only the owning shard's
-ledger. Both caches hand the model and the migration the pools a table
-indexes (``pool_views``) and take back the note that they were written
-(``pools_written``).
+ledger. Both caches hand the model the pools a table indexes
+(``pool_views``) and take back the note that they were written
+(``pools_written``). The migration reads and writes exactly a chain's
+slots (``read_chain`` / ``write_chain``): over a mesh with a rank per
+position that is one program on the shard's pool-holding rank, so a
+rank-mesh engine migrates as any other does.
 """
 
 from __future__ import annotations
@@ -519,6 +522,23 @@ class PagedKVCache:
         slots index: here the one pair."""
         return self.k_pool, self.v_pool
 
+    def read_chain(self, table) -> torch.Tensor:
+        """``k ‖ v`` of exactly ``table``'s slots, one ``(2, layers,
+        block_size, kv_dim)`` block per table entry in table (= position)
+        order, ``(len(table), 2, layers, block_size, kv_dim)``: one
+        gather per pool on the pools' device."""
+        return _gather_slots(self.k_pool, self.v_pool,
+                             chain_slots(table, self.block_size),
+                             self.block_size)
+
+    def write_chain(self, table, blocks: torch.Tensor) -> None:
+        """Write ``blocks`` (:meth:`read_chain`'s layout) into exactly
+        ``table``'s slots, one indexed write per pool. The caller proved
+        the blocks writable first and notes the write after
+        (``pools_written``)."""
+        _scatter_slots(self.k_pool, self.v_pool,
+                       chain_slots(table, self.block_size), blocks)
+
     def pools_written(self) -> None:
         """Note an in-place write of the pools (once per launch)."""
         # this re-registers the same tensors after a write; the writer (the
@@ -647,9 +667,10 @@ class ShardedKVCache:
     0, and each dp shard's ``(layers, slots, kv_dim)`` pair lives on the
     device of its own rank, the shard's first (sp 0, tp 0): the mesh
     model's programs write and read them there, a copy-on-write is a
-    program on that rank, and :meth:`shard_pools` reads them back.
-    Migration reads pools by view (:meth:`pool_views`), which such a mesh
-    does not have. Sequences route to
+    program on that rank, and :meth:`shard_pools` reads them back. A
+    migrated chain's slots are read and written there too
+    (:meth:`read_chain`, :meth:`write_chain`); such a mesh has no pool
+    views (:meth:`pool_views` refuses). Sequences route to
     shards with the shard plane's splitmix64 ``shard_for`` (stable under
     reused ``version << 32`` ids); fork, extend and free touch only the
     owning shard's ledger."""
@@ -931,6 +952,38 @@ class ShardedKVCache:
         shard = getattr(table, "shard", 0)
         return self.k_pools[shard], self.v_pools[shard]
 
+    def read_chain(self, table) -> torch.Tensor:
+        """``k ‖ v`` of exactly a chain's slots on its shard, in
+        :meth:`PagedKVCache.read_chain`'s layout. Over ranks one program
+        gathers them on the shard's pool-holding rank, and only those
+        slots come back to this process (on the host)."""
+        shard = getattr(table, "shard", 0)
+        slots = chain_slots(table, self.block_size)
+        if not self.ranked:
+            return _gather_slots(self.k_pools[shard], self.v_pools[shard],
+                                 slots, self.block_size)
+        got = self.mesh.run(_rank_kv_read_chain, self.key, shard, slots,
+                            self.block_size)
+        return next(g for g in got if g is not None)
+
+    def write_chain(self, table, blocks: torch.Tensor) -> None:
+        """Write ``blocks`` (:meth:`read_chain`'s layout) into exactly a
+        chain's slots on its shard, one indexed write per pool. Over
+        ranks the blocks go to the shard's pool-holding rank alone and
+        are written there. The caller proved the blocks writable on this
+        process's ledger first and notes the write after
+        (``pools_written``)."""
+        shard = getattr(table, "shard", 0)
+        slots = chain_slots(table, self.block_size)
+        if not self.ranked:
+            _scatter_slots(self.k_pools[shard], self.v_pools[shard], slots,
+                           blocks)
+            return
+        payload = (slots, blocks.detach().cpu())
+        scatter = [payload if holds_shard(self.mesh, shard, r) else None
+                   for r in range(self.mesh.devices.size)]
+        self.mesh.run(_rank_kv_write_chain, self.key, scatter=scatter)
+
     def shard_pools(self, shard: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Copies of one shard's K and V pools, on this process (over
         ranks, read from the shard's rank)."""
@@ -1007,14 +1060,51 @@ class ShardedKVCache:
         }
 
 
+# ------------------------------------------------------ a chain's slots
+def chain_slots(table, block_size: int) -> torch.Tensor:
+    """The pool slots of ``table``'s blocks, in table order (int64)."""
+    blocks = torch.as_tensor(list(table), dtype=torch.int64)
+    return (blocks[:, None] * block_size
+            + torch.arange(block_size)).reshape(-1)
+
+
+def _gather_slots(k: torch.Tensor, v: torch.Tensor, slots: torch.Tensor,
+                  block_size: int) -> torch.Tensor:
+    """The blocks at ``slots`` of the (k, v) ``(layers, slots, kv_dim)``
+    pools, ``(n, 2, layers, block_size, kv_dim)``: a gather per pool and
+    one copy into block order, on the pools' device."""
+    layers, _, dim = k.shape
+    idx = slots.to(k.device)
+    both = torch.stack([k.index_select(1, idx), v.index_select(1, idx)])
+    return both.view(2, layers, -1, block_size, dim).permute(
+        2, 0, 1, 3, 4).contiguous()
+
+
+def _scatter_slots(k: torch.Tensor, v: torch.Tensor, slots: torch.Tensor,
+                   blocks: torch.Tensor) -> None:
+    """Write ``blocks`` (:func:`_gather_slots`' layout) at ``slots``: one
+    copy to the pools' device, one indexed write per pool."""
+    layers, _, dim = k.shape
+    idx = slots.to(k.device)
+    blocks = blocks.to(k.device)
+    for half, pool in enumerate((k, v)):
+        pool.index_copy_(1, idx, blocks[:, half].transpose(0, 1).reshape(
+            layers, idx.numel(), dim))
+
+
 # ------------------------------------------ the pools over a rank mesh
 _kv_keys = itertools.count()
 
 
-def holds_pools(mesh) -> bool:
-    """Whether this rank holds its dp shard's pools: the shard's first
-    rank (every other axis at 0)."""
-    return all(i == 0 for a, i in mesh.coords().items() if a != "dp")
+def holds_pools(mesh, rank: int = None) -> bool:
+    """Whether ``rank`` (default: this rank) holds its dp shard's pools:
+    the shard's first rank (every other axis at 0)."""
+    return all(i == 0 for a, i in mesh.coords(rank).items() if a != "dp")
+
+
+def holds_shard(mesh, shard: int, rank: int = None) -> bool:
+    """Whether ``rank`` (default: this rank) holds ``shard``'s pools."""
+    return holds_pools(mesh, rank) and mesh.coords(rank)["dp"] == shard
 
 
 def _rank_kv_alloc(mesh, key, shape, dtype):
@@ -1024,15 +1114,27 @@ def _rank_kv_alloc(mesh, key, shape, dtype):
 
 
 def _rank_kv_cow(mesh, key, shard, d0, s0, bs):
-    if holds_pools(mesh) and mesh.coord("dp") == shard:
+    if holds_shard(mesh, shard):
         for pools in launch.state()[key]:
             pools[:, d0:d0 + bs].copy_(pools[:, s0:s0 + bs])
 
 
 def _rank_kv_read(mesh, key, shard):
-    if holds_pools(mesh) and mesh.coord("dp") == shard:
+    if holds_shard(mesh, shard):
         return tuple(p.clone() for p in launch.state()[key])
     return None
+
+
+def _rank_kv_read_chain(mesh, key, shard, slots, block_size):
+    if holds_shard(mesh, shard):
+        return _gather_slots(*launch.state()[key], slots, block_size)
+    return None
+
+
+def _rank_kv_write_chain(mesh, key, scattered):
+    if scattered is not None:
+        slots, blocks = scattered
+        _scatter_slots(*launch.state()[key], slots, blocks)
 
 
 def _rank_kv_where(mesh, key):

@@ -31,11 +31,13 @@ owned by nobody or by both sides:
    sequence falls back to local decode.
 
 The block bytes are the reference's: fp32, ``(2, layers, block_size,
-kv_dim)`` per block. The pools live on the store's device and are written
-in place; the engine's ``pool_gate`` keeps the write off the step loop's
+kv_dim)`` per block. The pools are read and written in place through the
+cache (``kv.read_chain`` / ``kv.write_chain``, exactly the chain's
+slots); the engine's ``pool_gate`` keeps the write off the step loop's
 launches. A sharded chain (a ``ShardTable`` of a ``ShardedKVCache``) is
-read from and written to its shard's slices of the stacked pools
-(``kv.pool_views``). The source and destination ``DeviceStore`` must be
+read from and written to its shard's pools: a slice of the stacked pools,
+or over a mesh with a rank per position the pools on the shard's own
+rank, by one program there. The source and destination ``DeviceStore`` must be
 one store (both engines on ``global_store(device)`` of one process),
 because a record names a handle of the store it was put in.
 
@@ -87,24 +89,16 @@ g_serving_migrate_inflight.prometheus_type = "gauge"
 
 
 # --------------------------------------------------------- pool plumbing
-def _slot_index(table, block_size: int) -> np.ndarray:
-    return np.concatenate([np.arange(b * block_size, (b + 1) * block_size)
-                           for b in table]).astype(np.int64)
-
-
 def read_chain_blocks(kv, table, block_bytes: int) -> List[bytes]:
     """Serialize a chain's blocks for the record lane: one gather per
-    pool on the pools' device, ONE copy of both to the host, then one
-    ``k ‖ v`` payload per block, in table (= position) order."""
-    bs = kv.block_size
-    k, v = kv.pool_views(table)   # a sharded chain: its shard's slices
-    idx = torch.from_numpy(_slot_index(table, bs)).to(kv.device)
-    both = torch.stack([k.index_select(1, idx),
-                        v.index_select(1, idx)]).cpu().numpy()
+    pool where the pools live (``kv.read_chain``: a sharded chain's
+    shard, over ranks its pool-holding rank), ONE copy of both to the
+    host, then one ``k ‖ v`` payload per block, in table (= position)
+    order."""
+    blocks = kv.read_chain(table).cpu().numpy()
     out: List[bytes] = []
     for i in range(len(table)):
-        payload = np.ascontiguousarray(
-            both[:, :, i * bs:(i + 1) * bs, :]).tobytes()
+        payload = blocks[i].tobytes()
         if len(payload) != block_bytes:
             raise AssertionError(
                 f"block payload {len(payload)}B != manifest "
@@ -127,12 +121,8 @@ def write_chain_blocks(kv, staging_table, payloads: List[bytes],
     kv.assert_writable(staging_table, 0, n * bs)
     host = np.concatenate([np.frombuffer(p, dtype=np.float32)
                            for p in payloads])
-    blocks = torch.from_numpy(host).to(kv.device).view(
-        n, 2, kv.layers, bs, kv.kv_dim)
-    idx = torch.from_numpy(_slot_index(staging_table, bs)).to(kv.device)
-    for half, pool in enumerate(kv.pool_views(staging_table)):
-        pool.index_copy_(1, idx, blocks[:, half].transpose(0, 1).reshape(
-            kv.layers, n * bs, kv.kv_dim))
+    kv.write_chain(staging_table, torch.from_numpy(host).view(
+        n, 2, kv.layers, bs, kv.kv_dim))
     kv.pools_written()
 
 

@@ -43,7 +43,10 @@ all-reduced over dp x sp in one fp32 buffer, and SGD updates each rank's
 own shards in place. All of these go through ``tpu/launch.py``'s
 collectives. :func:`make_train_step`'s step scatters a model's
 parameters to the ranks at its first call and leaves them there;
-``step.gather(model)`` brings them back to rank 0.
+``step.gather(model)`` brings them back to rank 0. ``TrainLM.forward``
+over ranks runs the loss's first half alone (:func:`_rank_logits`): each
+tp rank's ``[b, s, V/tp]`` logits are gathered over tp on the block's tp
+rank 0, and rank 0 puts the (dp, sp) blocks back together.
 
 Entry points: :class:`TrainLM` (``forward``), :func:`loss_fn`,
 :func:`value_and_grad`, :func:`sgd_train_step`, :func:`make_train_step`,
@@ -158,12 +161,12 @@ class TrainLM(nn.Module):
 
     def forward(self, tokens, mesh: Mesh = None, causal: bool = True):
         """tokens [B, S] -> logits [B, S, V]. With a mesh, attention is
-        ring attention over sp, B split over dp and H over tp."""
+        ring attention over sp, B split over dp and H over tp. Over a mesh
+        with a rank per position the forward is one program over the
+        ranks and the logits come back to rank 0 (no graph)."""
         cfg = self.config
         if mesh is not None and mesh.ranked:
-            raise ValueError("over a mesh with a rank per position the "
-                             "model runs as a program: loss_fn, "
-                             "value_and_grad or make_train_step")
+            return self._forward_on_ranks(tokens, mesh, causal)
         if mesh is not None and \
                 resolve_device(mesh.device) != self.embed.device:
             raise ValueError(f"mesh on {mesh.device}, parameters on "
@@ -191,6 +194,17 @@ class TrainLM(nn.Module):
             h = self._norm(x, layer.ln2)
             x = x + F.gelu(h @ layer.w1, approximate="tanh") @ layer.w2
         return self._norm(x, self.ln_f) @ self.head
+
+    def _forward_on_ranks(self, tokens, mesh, causal: bool):
+        """forward over a mesh with a rank per position: one program with
+        the model's tp slices scattered; each (dp, sp) block's logits
+        come back from one rank and are put back where ``mesh.block``
+        took the block's tokens. The logits carry no graph (train over
+        ranks with loss_fn, value_and_grad or make_train_step)."""
+        _need_axes(mesh)
+        got = mesh.run(_rank_forward, self.config, tokens.detach().cpu(),
+                       causal, scatter=_scatter_of(self, mesh))
+        return mesh.assemble(got, ("dp", "sp")).to(self.embed.device)
 
 
 def param_shardings(cfg: ModelConfig, mesh: Mesh) -> dict:
@@ -416,19 +430,26 @@ class _TpGather(torch.autograd.Function):
         return g[..., t * w:(t + 1) * w], None, None
 
 
-def _rank_loss(cfg: ModelConfig, p: dict, tokens, targets, mesh,
-               n_tokens: int):
-    """This rank's share of the mean loss: its (dp, sp) block of tokens
-    through its tp slices; every tp rank of the block returns the same
-    value, and the dp x sp shares sum to the loss."""
-    tp, t = mesh.shape["tp"], mesh.coord("tp")
-    g = mesh.group("tp")
+def _tp_ops(mesh):
+    """Megatron's f and g over this rank's tp group (identities at tp 1)."""
+    tp, g = mesh.shape["tp"], mesh.group("tp")
 
     def f(x):
         return _TpCopy.apply(x, g) if tp > 1 else x
 
     def gsum(x):
         return _TpSum.apply(x, g) if tp > 1 else x
+
+    return f, gsum
+
+
+def _rank_logits(cfg: ModelConfig, p: dict, tokens, mesh,
+                 causal: bool = True):
+    """This rank's logits: its (dp, sp) block of tokens through its tp
+    slices, ``[b, s, V/tp]`` in ``cfg.dtype`` (the vocabulary columns of
+    its ``head`` slice). Every rank of the mesh calls it at once."""
+    tp, t = mesh.shape["tp"], mesh.coord("tp")
+    f, gsum = _tp_ops(mesh)
 
     def norm(x, w):
         if cfg.use_pallas_norm:
@@ -439,18 +460,29 @@ def _rank_loss(cfg: ModelConfig, p: dict, tokens, targets, mesh,
     hl, dh = cfg.n_heads // tp, cfg.head_dim
     x = p["embed"][tokens].to(cfg.dtype)
     if tp > 1:
-        x = _TpGather.apply(x, g, t)                        # [b,s,D]
+        x = _TpGather.apply(x, mesh.group("tp"), t)         # [b,s,D]
     for layer in p["layers"]:
         qkv = (f(norm(x, layer["ln1"])) @ layer["wqkv"]).reshape(
             b, s, 3, hl, dh)
         att = ring.ring_attention_local(
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mesh, "sp",
-            causal=True, use_flash=cfg.use_flash_attention)
+            causal=causal, use_flash=cfg.use_flash_attention)
         x = x + gsum(att.reshape(b, s, hl * dh) @ layer["wo"])
         h = f(norm(x, layer["ln2"]))
         x = x + gsum(F.gelu(h @ layer["w1"], approximate="tanh")
                      @ layer["w2"])
-    logits = (f(norm(x, p["ln_f"])) @ p["head"]).float()    # [b,s,V/tp]
+    return f(norm(x, p["ln_f"])) @ p["head"]                # [b,s,V/tp]
+
+
+def _rank_loss(cfg: ModelConfig, p: dict, tokens, targets, mesh,
+               n_tokens: int):
+    """This rank's share of the mean loss: its logits (:func:`_rank_logits`)
+    through a tp-parallel log-softmax; every tp rank of the block returns
+    the same value, and the dp x sp shares sum to the loss."""
+    tp, t = mesh.shape["tp"], mesh.coord("tp")
+    g = mesh.group("tp")
+    _, gsum = _tp_ops(mesh)
+    logits = _rank_logits(cfg, p, tokens, mesh).float()    # [b,s,V/tp]
     vl = logits.shape[-1]
     mx = logits.detach().amax(dim=-1)
     if tp > 1:
@@ -489,6 +521,20 @@ def _loss_and_grads(mesh, cfg, params, tokens, targets, grad: bool):
     return loss.detach(), grads
 
 
+def _rank_forward(mesh, cfg, tokens, causal, scattered):
+    """TrainLM.forward's body over ranks: this rank's logits, gathered
+    over tp in tp order on the block's tp rank 0, which alone returns
+    its (dp, sp) block's ``[b, s, V]``."""
+    params = _local_params(scattered, mesh.device, False)
+    tok = mesh.block(tokens, ("dp", "sp")).to(mesh.device)
+    with torch.no_grad():
+        logits = _rank_logits(cfg, params, tok, mesh, causal)
+        if mesh.shape["tp"] > 1:
+            logits = torch.cat(launch.all_gather(logits, mesh.group("tp")),
+                               dim=-1)
+    return logits if mesh.coord("tp") == 0 else None
+
+
 def _tp_root(mesh) -> bool:
     # the ranks at dp 0, sp 0 return their tp slices
     c = mesh.coords()
@@ -521,13 +567,17 @@ def _tree_of(mesh, cfg, results, device):
     return _map_tree(lambda a: a.to(device), unshard_trees(trees, cfg))
 
 
-def _on_ranks(model: TrainLM, batch, mesh, grad: bool):
-    """loss_fn / value_and_grad over ranks: the model's slices scattered,
-    one program, the full gradient tree back on rank 0."""
+def _need_axes(mesh) -> None:
     for ax in ("dp", "sp", "tp"):
         if ax not in mesh.shape:
             raise ValueError(f"the sharded step needs a {ax!r} axis, got "
                              f"{mesh.axis_names}")
+
+
+def _on_ranks(model: TrainLM, batch, mesh, grad: bool):
+    """loss_fn / value_and_grad over ranks: the model's slices scattered,
+    one program, the full gradient tree back on rank 0."""
+    _need_axes(mesh)
     tokens, targets = (t.detach().cpu() for t in batch)
     got = mesh.run(_rank_value_and_grad, model.config, tokens, targets,
                    grad, scatter=_scatter_of(model, mesh))
@@ -546,10 +596,7 @@ class _RankStep:
     since."""
 
     def __init__(self, cfg: ModelConfig, mesh, lr: float):
-        for ax in ("dp", "sp", "tp"):
-            if ax not in mesh.shape:
-                raise ValueError(f"the sharded step needs a {ax!r} axis, "
-                                 f"got {mesh.axis_names}")
+        _need_axes(mesh)
         self.cfg, self.mesh, self.lr = cfg, mesh, lr
         self.key = f"train-{next(_step_keys)}"
         self._model = None

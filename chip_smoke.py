@@ -271,6 +271,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -1132,7 +1133,8 @@ def disagg_window(pre, dec, requests, timeout=600.0):
     engine; each handoff is resumed on the decode engine
     (``submit(resume_seq_id=)``) from the prefill engine's completion.
     Returns ([(stage-1 result, resume result or None)], wall seconds from
-    the first submit to the last completion)."""
+    the first submit to the last completion, the prefill engine's
+    sequences: a handoff's result names the decode engine's id)."""
     out = [None] * len(requests)
     lock = threading.Lock()
     ev = threading.Event()
@@ -1157,13 +1159,15 @@ def disagg_window(pre, dec, requests, timeout=600.0):
                 finish(i, first, code)
         return done
 
+    seqs = []
     t0 = time.perf_counter()
     for i, (plen, max_new) in enumerate(requests):
-        code, _ = pre.submit(pre.model.synth_prompt(plen), max_new,
-                             done=stage1(i))
+        code, seq = pre.submit(pre.model.synth_prompt(plen), max_new,
+                               done=stage1(i))
         if code:
             raise AssertionError(f"prefill submit({plen}, {max_new}) "
                                  f"refused: {code}")
+        seqs.append(seq)
     if not ev.wait(timeout):
         raise AssertionError(f"{left[0]} of {len(requests)} disaggregated "
                              f"requests never completed")
@@ -1175,7 +1179,7 @@ def disagg_window(pre, dec, requests, timeout=600.0):
                 len(joined_tokens(first, resumed)) != max_new:
             raise AssertionError(f"request {i} ({plen}, {max_new}) ended "
                                  f"{first} / {resumed}")
-    return out, wall
+    return out, wall, seqs
 
 
 def joined_tokens(first, resumed):
@@ -1224,7 +1228,7 @@ def run_disagg(dev, smi, n_layers):
             n0 = len(migrator.seq_s)
             pf_pre, pf_dec = pre.prefill_tokens, dec.prefill_tokens
             pallas_ops.launches.reset()
-            out, wall = disagg_window(pre, dec, reqs)
+            out, wall, _ = disagg_window(pre, dec, reqs)
             pre.kv.store.fence()
             launches = pallas_ops.launches["flash_attention"]
             m1 = migrator.snapshot()
@@ -1283,7 +1287,7 @@ def run_disagg(dev, smi, n_layers):
         flags.set_flag("fault_injection_enabled", True)
         fault.arm("serving.migrate.drop", mode="always")
         try:
-            out, _ = disagg_window(pre, dec, [(plen, max_new)])
+            out, _, _ = disagg_window(pre, dec, [(plen, max_new)])
         finally:
             fault.disarm_all()
             flags.set_flag("fault_injection_enabled", False)
@@ -1312,6 +1316,7 @@ def run_disagg(dev, smi, n_layers):
     row = {"card": smi, "windows": rows, "migration": migration,
            "flash_launches": flash_total}
     print(json.dumps({"disagg": row}), flush=True)
+    LAST_ROWS["disagg"] = row
     return row
 
 
@@ -4436,12 +4441,95 @@ def run_rank_trainer(dev, smi, ranks, single):
     return counts
 
 
-def rank_windows(dev, ranks, windows):
-    """Phase 4g's mesh engine (llm_server widths, ShardedKVCache 256 x 16
-    per shard, armed, prefix cache off) over the ranks: each window's
-    tokens, stats, the shard of each request, and every rank's launches
-    (all ranks' counts reset just before its requests, read just
-    after); the audit of every decode step on rank 0's engine thread."""
+# ------------------------------------ phase 10e: TrainLM.forward over ranks
+RANK_FORWARD_B = 2           # phase 10d's fp32 batch: [2, 1024, 16384]
+RANK_FORWARD_TOL = 1e-4      # fp32 logits, absolute
+RANK_FORWARD_RUNS = 3        # timed forwards after a warm-up
+
+
+def rank_forward_launches(n_layers, coords):
+    """One rank's kernel launches in one causal forward: its ring
+    position sp runs sp + 1 live hops a layer, and every RMSNorm runs on
+    its own block."""
+    return {"flash_carry": n_layers * (coords["sp"] + 1),
+            "rmsnorm": 2 * n_layers + 1}
+
+
+def run_rank_forward(dev, smi, ranks):
+    """Phase 10e: ``TrainLM.forward(tokens, mesh)`` over the ranks at
+    phase 10d's fp32 configuration (the flagship's widths at 2 layers, B
+    2, S 1024, every kernel on, TF32 off): one program with the model's
+    tp slices scattered, the [B, S, V] logits gathered to rank 0. Held
+    against the single-controller replay's forward over dp2 x sp2 x tp2
+    laid on the card on the same parameters: fp32 logits within
+    RANK_FORWARD_TOL, finite, of the global shape; every rank's counts
+    reset just before one forward and read just after, each rank's
+    launches as its position implies. ms per forward beside the
+    replay's, the MiB of logits gathered to rank 0, each rank's time in
+    collectives and staging."""
+    cfg = train.ModelConfig(**FLAGSHIP, n_layers=2, use_flash_attention=True,
+                            use_pallas_norm=True, use_fused_xent=True)
+    model = train.TrainLM(cfg, torch.Generator().manual_seed(0), device=dev)
+    tokens, _ = train.demo_batch(torch.Generator().manual_seed(1), cfg,
+                                 RANK_FORWARD_B, 1024, device=dev)
+    replay = card_mesh(dev, MESH_AXES)
+    with torch.no_grad():
+        want = model(tokens, replay)
+        torch.cuda.synchronize()
+        replay_ms = []
+        for _ in range(RANK_FORWARD_RUNS):
+            t0 = time.perf_counter()
+            model(tokens, replay)
+            torch.cuda.synchronize()
+            replay_ms.append((time.perf_counter() - t0) * 1e3)
+    model(tokens, ranks.mesh)  # warm-up, uncounted
+    ranks.stats(reset=True)
+    ranks.reset_launches()
+    t0 = time.perf_counter()
+    got = model(tokens, ranks.mesh)
+    torch.cuda.synchronize()
+    ms = [(time.perf_counter() - t0) * 1e3]
+    counts = ranks.launches()
+    rank_stats = ranks.stats(reset=True)
+    m = ranks.mesh
+    for r, c in enumerate(counts):
+        expect_launches(c, rank_forward_launches(cfg.n_layers, m.coords(r)),
+                        f"10e rank {r} {m.coords(r)} launches")
+    for _ in range(RANK_FORWARD_RUNS - 1):
+        t0 = time.perf_counter()
+        model(tokens, ranks.mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    shape = (RANK_FORWARD_B, 1024, cfg.vocab)
+    err = float((got - want).abs().max())
+    if tuple(got.shape) != shape or got.dtype != torch.float32 or \
+            not bool(torch.isfinite(got).all()) or \
+            not err <= RANK_FORWARD_TOL:
+        raise AssertionError(f"10e: logits {tuple(got.shape)} {got.dtype} "
+                             f"vs the replay's, max |diff| {err} (tol "
+                             f"{RANK_FORWARD_TOL})")
+    row = {"card": smi, "batch": RANK_FORWARD_B, "seq": 1024,
+           "vocab": cfg.vocab, "batch_cut": False,
+           "max_abs_err_vs_replay": err, "tol": RANK_FORWARD_TOL,
+           "ms": ms, "ms_median": sorted(ms)[len(ms) // 2],
+           "replay_ms": replay_ms,
+           "replay_ms_median": sorted(replay_ms)[len(replay_ms) // 2],
+           "gathered_mib": got.numel() * got.element_size() / 2 ** 20,
+           "launches_per_rank": counts,
+           "per_rank": [{"coords": m.coords(r),
+                         "collective_ms": st["collective_s"] * 1e3,
+                         "staging_ms": st["staging_s"] * 1e3,
+                         "staged_mib": st["staged_bytes"] / 2 ** 20}
+                        for r, st in enumerate(rank_stats)]}
+    print(json.dumps({"rank_forward": row}), flush=True)
+    del model, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rank_mesh_model(ranks):
+    """Phase 4o's MeshTransformer over the ranks (llm_server widths,
+    ShardedKVCache 256 x 16 per shard on each shard's rank, armed)."""
     from brpc_tpu_torch.serving import MeshTransformer, ShardedKVCache
 
     cfg = ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=2,
@@ -4450,10 +4538,24 @@ def rank_windows(dev, ranks, windows):
     kv = ShardedKVCache(KVCacheConfig(block_size=16, num_blocks=256),
                         cfg.n_layers, cfg.kv_dim, mesh=ranks.mesh)
     kv._check = True
-    model = MeshTransformer(cfg, kv)
-    engine = ServingEngine(model, kv, EngineConfig(
-        max_batch=8, token_budget=TOKEN_BUDGET, idle_wait_s=0.001),
-        prefix_cache=False).start()
+    return MeshTransformer(cfg, kv)
+
+
+def rank_engine(model, role):
+    return ServingEngine(model, model.kv, EngineConfig(
+        max_batch=8, token_budget=TOKEN_BUDGET, idle_wait_s=0.001,
+        role=role), prefix_cache=False).start()
+
+
+def rank_windows(dev, ranks, windows):
+    """Phase 4g's mesh engine (llm_server widths, ShardedKVCache 256 x 16
+    per shard, armed, prefix cache off) over the ranks: each window's
+    tokens, stats, the shard of each request, and every rank's launches
+    (all ranks' counts reset just before its requests, read just
+    after); the audit of every decode step on rank 0's engine thread."""
+    model = rank_mesh_model(ranks)
+    kv = model.kv
+    engine = rank_engine(model, "both")
     deltas = audit_steps(engine)
     out = {}
     try:
@@ -4546,10 +4648,215 @@ def run_rank_serving(dev, smi, ranks, n_layers, direct, mesh_row,
     return [sum(w) for w in zip(*(got[n]["launches"] for n, _ in windows))]
 
 
+# ------------------------------- phase 4q: migration to and from the ranks
+def rank_disagg_window(ranks, pre, dec, migrator, requests, want_tokens,
+                       tag):
+    """One disaggregated window between ``pre`` and ``dec`` (one of them
+    on the ranks), every rank's counts reset just before its requests and
+    read just after: tokens equal ``want_tokens``, a handoff each, the
+    decode engine prefills nothing and launches no flash kernel, blocks
+    and bytes exact. Returns its row, each rank's flash launches and the
+    prefill engine's sequence ids."""
+    m0 = migrator.snapshot()
+    n0 = len(migrator.seq_s)
+    pf_dec = dec.prefill_tokens
+    ranks.reset_launches()
+    out, wall, seqs = disagg_window(pre, dec, requests)
+    per_rank = [c.get("flash_attention", 0) for c in ranks.launches()]
+    dec_flash = pallas_ops.launches.of_thread(dec._thread.ident,
+                                              "flash_attention")
+    pre_flash = pallas_ops.launches.of_thread(pre._thread.ident,
+                                              "flash_attention")
+    m1 = migrator.snapshot()
+    moved = {k: m1[k] - m0[k] for k in ("seqs", "blocks", "bytes",
+                                        "failed")}
+    want_blocks = sum(pre.kv.blocks_for(p) for p, _ in requests)
+    got = [joined_tokens(f, r) for f, r in out]
+    if any(f.finish_reason != "handoff" for f, _ in out):
+        raise AssertionError(f"4q {tag}: not every request handed off")
+    if got != want_tokens:
+        raise AssertionError(f"4q {tag}: tokens {got} != {want_tokens}")
+    if dec.prefill_tokens != pf_dec or dec_flash:
+        raise AssertionError(f"4q {tag}: the decode engine prefilled "
+                             f"{dec.prefill_tokens - pf_dec} tokens, "
+                             f"{dec_flash} flash launches")
+    if (moved["seqs"], moved["blocks"], moved["bytes"], moved["failed"]) \
+            != (len(requests), want_blocks,
+                want_blocks * DISAGG_BLOCK_BYTES, 0):
+        raise AssertionError(f"4q {tag}: migrated {moved}, want "
+                             f"{len(requests)} seqs, {want_blocks} blocks")
+    seq_ms = [t * 1e3 for t in migrator.seq_s[n0:]]
+    row = {"requests": len(requests), "migrated": moved,
+           "flash_launches_per_rank": per_rank,
+           "flash_launches_prefill_thread": pre_flash,
+           "flash_launches_decode_thread": dec_flash,
+           "prefill_tokens_decode_engine": dec.prefill_tokens - pf_dec,
+           "ms_per_migrated_seq_p50": pct(seq_ms, 50),
+           "ms_per_migrated_seq_max": max(seq_ms),
+           "ms_per_migrated_seq_by_phase": {
+               k: (m1["phase_s"][k] - m0["phase_s"][k]) * 1e3
+               / len(requests) for k in m1["phase_s"]},
+           "tokens_per_s": sum(len(t) for t in got) / wall,
+           "wall_s": wall}
+    return row, per_rank, [q.seq_id for q in seqs]
+
+
+def rank_prefill_want(m, n_layers, shards):
+    """Each rank's flash launches when the rank mesh prefills requests
+    on ``shards``: the tp ranks at sp 0 of a request's shard, once a
+    layer."""
+    return [n_layers * sum(1 for sh in shards if sh == m.coords(r)["dp"])
+            if m.coords(r)["sp"] == 0 else 0 for r in range(m.devices.size)]
+
+
+def rank_drain(ranks, survivor, server, want):
+    """A live rank-mesh engine stopped mid-generation drains onto
+    ``survivor`` (behind ``server``); the retry of the same request
+    there attaches with no prefill and ends with ``want``."""
+    model = rank_mesh_model(ranks)
+    dying = rank_engine(model, "both")
+    dying.set_migrator(KVMigrator(str(server.listen_endpoint())))
+    plen, max_new = PROMPT_LENS[-1], MAX_NEW[-1]
+    failed = {}
+    cntl = types.SimpleNamespace(
+        set_failed=lambda code, msg: failed.update(code=code, msg=msg))
+    ev = threading.Event()
+    try:
+        code, seq = dying.submit(model.synth_prompt(plen), max_new,
+                                 cntl=cntl, done=lambda _r: ev.set())
+        if code:
+            raise AssertionError(f"4q drain: submit refused {code}")
+        deadline = time.monotonic() + 120
+        while len(seq.out_tokens) < 4:
+            if time.monotonic() > deadline:
+                raise AssertionError("4q drain: decode never started")
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        dying.stop()   # the drain runs here, on the ranks: before close
+        stop_ms = (time.perf_counter() - t0) * 1e3
+        drained_at = len(seq.out_tokens)
+        if not ev.wait(60) or failed.get("code") != rpc.errors.EFAILEDSOCKET \
+                or dying.migrator.seqs != 1:
+            raise AssertionError(f"4q drain: {failed}, migrated "
+                                 f"{dying.migrator.seqs}")
+        pf = survivor.prefill_tokens
+        results, _ = serve(survivor, [(plen, max_new)])
+        if results[0].tokens != want or survivor.prefill_tokens != pf:
+            raise AssertionError(f"4q drain: survivor tokens "
+                                 f"{results[0].tokens} != {want}, prefill "
+                                 f"{survivor.prefill_tokens - pf}")
+    finally:
+        dying.stop()
+    model.kv.assert_idle("the drained rank-mesh pool")
+    model.close()
+    model.kv.close()
+    return {"prompt": plen, "max_new": max_new, "drained_at": drained_at,
+            "stop_ms": stop_ms, "tokens_equal": True,
+            "survivor_prefill_tokens": 0}
+
+
+def run_rank_disagg(dev, smi, ranks, n_layers, direct, mesh_tokens):
+    """Phase 4q: KV migration between a rank-mesh engine and a
+    single-device one behind the port's Server, over the record lane.
+    The prefill engine on the ranks (phase 4o's model) hands PROMPT_LENS
+    and the corpus schedule twice to a co-located single-device decode
+    engine; then the reverse pairing on PROMPT_LENS; then a live
+    rank-mesh engine drains onto the single-device engine at stop().
+    Held: tokens equal phase 4g's mesh tokens, a handoff each, blocks x
+    16 KiB exact and no failure, the decode engine 0 prefills and 0
+    flash launches, the ranks' flash launches as the prefilling side
+    implies (counts reset just before each window, read just after), the
+    drained request's retry attaching with no prefill, and every pool
+    idle at the end. ms per migrated sequence beside phase 4d's."""
+    windows = [("prompt_lens", list(zip(PROMPT_LENS, MAX_NEW))),
+               ("corpus_1", CORPUS_SCHEDULE), ("corpus_2", CORPUS_SCHEDULE)]
+    m = ranks.mesh
+    single = build_engine(dev, "auto", role="decode")
+    server = rpc.Server().add_service(LlmServingService(single)) \
+        .start("127.0.0.1:0")
+    ep = str(server.listen_endpoint())
+    row = {"card": smi}
+    launches = [0] * m.devices.size
+    try:
+        model = rank_mesh_model(ranks)
+        pre = rank_engine(model, "prefill")
+        migrator = KVMigrator(ep)
+        pre.set_migrator(migrator)
+        try:
+            disagg_window(pre, single, [(16, 2)])  # warm-up, uncounted
+            for name, requests in windows:
+                w, per_rank, seq_ids = rank_disagg_window(
+                    ranks, pre, single, migrator, requests,
+                    mesh_tokens[name], f"ranks -> one card {name}")
+                want = rank_prefill_want(
+                    m, n_layers, [model.kv.shard_of(i) for i in seq_ids])
+                if per_rank != want:
+                    raise AssertionError(f"4q {name}: flash launches per "
+                                         f"rank {per_rank}, want {want}")
+                launches = [a + b for a, b in zip(launches, per_rank)]
+                row[f"ranks_to_card_{name}"] = w
+        finally:
+            pre.stop()
+        model.kv.assert_idle("the rank-mesh prefill pool after 4q")
+        model.close()
+        model.kv.close()
+
+        # the reverse pairing: the card's single-device engine prefills,
+        # the rank mesh decodes
+        dmodel = rank_mesh_model(ranks)
+        dec = rank_engine(dmodel, "decode")
+        dserver = rpc.Server().add_service(LlmServingService(dec)) \
+            .start("127.0.0.1:0")
+        spre = build_engine(dev, "auto", role="prefill")
+        smig = KVMigrator(str(dserver.listen_endpoint()))
+        spre.set_migrator(smig)
+        try:
+            name, requests = windows[0]
+            w, per_rank, _ = rank_disagg_window(
+                ranks, spre, dec, smig, requests, mesh_tokens[name],
+                f"one card -> ranks {name}")
+            want = [n_layers * len(requests)] + [0] * (m.devices.size - 1)
+            if per_rank != want or w["flash_launches_prefill_thread"] != \
+                    n_layers * len(requests):
+                raise AssertionError(f"4q reverse: flash launches per rank "
+                                     f"{per_rank}, want {want} (rank 0: "
+                                     f"the card's prefill engine)")
+            row["card_to_ranks_prompt_lens"] = w
+        finally:
+            spre.stop()
+            dserver.stop()
+            dserver.join(timeout=5)
+            dec.stop()
+        spre.kv.assert_idle("the single-device prefill pool after 4q")
+        dmodel.kv.assert_idle("the rank-mesh decode pool after 4q")
+        spre.model.close()
+        spre.kv.close()
+        dmodel.close()
+        dmodel.kv.close()
+
+        want = [list(r.tokens) for r in direct][-1]
+        row["drain"] = rank_drain(ranks, single, server, want)
+    finally:
+        server.stop()
+        server.join(timeout=5)
+        single.stop()
+    single.kv.assert_idle("the single-device pool after 4q")
+    single.model.close()
+    single.kv.close()
+    d4 = LAST_ROWS["disagg"]["windows"]
+    row["4d_ms_per_migrated_seq_p50"] = {
+        k: d4[k]["ms_per_migrated_seq_p50"] for k in d4 if k in
+        ("prompt_lens", "corpus")}
+    row["launches_per_rank"] = launches
+    print(json.dumps({"rank_disagg": row}), flush=True)
+    return launches
+
+
 def run_ranks(dev, smi, n_layers, direct, mesh_row, single):
-    """Phases 4o and 10d over one launch of eight ranks sharing the card;
-    the ranks' layout and backend printed first, the group closed at the
-    end (its workers stopped)."""
+    """Phases 4o, 4q, 10d and 10e over one launch of eight ranks sharing
+    the card; the ranks' layout and backend printed first, the group
+    closed at the end (its workers stopped). Every engine on the ranks
+    stops, and so drains, inside the launch."""
     from brpc_tpu_torch.tpu import launch
 
     t0 = time.perf_counter()
@@ -4562,9 +4869,17 @@ def run_ranks(dev, smi, n_layers, direct, mesh_row, single):
               flush=True)
         serving = run_rank_serving(dev, smi, ranks, n_layers, direct,
                                    mesh_row, LAST_ROWS["mesh_tokens"])
+        t1 = time.perf_counter()
+        disagg = run_rank_disagg(dev, smi, ranks, n_layers, direct,
+                                 LAST_ROWS["mesh_tokens"])
+        log(f"phase 4q in {time.perf_counter() - t1:.1f}s")
         training = run_rank_trainer(dev, smi, ranks, single)
-    log(f"phases 4o and 10d over ranks in {time.perf_counter() - t0:.1f}s")
-    return serving, training
+        t1 = time.perf_counter()
+        forward = run_rank_forward(dev, smi, ranks)
+        log(f"phase 10e in {time.perf_counter() - t1:.1f}s")
+    log(f"phases 4o, 4q, 10d and 10e over ranks in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return serving, disagg, training, forward
 
 
 # ---------------------------------------------------------------------------
@@ -6656,8 +6971,8 @@ def main():
     counts, single = run_trainer(dev, smi)
     sharded_parity(dev)
     sharded_counts = run_sharded_trainer(dev, smi, single)
-    rank_serving, rank_counts = run_ranks(dev, smi, n_layers, auto, mesh,
-                                          single)
+    rank_serving, rank_disagg, rank_counts, rank_forward = run_ranks(
+        dev, smi, n_layers, auto, mesh, single)
     xent = check_xent(dev)
     run_graft_entry(dev)
     run_dryrun_ranks()
@@ -6717,6 +7032,8 @@ def main():
         if e["name"] == "flash_attention":
             # phase 4o: each rank's launches over its windows
             e["launches_mesh_ranks"] = rank_serving
+            # phase 4q: over its migration windows (the decode side: 0)
+            e["launches_mesh_ranks_disagg"] = rank_disagg
         if e["name"] in ("rmsnorm", "rmsnorm_bwd", "flash_carry",
                          "flash_bwd_dq", "flash_bwd_dkv"):
             # phase 10d: each rank's launches over the steps
@@ -6725,6 +7042,10 @@ def main():
             e["launches_sharded_train"] = sharded_counts[e["name"]]
             e["launches_sharded_train_per_step"] = (
                 sharded_counts[e["name"]] / TRAIN_STEPS)
+        if e["name"] in ("rmsnorm", "flash_carry"):
+            # phase 10e: each rank's launches in one ranked forward
+            e["launches_rank_forward"] = [c.get(e["name"], 0)
+                                          for c in rank_forward]
     no_protobuf_or_jax("at the end")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

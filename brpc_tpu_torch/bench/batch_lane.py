@@ -1,6 +1,6 @@
 """Adaptive batching against per-request dispatch: the port's counterpart
-of ``bench.py``'s ``bench_batch_lane`` and ``tools/bench_server.py``'s
-``BatchBenchService``.
+of ``bench.py``'s ``bench_batch_lane``, over ``BatchBenchService`` of
+the port's ``tools/bench_server.py``.
 
     python3 brpc_tpu_torch/bench/batch_lane.py [--cpu]
     python3 brpc_tpu_torch/bench/batch_lane.py --serve [--cpu]
@@ -51,97 +51,44 @@ sys.path.insert(0, ROOT)
 
 from brpc_tpu_torch.proto import echo_pb2  # noqa: E402
 from brpc_tpu_torch.rpc import (Channel, ChannelOptions,  # noqa: E402
-                                MethodDescriptor, Server, Service, errors)
+                                MethodDescriptor, Server)
 
-DIM = 256
-LAYERS = 32
-BUCKETS = (1, 8, 32)
+from brpc_tpu_torch.tools import bench_server  # noqa: E402
+
+DIM = bench_server.DIM
 # (in flight, calls): the reference's warm-ups and timed runs
 WARM = {"Infer": (4, 30), "InferBatched": (8, 60)}
 TIMED = {"Infer": (16, 600), "InferBatched": (32, 4000)}
 
 
-class BatchBenchService(Service):
-    """The same MLP behind a per-request and a batched method."""
+class BatchBenchService(bench_server.BatchBenchService):
+    """``bench_server``'s BatchBench, each response also carrying its
+    output row, with forward calls and the items they carried counted by
+    method."""
 
     def __init__(self, device):
-        import torch
-
-        from brpc_tpu_torch.batch import make_batched
-
-        super().__init__()
-        self._torch = torch
-        self.device = device
-        gen = torch.Generator().manual_seed(0)
-        scale = 1.0 / np.sqrt(DIM)
-        self.W = (torch.randn((LAYERS, DIM, DIM), generator=gen)
-                  * scale).to(device)
-        self.b = (torch.randn((LAYERS, DIM), generator=gen)
-                  * 0.01).to(device)
         self._lock = threading.Lock()
         self.calls = {"Infer": [0, 0], "InferBatched": [0, 0]}
-        self.add_method("Infer", self.Infer,
-                        echo_pb2.EchoRequest, echo_pb2.EchoResponse)
-        self.add_method(
-            "InferBatched",
-            make_batched("BatchBench.InferBatched", self.InferBatched,
-                         max_batch_size=BUCKETS[-1], max_delay_us=2000,
-                         bucket_shapes=BUCKETS,
-                         # steady pipelined load: size and deadline shape
-                         # the batches; boundary flushes would fragment
-                         # them (each readable event admits only a few)
-                         flush_on_poll_batch=False),
-            echo_pb2.EchoRequest, echo_pb2.EchoResponse)
-        for bb in BUCKETS:  # every bucket's first call before any request
-            self.forward(np.zeros((bb, DIM), np.float32))
-
-    @property
-    def service_name(self) -> str:
-        return "BatchBench"
-
-    def forward(self, x: np.ndarray) -> np.ndarray:
-        """[B, DIM] -> [B, DIM]: one forward call (2 x LAYERS launches on
-        the card, whatever B)."""
-        torch = self._torch
-        with torch.no_grad():
-            h = torch.from_numpy(x).to(self.device)
-            for l in range(LAYERS):
-                h = torch.relu(h @ self.W[l] + self.b[l])
-            return h.cpu().numpy()
+        super().__init__(device)
 
     def _note(self, method, items):
         with self._lock:
             self.calls[method][0] += 1
             self.calls[method][1] += items
 
-    @staticmethod
-    def _row(request):
-        x = np.frombuffer(request.payload, np.float32)
-        if x.shape != (DIM,):
-            raise ValueError(f"want {DIM} float32 features, got {x.size}")
-        return x.copy()  # the wire buffer is read-only
-
-    @staticmethod
-    def _response(y):
+    def _response(self, y):
         return echo_pb2.EchoResponse(message=f"{float(y.sum()):.4f}",
                                      payload=y.tobytes())
 
     def Infer(self, cntl, request, done):
-        y = self.forward(self._row(request)[None])
+        resp = super().Infer(cntl, request, done)
         self._note("Infer", 1)
-        return self._response(y[0])
+        return resp
 
     def InferBatched(self, batch):
-        rows = []
-        for i, r in enumerate(batch.requests):
-            try:
-                rows.append(self._row(r))
-            except ValueError as e:
-                batch.fail(i, errors.EREQUEST, str(e))
-                rows.append(np.zeros(DIM, np.float32))
-        y = self.forward(batch.stack(rows))  # ONE call for the whole batch
+        out = super().InferBatched(batch)
         self._note("InferBatched", batch.size)
-        return [self._response(y[i]) for i in range(batch.size)]
+        return out
 
 
 def serve(cpu: bool) -> int:

@@ -1,10 +1,10 @@
 """Open-loop replay of a recorded Generate corpus through the port's RPC
 front, with the QoS identity each record carries: the port's counterpart
-of ``tools/rpc_replay.py`` for one service, importing nothing of the JAX
+of ``rpc_replay``'s pacing for one service, importing nothing of the JAX
 package (``chip_smoke.py`` phase 4j replays the overload corpus with it).
 
-:func:`load_corpus` reads every ``*.dump`` under a directory with the
-port's ``trace/rpc_dump.RpcDumpLoader`` and keeps, per record, the
+:func:`load_corpus` reads a dump file or directory with the port's
+``tools/rpc_replay.load_items`` and keeps, per Generate record, the
 decoded ``GenerateRequest``, its arrival offset (from the first record),
 and the recorded ``tenant`` / ``priority``. :func:`replay` fires each
 record at ``offset / rate_mult`` after the start on its own Controller,
@@ -30,11 +30,10 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-from brpc_tpu_torch.policy import compress as _compress  # noqa: E402
 from brpc_tpu_torch.proto import serving_pb2  # noqa: E402
 from brpc_tpu_torch.rpc import (Channel, ChannelOptions,  # noqa: E402
                                 Controller, Stub, errors)
-from brpc_tpu_torch.trace.rpc_dump import RpcDumpLoader  # noqa: E402
+from brpc_tpu_torch.tools import rpc_replay  # noqa: E402
 
 DESC = serving_pb2.DESCRIPTOR.services_by_name["LlmService"]
 
@@ -50,25 +49,12 @@ class Record:
 
 
 def load_corpus(path: str) -> List[Record]:
-    """Every Generate record under ``path``, in arrival order."""
-    files = ([os.path.join(path, f) for f in sorted(os.listdir(path))
-              if f.endswith(".dump")] if os.path.isdir(path) else [path])
-    recs = [r for f in files for r in RpcDumpLoader(f)
-            if r.meta.request.method_name == "Generate"]
-    recs.sort(key=lambda r: r.ts_us)
-    t0 = next((r.ts_us for r in recs if r.ts_us > 0.0), 0.0)
-    out = []
-    for r in recs:
-        att = r.meta.attachment_size
-        body = r.body[:-att] if att else r.body
-        req = serving_pb2.GenerateRequest()
-        req.ParseFromString(_compress.decompress(body,
-                                                 r.meta.compress_type))
-        out.append(Record(req, max(0.0, (r.ts_us - t0) / 1e6)
-                          if r.ts_us > 0.0 else 0.0,
-                          str(r.info.get("tenant", "")),
-                          int(r.info.get("priority", 0))))
-    return out
+    """Every Generate record under ``path``, in arrival order, as the
+    port's ``rpc_replay.load_items`` decodes them."""
+    items, _ = rpc_replay.load_items(path)
+    return [Record(serving_pb2.GenerateRequest.FromString(it.payload),
+                   it.offset_s, it.tenant, it.priority)
+            for it in items if it.md.method_name == "Generate"]
 
 
 def tenant_row(lats, codes):
@@ -88,11 +74,14 @@ def replay(server: str, records: List[Record], rate_mult: float = 1.0,
            timeout_ms: int = 30000, wait_s: float = 300.0) -> Dict:
     """Fire ``records`` at their offsets over ``rate_mult``; returns
     ``{"tenants": {...}, "records": [(code, tokens), ...], "latency_us":
-    [...], "wall_s"}``."""
+    [...], "wall_s", "start_s", "fired_s": [...]}``, the start and each
+    record's send on ``time.perf_counter``'s clock (the host's monotonic
+    clock, the same in every process)."""
     stub = Stub(Channel(ChannelOptions(timeout_ms=timeout_ms,
                                        max_retry=0)).init(server), DESC)
     n = len(records)
     lats = [0.0] * n
+    fired = [0.0] * n
     codes = [None] * n
     tokens: List[List[int]] = [[] for _ in range(n)]
     lock = threading.Lock()
@@ -121,8 +110,9 @@ def replay(server: str, records: List[Record], rate_mult: float = 1.0,
         cntl = Controller()
         cntl.tenant_id = rec.tenant
         cntl.priority = rec.priority
+        fired[i] = time.perf_counter()
         stub.Generate(rec.request, controller=cntl,
-                      done=done_for(i, time.perf_counter()))
+                      done=done_for(i, fired[i]))
     if n and not done_ev.wait(wait_s):
         raise RuntimeError(f"replay stalled: {n - left[0]}/{n} answered")
     wall = time.perf_counter() - start
@@ -132,4 +122,5 @@ def replay(server: str, records: List[Record], rate_mult: float = 1.0,
         tenants[t] = tenant_row([lats[i] for i in idx],
                                 [codes[i] for i in idx])
     return {"tenants": tenants, "wall_s": wall,
-            "records": list(zip(codes, tokens)), "latency_us": lats}
+            "records": list(zip(codes, tokens)), "latency_us": lats,
+            "start_s": start, "fired_s": fired}

@@ -7,10 +7,10 @@ builtin pages THROUGH a proxy that speaks the binary protocol to it.
 It touches no device.
 """
 
-from brpc_tpu_torch.examples.dashboard_proxy import proxy as rpc_view
 from brpc_tpu_torch.policy.http_protocol import http_fetch
 from brpc_tpu_torch.proto import echo_pb2
 from brpc_tpu_torch.rpc import Server, ServerOptions, Service
+from brpc_tpu_torch.tools import rpc_view
 
 
 class Echo(Service):
@@ -26,7 +26,8 @@ def main(argv=None) -> int:
     backend.start("127.0.0.1:0")
     proxy = None
     try:
-        proxy = rpc_view.serve("127.0.0.1:0", str(backend.listen_endpoint()))
+        proxy = rpc_view.serve("127.0.0.1:0",
+                               str(backend.listen_endpoint()), block=False)
         pep = str(proxy.listen_endpoint())
         resp = http_fetch(pep, "GET", "/status", timeout=5)
         assert resp.status == 200 and b"EchoService" in resp.body

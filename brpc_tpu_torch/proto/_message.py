@@ -372,6 +372,7 @@ class Message:
     FIELDS: Tuple[Field, ...] = ()
     SYNTAX = "proto3"
     ENUMS: Tuple[EnumType, ...] = ()
+    NESTED: Tuple[type, ...] = ()  # nested message types (not map entries)
     DESCRIPTOR: "Descriptor" = None
     # class-level tables, built by __init_subclass__
     _by_name: Dict[str, Field] = {}
@@ -384,6 +385,14 @@ class Message:
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
+        cls._build_tables()
+
+    @classmethod
+    def _build_tables(cls) -> None:
+        """The class's lookup tables from ``FIELDS``; run again after
+        ``FIELDS`` is set on a class made before the classes its fields
+        name (a message that holds itself, or one read from a descriptor
+        set)."""
         cls._ordered = tuple(sorted(cls.FIELDS, key=lambda f: f.number))
         cls._by_name = {f.name: f for f in cls._ordered}
         cls._by_number = {f.number: f for f in cls._ordered}
@@ -809,14 +818,8 @@ class FileDescriptor:
                 else enum.name
             self.enum_types_by_name[enum.name] = enum
         for cls in messages:
-            cls.DESCRIPTOR = Descriptor(cls, package)
-            self.message_types_by_name[cls.__name__] = cls.DESCRIPTOR
-            for enum in cls.ENUMS:
-                enum.full_name = f"{cls.DESCRIPTOR.full_name}.{enum.name}"
-            for f in cls.FIELDS:
-                if f.is_map:
-                    f._entry.DESCRIPTOR = Descriptor(
-                        f._entry, cls.DESCRIPTOR.full_name)
+            self.message_types_by_name[cls.__name__] = _describe(cls,
+                                                                 package)
         self.services_by_name = {
             sname: ServiceDescriptor(sname, package, methods)
             for sname, methods in (services or {}).items()}
@@ -848,6 +851,21 @@ class FileDescriptor:
         if self.syntax == "proto3":
             _put_text(out, 12, "proto3")
         return bytes(out)
+
+
+def _describe(cls, prefix: str) -> Descriptor:
+    """Set the DESCRIPTOR of ``cls``, of its map entries and nested types,
+    and the full names of its enums."""
+    cls.DESCRIPTOR = Descriptor(cls, prefix)
+    full = cls.DESCRIPTOR.full_name
+    for enum in cls.ENUMS:
+        enum.full_name = f"{full}.{enum.name}"
+    for f in cls.FIELDS:
+        if f.is_map:
+            f._entry.DESCRIPTOR = Descriptor(f._entry, full)
+    for nested in cls.NESTED:
+        _describe(nested, full)
+    return cls.DESCRIPTOR
 
 
 # FieldDescriptorProto's Label and Type values (descriptor.proto)
@@ -896,6 +914,8 @@ def _message_proto(cls) -> bytearray:
         if f.is_map:
             entry = _message_proto_of_entry(f._entry, full)
             _put_bytes(msg, 3, entry)
+    for nested in cls.NESTED:
+        _put_bytes(msg, 3, _message_proto(nested))
     for enum in cls.ENUMS:
         _put_bytes(msg, 4, _enum_proto(enum))
     for decl in decls:
@@ -956,3 +976,229 @@ def _put_text(out: bytearray, number: int, text: str) -> None:
 def get_message_class(desc: Descriptor) -> type:
     """The concrete class of a message descriptor."""
     return desc._concrete_class
+
+
+# ----------------------------------------------------------- descriptor sets
+# descriptor.proto's messages, as far as the reader below needs them (proto2,
+# so every singular scalar has presence: ``oneof_index`` 0 is told from
+# unset); the fields not listed (options but map_entry, json names,
+# source info) are skipped when parsing
+class _EnumValueProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(1, "name", STRING), Field(2, "number", INT32))
+
+
+class _EnumProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(1, "name", STRING),
+              Field(2, "value", MESSAGE, True, _EnumValueProto))
+
+
+class _FieldProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(1, "name", STRING), Field(3, "number", INT32),
+              Field(4, "label", INT32), Field(5, "type", INT32),
+              Field(6, "type_name", STRING),
+              Field(7, "default_value", STRING),
+              Field(9, "oneof_index", INT32),
+              Field(17, "proto3_optional", BOOL))
+
+
+class _MessageOptionsProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(7, "map_entry", BOOL),)
+
+
+class _OneofProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(1, "name", STRING),)
+
+
+class _MessageProto(Message):
+    SYNTAX = "proto2"
+
+
+_MessageProto.FIELDS = (
+    Field(1, "name", STRING), Field(2, "field", MESSAGE, True, _FieldProto),
+    Field(3, "nested_type", MESSAGE, True, _MessageProto),
+    Field(4, "enum_type", MESSAGE, True, _EnumProto),
+    Field(7, "options", MESSAGE, message_class=_MessageOptionsProto),
+    Field(8, "oneof_decl", MESSAGE, True, _OneofProto))
+_MessageProto._build_tables()
+
+
+class _MethodProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(1, "name", STRING), Field(2, "input_type", STRING),
+              Field(3, "output_type", STRING))
+
+
+class _ServiceProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(1, "name", STRING),
+              Field(2, "method", MESSAGE, True, _MethodProto))
+
+
+class _FileProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(1, "name", STRING), Field(2, "package", STRING),
+              Field(3, "dependency", STRING, True),
+              Field(4, "message_type", MESSAGE, True, _MessageProto),
+              Field(5, "enum_type", MESSAGE, True, _EnumProto),
+              Field(6, "service", MESSAGE, True, _ServiceProto),
+              Field(12, "syntax", STRING))
+
+
+class _FileSetProto(Message):
+    SYNTAX = "proto2"
+    FIELDS = (Field(1, "file", MESSAGE, True, _FileProto),)
+
+
+_KINDS = {code: kind for kind, code in _TYPE_CODES.items()}
+_UNSUPPORTED = {6: "fixed64", 7: "fixed32", 10: "group", 15: "sfixed32",
+                16: "sfixed64", 17: "sint32", 18: "sint64"}
+
+
+def _parse_default(kind: str, text: str, enum_type: Optional[EnumType]):
+    """A proto2 ``default_value`` (descriptor.proto's text form) as the
+    field's Python value."""
+    if kind == STRING:
+        return text
+    if kind == BYTES:
+        import codecs
+
+        return codecs.escape_decode(text.encode("latin-1"))[0]
+    if kind == BOOL:
+        return text == "true"
+    if kind in (DOUBLE, FLOAT):
+        return float(text)
+    if kind == ENUM:
+        return enum_type.values_by_name[text]
+    return int(text, 0)
+
+
+class _SetReader:
+    """Turns the ``FileDescriptorProto``s of one set into classes: every
+    message class is made first (empty), so that fields can name any
+    message of any file of the set, itself included."""
+
+    def __init__(self, files: Sequence[_FileProto]):
+        self.files = files
+        self.classes: Dict[str, type] = {}     # ".pkg.Outer.Inner" -> class
+        self.enums: Dict[str, EnumType] = {}
+        self.protos: Dict[str, Tuple[_MessageProto, str]] = {}
+        for fp in files:
+            prefix = f".{fp.package}" if fp.package else ""
+            syntax = fp.syntax or "proto2"
+            for ep in fp.enum_type:
+                self._enum(ep, prefix)
+            for mp in fp.message_type:
+                self._declare(mp, prefix, syntax)
+        for full, (mp, syntax) in self.protos.items():
+            self._fill(self.classes[full], mp, full)
+
+    def _enum(self, ep: _EnumProto, prefix: str) -> EnumType:
+        enum = EnumType(ep.name, [(v.name, v.number) for v in ep.value])
+        self.enums[f"{prefix}.{ep.name}"] = enum
+        return enum
+
+    def _declare(self, mp: _MessageProto, prefix: str, syntax: str) -> type:
+        full = f"{prefix}.{mp.name}"
+        cls = type(mp.name, (Message,), {"SYNTAX": syntax})
+        cls.ENUMS = tuple(self._enum(ep, full) for ep in mp.enum_type)
+        for enum in cls.ENUMS:
+            for vname, number in enum.values:
+                setattr(cls, vname, number)
+        nested = [self._declare(np_, full, syntax) for np_ in mp.nested_type]
+        cls.NESTED = tuple(c for c, np_ in zip(nested, mp.nested_type)
+                           if not np_.options.map_entry)
+        for c in cls.NESTED:
+            setattr(cls, c.__name__, c)  # Outer.Inner, as protobuf names it
+        self.classes[full] = cls
+        self.protos[full] = (mp, syntax)
+        return cls
+
+    def _fill(self, cls: type, mp: _MessageProto, full: str) -> None:
+        if mp.options.map_entry:
+            return  # an entry is a map field's, made by the runtime
+        fields = []
+        for fp in mp.field:
+            code = fp.type
+            if code in _UNSUPPORTED:
+                raise NotImplementedError(
+                    f"{full[1:]}.{fp.name}: the message runtime has no "
+                    f"{_UNSUPPORTED[code]} fields")
+            kind = _KINDS[code]
+            kw: Dict[str, object] = {}
+            if kind == MESSAGE:
+                target = self.protos.get(fp.type_name)
+                if target is not None and target[0].options.map_entry:
+                    key, value = target[0].field[0], target[0].field[1]
+                    fields.append(self._map_field(fp, key, value))
+                    continue
+                kw["message_class"] = self.classes[fp.type_name]
+            elif kind == ENUM:
+                kw["enum_type"] = self.enums[fp.type_name]
+            if fp.proto3_optional:
+                kw["optional"] = True
+            elif fp.HasField("oneof_index"):
+                kw["oneof"] = mp.oneof_decl[fp.oneof_index].name
+            if fp.label == _LABEL_REQUIRED:
+                kw["required"] = True
+            if fp.HasField("default_value"):
+                kw["default"] = _parse_default(kind, fp.default_value,
+                                               kw.get("enum_type"))
+            fields.append(Field(fp.number, fp.name, kind,
+                                fp.label == _LABEL_REPEATED, **kw))
+        cls.FIELDS = tuple(fields)
+        cls._build_tables()
+
+    def _map_field(self, fp: _FieldProto, key: _FieldProto,
+                   value: _FieldProto) -> Field:
+        kind = _KINDS[value.type]
+        kw: Dict[str, object] = {}
+        if kind == MESSAGE:
+            kw["message_class"] = self.classes[value.type_name]
+        elif kind == ENUM:
+            kw["enum_type"] = self.enums[value.type_name]
+        return Field(fp.number, fp.name, kind, map_key=_KINDS[key.type],
+                     **kw)
+
+    def file_descriptors(self) -> List[FileDescriptor]:
+        out = []
+        for fp in self.files:
+            prefix = f".{fp.package}" if fp.package else ""
+            messages = [self.classes[f"{prefix}.{mp.name}"]
+                        for mp in fp.message_type]
+            enums = [self.enums[f"{prefix}.{ep.name}"] for ep in fp.enum_type]
+            services = {sp.name: [(m.name, self.classes[m.input_type],
+                                   self.classes[m.output_type])
+                                  for m in sp.method]
+                        for sp in fp.service}
+            out.append(FileDescriptor(fp.name, fp.package, messages,
+                                      services, enums,
+                                      syntax=fp.syntax or "proto2"))
+        return out
+
+
+def read_descriptor_set(data) -> List[FileDescriptor]:
+    """The files of a ``FileDescriptorSet`` (``protoc
+    --descriptor_set_out``, ``--include_imports`` when a file imports
+    another) as :class:`FileDescriptor` objects over new message classes:
+    messages and nested messages, enums, maps, oneofs, proto3
+    ``optional``, proto2 presence, defaults and ``required``, packages. A
+    type a field names must be in the set. The inverse of
+    ``FileDescriptor.serialized_pb`` for the files this runtime writes."""
+    return _SetReader(list(_FileSetProto.FromString(data).file)) \
+        .file_descriptors()
+
+
+def find_method(files: Iterable[FileDescriptor],
+                full_method: str) -> MethodDescriptor:
+    """``pkg.Service.Method`` among ``files``' services."""
+    svc_full, _, name = full_method.rpartition(".")
+    for fd in files:
+        for svc in fd.services_by_name.values():
+            if svc.full_name == svc_full and name in svc.methods_by_name:
+                return svc.methods_by_name[name]
+    raise KeyError(f"no method {full_method} in the descriptor set")

@@ -124,13 +124,15 @@ class DeviceStreamEchoService(Service):
 
     DESCRIPTOR = ECHO_DESC
 
-    def __init__(self, store=None, free_after: bool = True):
+    def __init__(self, store=None, rounds: int = 0,
+                 free_after: bool = True):
         super().__init__()
         if store is None:
             from brpc_tpu_torch.tpu.device_lane import global_store
 
             store = global_store()
         self.store = store
+        self.rounds = rounds  # >0: pump the block this many passes
         # benches stream the SAME resident block repeatedly: keep it
         self.free_after = free_after
         self.consumed_blocks = 0
@@ -139,7 +141,10 @@ class DeviceStreamEchoService(Service):
         self._lock = threading.Lock()
 
     def _consume(self, handle: int, nbytes: int) -> None:
-        ok = self.store.copy(handle, transient=True) is not None
+        if self.rounds > 0:
+            ok = self.store.pump(handle, self.rounds) is not None
+        else:
+            ok = self.store.copy(handle, transient=True) is not None
         if self.free_after:
             self.store.free(handle)
         with self._lock:

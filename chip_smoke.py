@@ -239,6 +239,21 @@ seconds and libraries under ``build/``). Then twenty paths:
   ``ServerOptions(auth=SharedSecretAuthenticator(...))`` gives phase 4's
   tokens to the right secret and EAUTH, with no launch, to a wrong or
   missing one.
+- The traffic tools (phase 4r, after 4p): the port's
+  ``brpc_tpu_torch/tools`` as users start them, each a fresh interpreter
+  on the card's host loading neither JAX, the JAX package nor protobuf:
+  ``bench_server --serving`` (its engine on the card) answers the
+  committed ``tests/data/serving_corpus`` through ``rpc_replay
+  --rate-mult 2`` (12 of 12 ok) and reports the serving kernel's
+  launches, 2 layers x its cold prefills, 25 to 32 of the 44 its warm-up
+  and the corpus imply (``TOOL_SERVING_MISSES``);
+  ``rpc_press`` presses phase 4's engine behind a Server with PROMPT_LENS
+  as JSON Generates, every output's tokens phase 4's, QPS, p50, p99;
+  ``bench_server --batch`` pressed on ``Infer`` and ``InferBatched``
+  through a descriptor set, every checksum within BATCH_RTOL of the MLP
+  computed here, plain, TF32 off; ``bench_server --native`` pressed on
+  Echo with none failed; ``record_serving_corpus`` on the card, its
+  records the committed corpus's in order, method and body bytes.
 - The sharded dispatch plane (phase 20s, last): a ``tpu://`` Server with
   ``tpu_shard_workers=2`` beside phase 4's engine: phase 20's sweep at
   depth 8 byte-equal to a workers-0 server's, every small frame
@@ -257,6 +272,7 @@ the line before it lists every kernel with its launches on the main path,
 error, time, plain and library times and its bound.
 """
 
+import base64
 import contextlib
 import dataclasses
 import gc
@@ -2278,6 +2294,10 @@ QOS_BOUND = 1.5              # prod's p99 at 2x over its 0.25x baseline
 QOS_SWEEP = (4, 8, 16, 32)   # where the QoS-off run breaks the bound
 CORPUS_OVERLOAD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "tests", "data", "serving_corpus_overload")
+# every running thread's stack at each stall of the traced replays
+# (qos_stalls' EngineTrace), beside the built kernels under build/
+QOS_STACKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "qos_stacks.txt")
 
 
 def qos_client_main(conn, corpus):
@@ -2360,29 +2380,6 @@ class QosClient:
         self.close()
 
 
-class FullCollections:
-    """The interpreter's full (generation 2) garbage collections while
-    the context is open, each with its pause in ms: one stops every
-    thread of this process, the engine's step loop included."""
-
-    def __enter__(self):
-        self.pauses_ms = []
-        self._t0 = None
-        gc.callbacks.append(self._note)
-        return self
-
-    def _note(self, phase, info):
-        if info["generation"] != 2:
-            return
-        if phase == "start":
-            self._t0 = time.perf_counter()
-        elif self._t0 is not None:
-            self.pauses_ms.append((time.perf_counter() - self._t0) * 1e3)
-
-    def __exit__(self, *exc):
-        gc.callbacks.remove(self._note)
-
-
 def qos_replays(dev, qos, client, rates):
     """One engine (``qos``) behind its Server: a discarded 2x warm-up,
     then the corpus QOS_REPEATS times at each rate multiple, each replay
@@ -2391,10 +2388,14 @@ def qos_replays(dev, qos, client, rates):
     full collection of this process's heap stops every thread for
     100-190 ms on the card's host, and one landing inside a 2x replay
     sheds prod whatever the admission policy, so the survivors are
-    frozen (``gc.freeze``) for the replays and unfrozen after. The full
-    collections that still run inside the replays are returned with
-    their pauses. Returns ({rate: [replay, ...]}, flash launches over the
-    measured replays, the engine's QoS snapshot, [pause ms])."""
+    frozen (``gc.freeze``) for the replays and unfrozen after. The
+    replays run under ``bench/qos_stalls.EngineTrace``: the full
+    collections inside them are returned with their pauses, and each
+    replay at the top rate gets ``trace``, the trace over its span.
+    Returns ({rate: [replay, ...]}, flash launches over the measured
+    replays, the engine's QoS snapshot, [pause ms])."""
+    from brpc_tpu_torch.bench.qos_stalls import EngineTrace
+
     server, engine = build_shard(dev, qos=qos, engine_cfg=QOS_ENGINE)
     try:
         ep = str(server.listen_endpoint())
@@ -2406,18 +2407,22 @@ def qos_replays(dev, qos, client, rates):
         gc.freeze()
         pallas_ops.launches.reset()
         try:
-            with FullCollections() as full:
+            with EngineTrace(engine, dump_path=QOS_STACKS) as trace:
                 out = {m: [client.replay(ep, m)
                            for _ in range(QOS_REPEATS)] for m in rates}
         finally:
             gc.unfreeze()
+        for res in out[max(rates)]:
+            res["trace"] = trace.window(res["start_s"],
+                                        res["start_s"] + res["wall_s"])
         engine.kv.store.fence()
         launches = pallas_ops.launches.of_thread(engine._thread.ident,
                                                  "flash_attention")
         snap = engine.qos.snapshot() if engine.qos is not None else None
     finally:
         close_shard(server, engine, f"qos={qos is not None}")
-    return out, launches, snap, full.pauses_ms
+    return out, launches, snap, [ms for kind, _, ms in trace.events
+                                 if kind == "gc2"]
 
 
 def pooled(replays, recs):
@@ -2477,6 +2482,13 @@ def qos_phase(dev, n_layers, client, recs, row):
         raise AssertionError("the serving_qos_starvation rule is missing")
     on, launches, snap, row["on_full_gc_ms"] = qos_replays(
         dev, QosConfig(**QOS_CFG), client, QOS_RATES)
+    top = max(QOS_RATES)
+    row["trace_2x"] = []
+    for res in on[top]:
+        late = [(f - res["start_s"] - r.offset_s / top) * 1e3
+                for f, r in zip(res["fired_s"], recs)]
+        row["trace_2x"].append(dict(res["trace"], client_late_ms_max=max(
+            late), client_late_ms_p50=float(np.median(late))))
     completed = 0
     for mult, replays in on.items():
         for res in replays:
@@ -2484,7 +2496,9 @@ def qos_phase(dev, n_layers, client, recs, row):
             if prod["fail"] or prod["shed"]:
                 raise AssertionError(
                     f"prod failed at {mult}x: {prod}; full collections "
-                    f"inside the replays (ms): {row['on_full_gc_ms']}")
+                    f"inside the replays (ms): {row['on_full_gc_ms']}; "
+                    f"the {top}x replays' engine traces: "
+                    f"{json.dumps(row['trace_2x'])}")
             if batch["fail"] != batch["shed"]:
                 raise AssertionError(f"a best-effort failure at {mult}x "
                                      f"was not a shed: {batch}")
@@ -6593,6 +6607,309 @@ def run_fleet(dev, smi, n_layers, direct):
     return {"routed_per_window": launches, "auth": auth_launches}
 
 
+# ------------------------------------------------- phase 4r: the tools
+TOOLS = "brpc_tpu_torch.tools"
+CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "data", "serving_corpus")
+TOOL_PRESS_S = 2.0   # each rpc_press window
+BATCH_RTOL = 1e-4    # a BatchBench checksum against the plain MLP's, rel.
+BATCH_ROUND = 5e-5   # plus half the last digit of its "%.4f" text
+# bench_server --serving's engine has the prefix cache on (the engine's
+# default) and two layers; each cold prefill (a prefix-cache miss)
+# launches the serving kernel once a layer, a hit (prefill_suffix) none.
+# Its warm-up (``_build_serving_engine``) runs, twice, 8 concurrent copies
+# of the 32-token prompt, then 8 of the 16-token one: 32 requests; the
+# committed corpus (CORPUS_SCHEDULE) 12 more, 8 of 16 tokens and 4 of 32.
+# A 16-token prompt is one block, and a hit leaves at least one token to
+# prefill, so all 24 of them miss. A 32-token prompt misses until one of
+# its first round has completed and committed its first block: 1 to 8
+# misses (how many of that round the step loop admits before the first
+# completes), then hits. So 25 to 32 misses, and launches 2 x misses.
+TOOL_SERVING_REQUESTS = 32 + 12
+TOOL_SERVING_MISSES = (25, 32)
+
+
+def tool_cmd(name, args):
+    """A tool as users run it (``python -m``), under the guard that
+    prints the foreign modules it loaded."""
+    mod = f"{TOOLS}.{name}"
+    return [sys.executable, "-c",
+            EXAMPLE_GUARD.format(mod=mod, args=list(args))]
+
+
+def run_tool(name, args, timeout=300):
+    """One tool run to its end; its standard output. Fails on a non-zero
+    exit or a foreign module."""
+    root, env = example_env()
+    proc = subprocess.run(tool_cmd(name, args), cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode or "foreign modules []" not in proc.stdout:
+        raise AssertionError(f"{name} {args} exited {proc.returncode}:\n"
+                             f"{proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
+class ToolServer:
+    """``bench_server`` with ``args`` as a child process: ``ep`` once its
+    LISTEN line is read (:meth:`wait`); closing its stdin stops it, after
+    which ``launches`` and ``serving`` hold its ``# launches`` and ``#
+    serving`` reports."""
+
+    def __init__(self, args):
+        root, env = example_env()
+        self.args = args
+        self.proc = subprocess.Popen(
+            tool_cmd("bench_server", args), cwd=root, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        self.ep = None
+        self.launches = self.serving = None
+
+    def wait(self):
+        line = self.proc.stdout.readline()
+        if not line.startswith("LISTEN "):
+            self.close()
+            raise AssertionError(f"bench_server {self.args} did not come "
+                                 f"up: {line!r}")
+        self.ep = line.split()[1]
+        return self
+
+    def close(self):
+        if self.proc.returncode is not None:
+            return self
+        try:  # closes its stdin: the stop signal
+            out, err = self.proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, err = self.proc.communicate()
+        if self.proc.returncode or "foreign modules []" not in out:
+            raise AssertionError(f"bench_server {self.args} exited "
+                                 f"{self.proc.returncode}:\n{out}{err}")
+        for line in err.splitlines():
+            if line.startswith(("# launches ", "# serving ")):
+                setattr(self, line.split()[1], json.loads(
+                    line.split(" ", 2)[2]))
+        return self
+
+
+def press_result(out):
+    """rpc_press's summary lines as numbers: sent, ok, errors and the
+    latency percentiles in us."""
+    row = {}
+    for line in out.splitlines():
+        f = line.split()
+        if f[:1] == ["sent"] and len(f) == 6:
+            row.update(sent=int(f[1]), ok=int(f[3]), errors=int(f[5]))
+        elif f and f[0].startswith("latency_") and len(f) == 2:
+            row[f[0]] = float(f[1])
+    return row
+
+
+def write_descriptor_set(path, *files):
+    """A ``FileDescriptorSet`` of ``files`` (``FileDescriptor``s of the
+    port's message runtime) at ``path``, as ``protoc
+    --descriptor_set_out`` writes one."""
+    from brpc_tpu_torch.proto import _message as m
+
+    out = bytearray()
+    for fd in files:
+        m._put_bytes(out, 1, fd.serialized_pb)
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def batch_bench_file():
+    """A file naming BatchBench's two methods over EchoRequest /
+    EchoResponse (the reference serves them on those messages)."""
+    from brpc_tpu_torch.proto import _message as m
+
+    req = type("EchoRequest", (m.Message,), {"FIELDS": (
+        m.Field(1, "message", m.STRING), m.Field(2, "payload", m.BYTES),
+        m.Field(3, "sleep_us", m.INT32))})
+    resp = type("EchoResponse", (m.Message,), {"FIELDS": (
+        m.Field(1, "message", m.STRING), m.Field(2, "payload", m.BYTES))})
+    return m.FileDescriptor("batch_bench.proto", "brpc_tpu.test",
+                            [req, resp], services={"BatchBench": [
+                                ("Infer", req, resp),
+                                ("InferBatched", req, resp)]})
+
+
+def plain_mlp_checksum(dev, x):
+    """BatchBench's MLP on ``x`` computed here: bench_server's weights,
+    plain PyTorch on the card, fp32 with TF32 off; the output's sum."""
+    from brpc_tpu_torch.tools import bench_server
+
+    W, b = (torch.from_numpy(a).to(dev)
+            for a in bench_server.default_weights())
+    h = torch.from_numpy(x[None]).to(dev)
+    for l in range(W.shape[0]):
+        h = torch.relu(h @ W[l] + b[l])
+    return float(h.double().sum())
+
+
+def press_window(args, what):
+    """rpc_press for TOOL_PRESS_S with ``args``; its numbers, gated on no
+    failure."""
+    out = run_tool("rpc_press", ["--duration", str(TOOL_PRESS_S),
+                                 "--timeout-ms", "30000", "--quiet", *args])
+    row = press_result(out)
+    if row.get("errors", 1) or not row.get("ok"):
+        raise AssertionError(f"rpc_press {what}: {out}")
+    row["qps"] = row["ok"] / TOOL_PRESS_S
+    return row
+
+
+def run_tools(dev, smi, n_layers, direct):
+    """Phase 4r: the traffic tools (``brpc_tpu_torch/tools``) against the
+    serving port, each a fresh interpreter at its default device (see the
+    module doc). The three bench servers and the corpus recorder start
+    together, so their start-ups overlap; the presses run one at a time
+    after the recorder has ended. Returns the serving kernel's launches:
+    bench_server's, and the press's on phase 4's engine thread."""
+    import tempfile
+
+    from brpc_tpu_torch.tools import rpc_replay
+
+    t0 = time.perf_counter()
+    row = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="tools-")
+    root, env = example_env()
+    recorder = subprocess.Popen(
+        tool_cmd("record_serving_corpus", ["--out", os.path.join(tmp,
+                                                                 "corpus")]),
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    servers = {k: ToolServer(a) for k, a in (
+        ("serving", ["--serving"]), ("batch", ["--batch"]),
+        ("native", ["--native"]))}
+    try:
+        for s in servers.values():
+            s.wait()
+        # 1. the committed corpus through rpc_replay at twice its rate
+        rep = os.path.join(tmp, "replay.json")
+        run_tool("rpc_replay", ["--dump", CORPUS, "--server",
+                                servers["serving"].ep, "--rate-mult", "2",
+                                "--timeout-ms", "30000",
+                                "--report-interval", "0",
+                                "--json-out", rep])
+        with open(rep) as f:
+            row["replay"] = json.load(f)
+        if (row["replay"]["ok"], row["replay"]["fail"]) != (12, 0):
+            raise AssertionError(f"rpc_replay: {row['replay']}")
+        srv = servers.pop("serving").close()
+        served = srv.launches["flash_attention"]
+        row["serving_launches"], row["serving_prefix"] = served, srv.serving
+        misses = srv.serving["prefix_miss_seqs"]
+        lo, hi = TOOL_SERVING_MISSES
+        if (served != 2 * misses or not lo <= misses <= hi
+                or misses + srv.serving["prefix_hit_seqs"]
+                != TOOL_SERVING_REQUESTS):
+            raise AssertionError(
+                f"bench_server --serving launched the serving kernel "
+                f"{served} times for {srv.serving}: want 2 x the misses, "
+                f"{lo}-{hi} misses of {TOOL_SERVING_REQUESTS} requests")
+        # 5. the corpus recorded on the card: the committed one's records
+        out, _ = recorder.communicate(timeout=300)
+        if recorder.returncode or "foreign modules []" not in out:
+            raise AssertionError(f"record_serving_corpus exited "
+                                 f"{recorder.returncode}:\n{out}")
+
+        def records(path):
+            return [(it.md.service_name, it.md.method_name, it.payload,
+                     it.attachment)
+                    for it in rpc_replay.load_items(path)[0]]
+
+        got, want = records(os.path.join(tmp, "corpus")), records(CORPUS)
+        if got != want:
+            raise AssertionError(f"the recorded corpus differs: {got} != "
+                                 f"{want}")
+        row["recorded"] = len(got)
+        # 2. rpc_press at full width: PROMPT_LENS as JSON Generates
+        inp, outp = os.path.join(tmp, "gen.json"), os.path.join(tmp,
+                                                                "out.json")
+        with open(inp, "w") as f:
+            for plen, max_new in zip(PROMPT_LENS, MAX_NEW):
+                f.write(json.dumps({"prompt_len": plen,
+                                    "max_new_tokens": max_new}) + "\n")
+        desc = os.path.join(tmp, "serving.desc")
+        write_descriptor_set(desc, serving_pb2.DESCRIPTOR)
+        server, engine = build_shard(dev)
+        try:
+            pallas_ops.launches.reset()
+            row["press"] = press_window(
+                ["--server", str(server.listen_endpoint()),
+                 "--descriptor-set", desc,
+                 "--full-method", "brpc_tpu.serving.LlmService.Generate",
+                 # 4 in flight: two 960-token prompts at once would pass
+                 # the KV pool's watermark and be refused admission
+                 "--qps", "0", "--concurrency", "4", "--input", inp,
+                 "--output", outp], "Generate")
+            engine.kv.store.fence()
+            press_launches = pallas_ops.launches.of_thread(
+                engine._thread.ident, "flash_attention")
+        finally:
+            close_shard(server, engine, "the press")
+        from brpc_tpu_torch.json2pb import json_to_pb
+
+        with open(outp) as f:
+            resps = [json_to_pb(l, serving_pb2.GenerateResponse)
+                     for l in f if l.strip()]
+        if len(resps) != row["press"]["ok"] or not resps:
+            raise AssertionError(f"{len(resps)} outputs for "
+                                 f"{row['press']['ok']} answers")
+        for r in resps:
+            want = direct[PROMPT_LENS.index(r.prompt_len)].tokens
+            if list(r.tokens) != list(want):
+                raise AssertionError(f"press prompt {r.prompt_len}: "
+                                     f"{list(r.tokens)} != phase 4's {want}")
+        row["press"]["launches"] = press_launches
+        if press_launches != n_layers * len(resps):
+            raise AssertionError(f"the press launched the serving kernel "
+                                 f"{press_launches} times for "
+                                 f"{len(resps)} Generates")
+        # 3. BatchBench through a descriptor set, checksums against the
+        # plain MLP
+        desc = os.path.join(tmp, "batch.desc")
+        write_descriptor_set(desc, batch_bench_file())
+        x = np.random.default_rng(5).standard_normal(256).astype(np.float32)
+        want = plain_mlp_checksum(dev, x)
+        with open(inp, "w") as f:
+            f.write(json.dumps({"payload": base64.b64encode(
+                x.tobytes()).decode()}) + "\n")
+        row["batch"] = {"want": want}
+        for method, depth in (("Infer", 16), ("InferBatched", 32)):
+            res = press_window(
+                ["--server", servers["batch"].ep, "--descriptor-set", desc,
+                 "--full-method", f"brpc_tpu.test.BatchBench.{method}",
+                 "--qps", "0", "--concurrency", str(depth),
+                 "--input", inp, "--output", outp], method)
+            with open(outp) as f:
+                sums = [float(json.loads(l)["message"]) for l in f
+                        if l.strip()]
+            worst = max(abs(v - want) for v in sums)
+            res["max_abs_err"] = worst
+            if worst > BATCH_RTOL * max(1.0, abs(want)) + BATCH_ROUND:
+                raise AssertionError(f"{method}: a checksum off by {worst} "
+                                     f"from the plain MLP's {want}")
+            row["batch"][method] = res
+        row["batch"]["batched_over_per_request_qps"] = (
+            row["batch"]["InferBatched"]["qps"] / row["batch"]["Infer"]["qps"])
+        # 4. the native lane's echo
+        row["native_echo"] = press_window(
+            ["--server", servers["native"].ep, "--qps", "0",
+             "--concurrency", "64"], "native Echo")
+    finally:
+        for s in servers.values():
+            s.close()
+        if recorder.poll() is None:
+            recorder.kill()
+            recorder.communicate()
+    no_protobuf_or_jax("phase 4r")
+    row["s"] = time.perf_counter() - t0
+    print(json.dumps({"tools": row}), flush=True)
+    return {"bench_server_serving": served, "press": press_launches}
+
+
 # ------------------------------- phase 20s: the sharded dispatch plane
 SHARD_FACTORY = "brpc_tpu_torch.shard.testing:echo_services"
 SHARD_DEPTH = 8                  # every size at depth 8
@@ -6957,6 +7274,7 @@ def main():
                                  http_row)
     grpc_launches = run_grpc(dev, smi, n_layers, auto, rpc_stats, http_row)
     fleet_launches = run_fleet(dev, smi, n_layers, auto)
+    tools_launches = run_tools(dev, smi, n_layers, auto)
     no_protobuf_or_jax("after the disaggregated, long-prompt, mesh, "
                        "combo-channel, router, QoS, batching, HTTP, "
                        "native, gRPC and fleet paths")
@@ -7010,6 +7328,7 @@ def main():
         "launches_native": native_launches,
         "launches_grpc": grpc_launches,
         "launches_fleet": fleet_launches,
+        "launches_tools": tools_launches,
         "launches_shard": shard_launches,
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],

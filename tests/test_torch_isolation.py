@@ -6,6 +6,7 @@ runtime."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -24,8 +25,10 @@ def _port_files():
 
 
 def _forbidden(module: str) -> bool:
+    # ``tools`` is the JAX package's top-level tools directory: under
+    # pytest, ``from tools import ...`` silently loads the reference's
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib") or top == "brpc_tpu"
+    return top in ("jax", "jaxlib", "tools") or top == "brpc_tpu"
 
 
 def _imports(path):
@@ -62,7 +65,27 @@ def test_no_protobuf_import(path):
 def test_forbidden_matches_exact_module_names():
     assert _forbidden("brpc_tpu") and _forbidden("brpc_tpu.serving.model")
     assert _forbidden("jax.numpy")
+    assert _forbidden("tools") and _forbidden("tools.rpc_press")
     assert not _forbidden("brpc_tpu_torch.serving")
+    assert not _forbidden("brpc_tpu_torch.tools.rpc_press")
+
+
+_FACTORY = re.compile(r"^[A-Za-z_][\w.]*:[A-Za-z_]\w*$")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_string_import_path_names_a_forbidden_module(path):
+    """A ``"module:attr"`` string (a shard factory, a worker entry) is an
+    import the AST walk above does not see: none may name JAX, the JAX
+    package or the top-level ``tools``."""
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    bad = [(n.lineno, n.value) for n in ast.walk(tree)
+           if isinstance(n, ast.Constant) and isinstance(n.value, str)
+           and _FACTORY.match(n.value)
+           and _forbidden(n.value.partition(":")[0])]
+    assert not bad, f"{os.path.relpath(path, REPO)} names {bad}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -287,7 +310,7 @@ HTTP_SLICE = {
     "proto/health_pb2.py", "proto/builtin_view_pb2.py",
     "proto/jsonpb_test_pb2.py", "proto/jsonpb_test2_pb2.py",
     "examples/http/server.py", "examples/dashboard_proxy/client.py",
-    "examples/dashboard_proxy/proxy.py"}
+    "tools/rpc_view.py"}
 
 
 def test_the_walk_reaches_the_http_slices_modules():
@@ -594,3 +617,66 @@ def test_a_sharded_server_an_observer_and_auth_load_no_protobuf_or_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n")
+
+
+TOOLS_SLICE = {
+    "tools/__init__.py", "tools/rpc_press.py", "tools/rpc_replay.py",
+    "tools/rpc_view.py", "tools/bench_server.py",
+    "tools/record_serving_corpus.py", "tools/record_serving_corpus_overload.py",
+    "tools/record_serving_corpus_spec.py", "bench/qos_replay.py",
+    "bench/qos_stalls.py"}
+
+
+def test_the_walk_reaches_the_tools_slices_modules():
+    """The import checks above walk the traffic tools and the benches
+    over them."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert TOOLS_SLICE <= rel, sorted(TOOLS_SLICE - rel)
+
+
+def test_every_reference_tool_is_ported_or_queued():
+    """Each ``tools/*.py`` of the JAX package has a file of the same name
+    under ``brpc_tpu_torch/tools/`` or is named in ROADMAP.md's Queue 1,
+    so a tool cannot go missing unnoticed."""
+    with open(os.path.join(REPO, "ROADMAP.md"), encoding="utf-8") as fh:
+        roadmap = fh.read()
+    queue1 = roadmap[roadmap.index("### Queue 1"):
+                     roadmap.index("### Queue 2")]
+    missing = []
+    for f in sorted(os.listdir(os.path.join(REPO, "tools"))):
+        if not f.endswith(".py") or f == "__init__.py":
+            continue
+        if os.path.exists(os.path.join(PKG, "tools", f)):
+            continue
+        if f"`{f[:-3]}`" not in queue1:
+            missing.append(f)
+    assert not missing, missing
+
+
+def test_the_tools_load_no_protobuf_or_jax():
+    """Every module of the tools slice imports, and a port press and a
+    replay of the committed corpus run, with neither protobuf nor JAX
+    loaded."""
+    mods = sorted("brpc_tpu_torch." + m[:-3].replace("/", ".")
+                  .replace(".__init__", "") for m in TOOLS_SLICE)
+    _run(f"import sys\nimport {', '.join(mods)}\n"
+         "import brpc_tpu_torch.rpc as rpc\n"
+         "from brpc_tpu_torch.proto import echo_pb2\n"
+         "from brpc_tpu_torch.tools import rpc_press, rpc_replay\n"
+         "class E(rpc.Service):\n"
+         "    DESCRIPTOR = echo_pb2.DESCRIPTOR.services_by_name['EchoService']\n"
+         "    def Echo(self, cntl, request, done):\n"
+         "        return echo_pb2.EchoResponse(message=request.message)\n"
+         "srv = rpc.Server().add_service(E()).start('127.0.0.1:0')\n"
+         "ep = str(srv.listen_endpoint())\n"
+         "assert rpc_press.main(['--server', ep, '--descriptor-set',"
+         " 'tests/data/press_echo.desc', '--full-method',"
+         " 'press.test.EchoService.Echo', '--qps', '50', '--duration',"
+         " '0.2', '--quiet']) == 0\n"
+         "items, skipped = rpc_replay.load_items('tests/data/serving_corpus')\n"
+         "assert len(items) == 12 and not skipped\n"
+         "srv.stop(); srv.join()\n"
+         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'jaxlib', 'brpc_tpu', 'tools') or "
+         "m.startswith('google.protobuf'))\n"
+         "assert not bad, bad\n")

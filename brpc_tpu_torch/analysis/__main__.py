@@ -6,6 +6,9 @@ Usage:
     python -m brpc_tpu_torch.analysis --rule monotonic-clock brpc_tpu_torch/trace
     python -m brpc_tpu_torch.analysis --format json brpc_tpu_torch/
 
+``python -m brpc_tpu_torch.tools.tpulint`` (the port of
+``tools/tpulint.py``) runs the same CLI.
+
 Exit code 0 when every finding is suppressed or absent, 1 otherwise, 2 for
 an unknown rule. Suppress a single line with
 ``# tpulint: disable=<rule>[,<rule>...]`` on that line or a comment line
@@ -69,9 +72,15 @@ def main(argv=None) -> int:
     return 1 if findings else 0
 
 
-if __name__ == "__main__":
+def run() -> None:
+    """``main()`` as a command: its exit code, and exit code 1, quietly,
+    when stdout is a pipe closed early (``| head``)."""
     try:
         sys.exit(main())
     except BrokenPipeError:  # output piped to head/less and closed early
         os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
         sys.exit(1)
+
+
+if __name__ == "__main__":
+    run()

@@ -1,6 +1,8 @@
-"""The traffic tools of the port: each keeps the JAX package's
+"""The tools of the port: each keeps the JAX package's
 ``tools/<name>.py`` name, flags, output lines and exit codes, on the
-port's RPC stack and message runtime (no JAX, no protobuf).
+port's RPC stack, message runtime and kernels (no JAX, no protobuf).
+
+The traffic tools:
 
 - :mod:`~brpc_tpu_torch.tools.rpc_press` — a load generator (any method:
   echo, a raw body, or one read from a ``.proto`` or a descriptor set).
@@ -13,7 +15,28 @@ port's RPC stack and message runtime (no JAX, no protobuf).
 - :mod:`~brpc_tpu_torch.tools.record_serving_corpus` and its ``_overload``
   and ``_spec`` twins — regenerate ``tests/data/serving_corpus*``.
 
+The kernel tools, which need a card (without one each prints why and
+returns 1), their rates against the H100's 989 TFLOP/s and 3.35 TB/s:
+
+- :mod:`~brpc_tpu_torch.tools.kernel_bench` — attention forward and
+  backward, the ring path, RMSNorm against the copy ceiling, and the
+  flagship's training step (kernels on, plain, at scale).
+- :mod:`~brpc_tpu_torch.tools.causal_sweep` and
+  :mod:`~brpc_tpu_torch.tools.qgrid_sweep` — the forward over the
+  reference's block configs.
+
+The operator tools, over a server's builtin pages or files they wrote:
+
+- :mod:`~brpc_tpu_torch.tools.trace_view` (``/rpcz`` as waterfalls),
+  :mod:`~brpc_tpu_torch.tools.vars_view` (``/vars`` series as sparklines,
+  merged across members), :mod:`~brpc_tpu_torch.tools.flame_view` (folded
+  stacks as an SVG), :mod:`~brpc_tpu_torch.tools.prof_diff` and
+  :mod:`~brpc_tpu_torch.tools.trace_diff` (which frame, which phase
+  moved), :mod:`~brpc_tpu_torch.tools.chaos_run` (scenarios over
+  ``/fault``) and :mod:`~brpc_tpu_torch.tools.tpulint` (the linter's
+  CLI).
+
 Run each as ``python -m brpc_tpu_torch.tools.<name>`` or as a file. The
-tools that run an engine or touch a device run on ``cuda`` unless
+traffic tools that run an engine or touch a device run on ``cuda`` unless
 ``--torch-device cpu`` is given, and raise with no card.
 """

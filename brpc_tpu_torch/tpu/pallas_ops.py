@@ -467,11 +467,16 @@ def _flash_fwd_cuda(q, k, v, causal: bool, counter: str = "flash_fwd"):
     return o, lse
 
 
-def _flash_fwd_bhsd(q, k, v, causal: bool, bq: int, bk: int):
+def _flash_fwd_bhsd(q, k, v, causal: bool, bq: int, bk: int, bn: int = 1):
     """Forward over [N, S, D] (N = B*H): returns (o [N,S,D], lse
-    [N,S,1] fp32). Replaces the (q-tile, k-tile) grid kernel."""
+    [N,S,1] fp32). Replaces the (q-tile, k-tile) grid kernel. ``bn``
+    (heads per TPU grid step) means nothing on the card and is validated
+    only, as the TPU wrapper does: it must divide N."""
     _check_nsd("_flash_fwd_bhsd", q, k, v)
     _check_blocks(q.shape[1], k.shape[1], bq, bk)
+    if q.shape[0] % bn:
+        raise ValueError(f"bn ({bn}) must divide batch*heads "
+                         f"({q.shape[0]})")
     if _on_cpu("_flash_fwd_bhsd", q, k, v):
         return flash_fwd_reference(q, k, v, causal)
     return _flash_fwd_cuda(q, k, v, causal)

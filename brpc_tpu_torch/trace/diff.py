@@ -268,9 +268,12 @@ def load_source(src: str, kind: str = "server") -> Dict[str, MethodProfile]:
     return load_profiles(src, kind)
 
 
-def main(argv=None) -> int:
+def main(argv=None,
+         prog: str = "python -m brpc_tpu_torch.trace.diff") -> int:
+    """The trace diff's CLI (``tools/trace_diff.py``'s flags and exit
+    codes); ``brpc_tpu_torch.tools.trace_diff`` runs it as ``prog``."""
     p = argparse.ArgumentParser(
-        prog="python -m brpc_tpu_torch.trace.diff",
+        prog=prog,
         description="which PHASE moved between two runs of the same "
                     "workload")
     p.add_argument("baseline", help="dump file/dir, rpcz JSON, or host:port")

@@ -5,7 +5,7 @@
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
 (nvcc, sm_90a, one process per source, all at once) and, beside them, the
 native core from ``brpc_tpu_torch/native`` (g++; one line: its version,
-seconds and libraries under ``build/``). Then twenty paths:
+seconds and libraries under ``build/``). Then twenty-two paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -254,7 +254,17 @@ seconds and libraries under ``build/``). Then twenty paths:
   computed here, plain, TF32 off; ``bench_server --native`` pressed on
   Echo with none failed; ``record_serving_corpus`` on the card, its
   records the committed corpus's in order, method and body bytes.
-- The sharded dispatch plane (phase 20s, last): a ``tpu://`` Server with
+- The operator tools (phase 4s, after 4r), each a fresh interpreter
+  against phase 4's engine behind a Server: ``trace_view`` draws a
+  waterfall for every Generate trace of two rpcz windows (1 and 4 in
+  flight), ``vars_view --fetch`` the ``g_serving_*`` series (its last
+  g_serving_tokens the engine's count over the value before),
+  ``flame_view`` an SVG of a busy ``/hotspots/cpu`` profile holding the
+  engine loop, ``prof_diff`` ranks the engine's step frames up from an
+  idle profile, ``trace_diff`` aligns the two windows; ``chaos_run``
+  arms ``serving.decode.stall`` oneshot under a press, expects it fired
+  and disarms it, and the next Generates give phase 4's tokens.
+- The sharded dispatch plane (phase 20s): a ``tpu://`` Server with
   ``tpu_shard_workers=2`` beside phase 4's engine: phase 20's sweep at
   depth 8 byte-equal to a workers-0 server's, every small frame
   forwarded and none falling back; streamed Generates over the sharded
@@ -262,6 +272,15 @@ seconds and libraries under ``build/``). Then twenty paths:
   engine thread, none forwarded; a worker crash during an echo soak
   losing no call and firing ``shard_worker_death``; no worker on the card;
   no shard segment or worker left after shutdown.
+- The kernel tools (phase 21, last): ``kernel_bench``, ``causal_sweep``
+  and ``qgrid_sweep`` as users run them, one after another: every line
+  of the reference tools' output, rates against the H100's 989 TFLOP/s
+  and 3.35 TB/s, the flagship's step with kernels, without, and at scale
+  (d_model 2048, 12 layers, vocab 32768, B 4); then their functions
+  here at two timed calls, launches as each loop implies, each sweep's
+  output within the bf16 bound of the plain forward and bit-equal
+  across configs, RMSNorm at D 2048 and the cross-entropy at vocab 32768
+  held against their plain versions.
 
 Exits non-zero, with no result line, on any failure, without a card, or
 without the package beside it.
@@ -6910,6 +6929,491 @@ def run_tools(dev, smi, n_layers, direct):
     return {"bench_server_serving": served, "press": press_launches}
 
 
+# ------------------------------------------- phase 4s: the operator tools
+OPS_BUSY_S = 2.0      # the busy profile's window (/hotspots/cpu seconds)
+OPS_IDLE_S = 1.0      # the idle profile's
+OPS_STALL_MS = 20     # serving.decode.stall's delay, armed oneshot
+OPS_PRESS_THREADS = 4
+# prof_diff's rows: frames anywhere on a stack (--total), every mover of
+# at least 0.1 percentage points
+OPS_PROF_ARGS = ["--total", "--json", "--top", "50", "--min-delta-pct",
+                 "0.1"]
+
+
+def tool_output(out):
+    """A guarded tool's standard output without the guard's last line."""
+    return out[:out.rindex("foreign modules")]
+
+
+def run_tools_together(runs, timeout=300):
+    """``runs``: {key: (tool, args, exit codes it may give)}, started
+    together, each a fresh interpreter as users start them; {key: its
+    standard output}. Fails on another exit code or a foreign module."""
+    root, env = example_env()
+    procs = {key: subprocess.Popen(
+        tool_cmd(name, args), cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for key, (name, args, _) in runs.items()}
+    outs, bad = {}, []
+    for key, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        name, args, rcs = runs[key]
+        if proc.returncode not in rcs or "foreign modules []" not in out:
+            bad.append(f"{name} {args} exited {proc.returncode}:\n"
+                       f"{out}{err}")
+        outs[key] = tool_output(out) if "foreign modules" in out else out
+    if bad:
+        raise AssertionError("\n".join(bad))
+    return outs
+
+
+def windowed(call, requests, depth):
+    """``requests`` through ``call``, ``depth`` in flight at a time."""
+    out = []
+    for i in range(0, len(requests), depth):
+        out += routed_window(call, requests[i:i + depth])[0]
+    return out
+
+
+class Press:
+    """OPS_PRESS_THREADS threads sending PROMPT_LENS Generates through
+    ``call`` in turn until stopped; each answer's tokens are held against
+    phase 4's (``direct``) at the stop."""
+
+    def __init__(self, call, direct):
+        self.call, self.direct = call, direct
+        self.stop_ev = threading.Event()
+        self.answers, self.errors = [], []
+        self.threads = [threading.Thread(target=self._run, args=(i,))
+                        for i in range(OPS_PRESS_THREADS)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, i):
+        while not self.stop_ev.is_set():
+            k = i % len(PROMPT_LENS)
+            i += OPS_PRESS_THREADS
+            try:
+                r = self.call(serving_pb2.GenerateRequest(
+                    prompt_len=PROMPT_LENS[k], max_new_tokens=MAX_NEW[k]))
+            except Exception as e:  # reported at the stop
+                self.errors.append(repr(e))
+                return
+            self.answers.append((k, list(r.tokens)))
+
+    def stop(self):
+        self.stop_ev.set()
+        for t in self.threads:
+            t.join(120)
+        if self.errors or any(t.is_alive() for t in self.threads):
+            raise AssertionError(f"the press failed: {self.errors}")
+        for k, tokens in self.answers:
+            if tokens != list(self.direct[k].tokens):
+                raise AssertionError(f"press prompt {PROMPT_LENS[k]}: "
+                                     f"{tokens} != phase 4's")
+        return len(self.answers)
+
+
+def folded_profile(hostport, seconds):
+    from brpc_tpu_torch.policy.http_protocol import http_fetch
+
+    resp = http_fetch(hostport, "GET", f"/hotspots/cpu?seconds={seconds}"
+                      f"&format=folded", timeout=seconds + 30)
+    if resp.status != 200:
+        raise AssertionError(f"/hotspots/cpu -> {resp.status}")
+    return bytes(resp.body).decode()
+
+
+def series_caught_up(name, value, timeout=10.0):
+    """Waits until the series sampler's last sample of ``name`` is
+    ``value`` (it samples once a second)."""
+    from brpc_tpu_torch.metrics.series import global_series
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        s = global_series().get(name)
+        if s is not None and s.last == value:
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"the {name} series never reached {value}")
+
+
+def waterfalls(out, spans):
+    """Each Generate server span of ``spans`` has its trace's header in
+    trace_view's ``out``, and a server row with a bar under it."""
+    blocks = {b.split()[0]: b for b in ("\n" + out).split("\ntrace ")[1:]}
+    gens = [s for s in spans if s.get("kind") == "server"
+            and s.get("method") == "Generate"]
+    for s in gens:
+        block = blocks.get(s["trace_id"])
+        if block is None or not re.search(
+                r"server +LlmService\.Generate +\d+us +\[[A-Za-z.]+\]",
+                block):
+            raise AssertionError(f"trace_view drew no waterfall for trace "
+                                 f"{s['trace_id']}:\n{out}")
+    return len(gens)
+
+
+def run_operator_tools(dev, smi, n_layers, direct):
+    """Phase 4s: the operator tools (``brpc_tpu_torch/tools``), each a
+    fresh interpreter, against phase 4's engine behind a Server on the
+    card. Two rpcz windows of PROMPT_LENS Generates, one then four in
+    flight, saved as files; an idle and a busy ``/hotspots/cpu`` profile
+    (the busy one while a press of 4 threads runs). Then, started
+    together: trace_view on the live server and on window 1's file (a
+    waterfall per Generate trace), vars_view --fetch over ``g_serving_*``
+    (its last g_serving_tokens is the engine's snapshot of tokens made,
+    over the value before this phase), flame_view on the busy profile (an
+    SVG holding the engine loop's frames), prof_diff idle against busy
+    (the engine's step frames move up), trace_diff window 1 against
+    window 2. Last, chaos_run arms ``serving.decode.stall`` oneshot under
+    a press, expects it fired and disarms; the next PROMPT_LENS give phase
+    4's tokens, with the serving kernel launched layers x prefills.
+    Returns those launches."""
+    import tempfile
+
+    from brpc_tpu_torch import fault
+    from brpc_tpu_torch.serving import engine as serving_engine
+    from brpc_tpu_torch.trace import span as trace_span
+
+    t0 = time.perf_counter()
+    row = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="ops-")
+    requests = list(zip(PROMPT_LENS, MAX_NEW))
+    ratio = flags.get("rpcz_sample_ratio")
+    flags.set_flag("rpcz_sample_ratio", 1.0)
+    tokens0 = serving_engine.g_serving_tokens.get_value()
+    server, engine = build_shard(dev)
+    try:
+        hp = hostport_of(server)
+        opts = rpc.ChannelOptions(protocol="trpc_std", timeout_ms=600000)
+        stub = rpc.Stub(rpc.Channel(opts).init(
+            str(server.listen_endpoint())), client.DESC)
+        idle = folded_profile(hp, OPS_IDLE_S)
+        press = Press(stub.Generate, direct)
+        try:
+            busy = folded_profile(hp, OPS_BUSY_S)
+        finally:
+            row["press_answers"] = press.stop()
+        if "engine.py:_loop" not in busy:
+            raise AssertionError("the busy profile has no engine loop")
+        for name, text in (("idle", idle), ("busy", busy)):
+            with open(os.path.join(tmp, f"{name}.folded"), "w") as f:
+                f.write(text)
+        # the rpcz windows last, so the live /rpcz holds window 2 alone
+        paths, docs = {}, {}
+        for depth in (1, 4):
+            trace_span.reset_for_test()
+            same_tokens(f"4s window at {depth} in flight",
+                        windowed(stub.Generate, requests, depth), direct)
+            docs[depth] = rpcz_doc(hp)
+            paths[depth] = os.path.join(tmp, f"rpcz_{depth}.json")
+            with open(paths[depth], "w") as f:
+                json.dump(docs[depth], f)
+        made = engine.snapshot()["tokens_generated"]
+        series_caught_up("g_serving_tokens", tokens0 + made)
+        svg = os.path.join(tmp, "flame.svg")
+        outs = run_tools_together({
+            "trace_view": ("trace_view", ["--fetch", hp], (0,)),
+            "trace_view_file": ("trace_view", [paths[1]], (0,)),
+            "vars_view": ("vars_view", ["--fetch", hp, "--name",
+                                        "g_serving_*"], (0,)),
+            "flame_view": ("flame_view", [os.path.join(tmp, "busy.folded"),
+                                          "-o", svg], (0,)),
+            "prof_diff": ("prof_diff", [os.path.join(tmp, "idle.folded"),
+                                        os.path.join(tmp, "busy.folded"),
+                                        *OPS_PROF_ARGS], (0,)),
+            "trace_diff": ("trace_diff", [paths[1], paths[4], "--json",
+                                          "--percentile", "50"], (0, 1)),
+        })
+        row["trace_view"] = {
+            "live_traces": waterfalls(outs["trace_view"], docs[4]["spans"]),
+            "file_traces": waterfalls(outs["trace_view_file"],
+                                      docs[1]["spans"])}
+        if set(row["trace_view"].values()) != {len(PROMPT_LENS)}:
+            raise AssertionError(f"trace_view: {row['trace_view']}")
+        line = next((l for l in outs["vars_view"].splitlines()
+                     if l.startswith("g_serving_tokens ")), "")
+        last = re.search(r" last=(\d+)$", line)
+        if not last or int(last.group(1)) != tokens0 + made:
+            raise AssertionError(f"vars_view: {line!r}, want last="
+                                 f"{tokens0} + the engine's {made}")
+        row["vars_view"] = {"line": line, "engine_tokens": made,
+                            "before": tokens0,
+                            "series": sum(l.startswith("g_serving_")
+                                          for l in outs["vars_view"]
+                                          .splitlines())}
+        with open(svg) as f:
+            drawn = f.read()
+        if not drawn.startswith("<svg") or "engine.py:_loop" not in drawn:
+            raise AssertionError("flame_view drew no engine loop")
+        row["flame_view"] = {"out": outs["flame_view"].strip(),
+                             "svg_bytes": len(drawn)}
+        report = json.loads(outs["prof_diff"])
+        up = [m for m in report["movers"] if m["delta_pct"] > 0
+              and m["frame"].startswith(("engine.py:_step", "model.py:"))]
+        if not up:
+            raise AssertionError(f"prof_diff ranks no engine step frame "
+                                 f"up: {report['movers']}")
+        row["prof_diff"] = {"engine_movers": up[:5],
+                            "movers": len(report["movers"])}
+        diff = json.loads(outs["trace_diff"])
+        if diff["methods_compared"] != ["LlmService.Generate"]:
+            raise AssertionError(f"trace_diff compared {diff}")
+        row["trace_diff"] = diff["regressions"]
+        # chaos_run under a press: the stall fires once, then is disarmed
+        scenario = os.path.join(tmp, "stall.json")
+        with open(scenario, "w") as f:
+            json.dump({"steps": [
+                {"op": "flag", "name": "fault_injection_enabled",
+                 "value": "true"},
+                {"op": "arm", "point": "serving.decode.stall",
+                 "mode": "oneshot", "delay_ms": OPS_STALL_MS},
+                {"op": "sleep", "seconds": 1.0},
+                {"op": "expect_fired", "point": "serving.decode.stall",
+                 "min": 1},
+                {"op": "disarm_all"},
+                {"op": "flag", "name": "fault_injection_enabled",
+                 "value": "false"}]}, f)
+        press = Press(stub.Generate, direct)
+        try:
+            out = run_tool("chaos_run", [hp, scenario])
+        finally:
+            row["chaos_press_answers"] = press.stop()
+        rows_ = {r["point"]: r for r in fault.snapshot()}
+        if "chaos_run: OK (6 steps" not in out or \
+                rows_["serving.decode.stall"].get("armed") or \
+                flags.get("fault_injection_enabled"):
+            raise AssertionError(f"chaos_run: {out} {rows_}")
+        row["chaos_run"] = {"out": tool_output(out).strip(),
+                            "fired": rows_["serving.decode.stall"]["fired"]}
+        pallas_ops.launches.reset()
+        same_tokens("4s after the chaos scenario",
+                    routed_window(stub.Generate, requests)[0], direct)
+        engine.kv.store.fence()
+        launches = pallas_ops.launches.of_thread(engine._thread.ident,
+                                                 "flash_attention")
+        if launches != n_layers * len(PROMPT_LENS):
+            raise AssertionError(f"4s: the serving kernel launched "
+                                 f"{launches} times after the scenario")
+    finally:
+        close_shard(server, engine, "phase 4s")
+        fault.disarm_all()
+        flags.set_flag("fault_injection_enabled", False)
+        flags.set_flag("rpcz_sample_ratio", ratio)
+    no_protobuf_or_jax("phase 4s")
+    row["launches"] = launches
+    row["s"] = time.perf_counter() - t0
+    print(json.dumps({"operator_tools": row}), flush=True)
+    return launches
+
+
+# ----------------------------------------------- phase 21: the kernel tools
+KT_ITERS = 2          # timed calls a run, when called here
+# kernel_bench's lines in order, each up to its first ": " (the port's
+# labels of tools/kernel_bench.py's lines)
+KERNEL_BENCH_LINES = [
+    "# kernel bench on cuda:0",
+    "# kernel flash_attention fwd CAUSAL (flagship shape) B=4 H=8 S=2048 "
+    "D=128",
+    "# kernel flash_attention fwd+bwd CAUSAL (flagship shape) (autograd "
+    "backward kernels dQ, dK/dV)",
+    "# kernel flash_attention fwd non-causal B=4 H=8 S=2048 D=128",
+    "# kernel flash_attention fwd+bwd non-causal (autograd backward kernels "
+    "dQ, dK/dV)",
+    "# control",
+    "# ring-attention path fwd+bwd CAUSAL sp=4 (carry-kernel hops + per-hop "
+    "backward kernels) B=4 H=8 S=2048 D=128",
+    "# kernel rmsnorm 65536x2048",
+    "# train step d_model=1024 L=8 B=8 S=1024 KERNELS-ON (flash+norm+xent)",
+    "# train step d_model=1024 L=8 B=8 S=1024 plain-PyTorch baseline",
+    "# train step d_model=2048 L=12 B=4 S=1024 KERNELS-ON (at-scale)",
+]
+# the at-scale step's rows and widths, checked apart: RMSNorm's looped
+# backward at D 2048 and the cross-entropy at vocab 32768
+KT_RMS = (4096, 2048)
+KT_XENT = (4096, 32768)
+
+
+def sweep_lines(smi, cfgs, row, entry):
+    """A sweep's lines, each up to its first ": ": the card, the header,
+    three passes, a row per config (none refused: the reference's shape
+    rules take all)."""
+    return ([f"# {smi}", f"# {entry} at B=4 H=8 S=2048 D=128 bf16",
+             "# pass 0 done", "# pass 1 done", "# pass 2 done"]
+            + [row(*c) for c in cfgs])
+
+
+def heads(out):
+    return [l.split(": ")[0] for l in out.splitlines()]
+
+
+def train_launches(n_layers, steps):
+    """The kernels-on step's launches: per step a forward, dQ and dK/dV a
+    layer, 2 n_layers + 1 RMSNorm forwards and backwards, one
+    cross-entropy."""
+    return {"flash_fwd": n_layers * steps, "flash_bwd_dq": n_layers * steps,
+            "flash_bwd_dkv": n_layers * steps,
+            "rmsnorm": (2 * n_layers + 1) * steps,
+            "rmsnorm_bwd": (2 * n_layers + 1) * steps,
+            "softmax_xent": steps}
+
+
+def add_counts(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def counted(fn, want, what, total):
+    """fn() with its stdout kept, the launch counts reset just before and
+    read just after; raises unless they are ``want``'s. Returns fn's
+    result and its lines."""
+    out = io.StringIO()
+    pallas_ops.launches.reset()
+    with contextlib.redirect_stdout(out):
+        res = fn()
+    torch.cuda.synchronize()
+    counts = pallas_ops.launches.snapshot()
+    expect_launches(counts, want, what)
+    add_counts(total, want)
+    return res, out.getvalue().splitlines()
+
+
+def held_sweep(name, res, worst):
+    """Each sweep config's first output: the first of each causal flag
+    against flash_fwd_reference (bf16 bound), the others bit-equal to
+    it."""
+    q, k, v = res["inputs"]
+    firsts = {}
+    for cfg, (o, lse) in res["first"].items():
+        causal = cfg[0]
+        if causal not in firsts:
+            ro, rl = pallas_ops.flash_fwd_reference(q.float(), k.float(),
+                                                    v.float(), causal)
+            held(f"{name} {cfg} o", o, ro, torch.bfloat16, worst)
+            held(f"{name} {cfg} lse", lse, rl, torch.bfloat16, worst)
+            firsts[causal] = (o, lse)
+        o0, lse0 = firsts[causal]
+        if not (torch.equal(o, o0) and torch.equal(lse, lse0)):
+            raise AssertionError(f"{name} {cfg}: output differs from the "
+                                 f"first config of causal={causal}")
+
+
+def check_new_widths(dev, worst):
+    """RMSNorm forward and its looped backward at the at-scale step's
+    (4096, 2048) bf16, and the cross-entropy at its (4096, 32768) fp32
+    logits, against their plain versions; the backward timed beside its
+    bound."""
+    from brpc_tpu_torch.tools.kernel_bench import event_ms
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows_, d = KT_RMS
+    x, g = (torch.randn(KT_RMS, device=dev, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    w = torch.randn(d, device=dev, generator=gen).to(torch.bfloat16)
+    held("rmsnorm (4096, 2048)", pallas_ops._rmsnorm_fwd_call(x, w),
+         pallas_ops.rmsnorm_reference(x, w), torch.bfloat16, worst)
+    dx, dw = pallas_ops._rmsnorm_bwd_call(x, w, g)
+    rdx, rdw = pallas_ops._rmsnorm_bwd(x, w, g, pallas_ops.EPS)
+    held("rmsnorm_bwd (4096, 2048) dx", dx, rdx, torch.bfloat16, worst)
+    held("rmsnorm_bwd (4096, 2048) dw", dw, rdw, torch.bfloat16, worst,
+         rows=False)
+    n, vocab = KT_XENT
+    logits = torch.randn(KT_XENT, device=dev, generator=gen)
+    targets = torch.randint(0, vocab, (n,), device=dev, generator=gen)
+    held("softmax_xent (4096, 32768)",
+         pallas_ops._xent_forward_rows(logits, targets),
+         pallas_ops._xent_rows_reference(logits, targets), torch.float32,
+         worst)
+    ms = event_ms(lambda: pallas_ops._rmsnorm_bwd_call(x, w, g), 20)
+    b = bound(2 * (3 * rows_ * d + 2 * d), 12 * rows_ * d, torch.float32)
+    return {"rmsnorm_bwd_d2048_ms": ms, "rmsnorm_bwd_d2048_bound_ms": b[0],
+            "rmsnorm_bwd_d2048_bound_by": b[1]}
+
+
+def run_kernel_tools(dev, smi):
+    """Phase 21: the kernel tools as users run them, ``python -m
+    brpc_tpu_torch.tools.kernel_bench``, ``causal_sweep`` and
+    ``qgrid_sweep``, one after another, each a fresh interpreter alone on
+    the card: every line of the reference's output present, in order, no
+    config refused, every train step's loss finite (the tool raises
+    otherwise). Then here, each bench function and sweep at KT_ITERS
+    timed calls (the train steps at one measure of one step, and one
+    sweep pass), launches counted per call (reset just before, read just
+    after) and equal to what the loop implies; each sweep's first output
+    per causal flag within the bf16 bound of flash_fwd_reference, the
+    others bit-equal to it; the at-scale step's new widths held (RMSNorm
+    at D 2048, the cross-entropy at vocab 32768). Returns the launches
+    per kernel."""
+    from brpc_tpu_torch.tools import causal_sweep, kernel_bench, qgrid_sweep
+
+    t0 = time.perf_counter()
+    row = {"card": smi}
+    gc.collect()
+    torch.cuda.empty_cache()  # the tools' processes want the card's memory
+    outs = {}
+    causal_rows = sweep_lines(
+        smi, causal_sweep.CONFIGS,
+        lambda c, bq, bk, bn: f"causal={int(c)} bq={bq:5d} bk={bk:5d} "
+                              f"bn={bn:2d}", "_flash_fwd_bhsd")
+    qgrid_rows = sweep_lines(
+        smi, qgrid_sweep.CONFIGS,
+        lambda c, bq, bkc, bn: f"qgrid causal={int(c)} bq={bq:5d} "
+                               f"bkc={bkc:5d} bn={bn}", "_flash_fwd_qgrid")
+    for name, want in (("kernel_bench", KERNEL_BENCH_LINES),
+                       ("causal_sweep", causal_rows),
+                       ("qgrid_sweep", qgrid_rows)):
+        t1 = time.perf_counter()
+        out = tool_output(run_tool(name, [], timeout=600))
+        if heads(out) != want or smi not in out.splitlines()[0]:
+            raise AssertionError(f"{name}'s lines {heads(out)}, want "
+                                 f"{want}:\n{out}")
+        outs[name] = {"lines": out.splitlines(),
+                      "s": time.perf_counter() - t1}
+    row["tools"] = outs
+
+    w, it = kernel_bench.WARMUP, KT_ITERS
+    total, worst = {}, new_worst()
+    n = w + it
+    counted(lambda: kernel_bench.bench_flash_attention(it, it),
+            {"flash_fwd": 4 * n, "flash_bwd_dq": 2 * n,
+             "flash_bwd_dkv": 2 * n}, "kernel_bench attention", total)
+    hops = kernel_bench.RING_SP * (kernel_bench.RING_SP + 1) // 2
+    counted(lambda: kernel_bench.bench_ring_path(it),
+            {"flash_carry": hops * n, "flash_bwd_dq": hops * n,
+             "flash_bwd_dkv": hops * n}, "kernel_bench ring", total)
+    counted(lambda: kernel_bench.bench_rmsnorm(it),
+            {"rmsnorm": n, "hbm_copy": n}, "kernel_bench rmsnorm", total)
+    want = {}
+    for widths in (kernel_bench.FLAGSHIP, kernel_bench.AT_SCALE):
+        add_counts(want, train_launches(widths["n_layers"], 1 + 1))
+    steps, _ = counted(lambda: kernel_bench.bench_train_step_mfu(1, 1, 1),
+                       want, "kernel_bench train steps", total)
+    for key, r in steps.items():
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"train step {key}: loss {r['loss']}")
+    row["train_steps_here"] = steps
+    for name, mod, counter in (("causal_sweep", causal_sweep, "flash_fwd"),
+                               ("qgrid_sweep", qgrid_sweep,
+                                "flash_fwd_qgrid")):
+        res, _ = counted(lambda: mod.sweep(1, it),
+                         {counter: len(mod.CONFIGS) * (1 + n)}, name, total)
+        if list(res["first"]) != mod.CONFIGS:
+            raise AssertionError(f"{name} refused a config: "
+                                 f"{sorted(res['first'])}")
+        held_sweep(name, res, worst)
+        del res
+    row.update(check_new_widths(dev, worst))
+    row.update(readings(worst), launches=total,
+               s=time.perf_counter() - t0)
+    print(json.dumps({"kernel_tools": row}), flush=True)
+    return total
+
+
 # ------------------------------- phase 20s: the sharded dispatch plane
 SHARD_FACTORY = "brpc_tpu_torch.shard.testing:echo_services"
 SHARD_DEPTH = 8                  # every size at depth 8
@@ -7275,9 +7779,10 @@ def main():
     grpc_launches = run_grpc(dev, smi, n_layers, auto, rpc_stats, http_row)
     fleet_launches = run_fleet(dev, smi, n_layers, auto)
     tools_launches = run_tools(dev, smi, n_layers, auto)
+    ops_launches = run_operator_tools(dev, smi, n_layers, auto)
     no_protobuf_or_jax("after the disaggregated, long-prompt, mesh, "
                        "combo-channel, router, QoS, batching, HTTP, "
-                       "native, gRPC and fleet paths")
+                       "native, gRPC, fleet and tools paths")
 
     profile = profile_engine(dev, auto)
     serving = serving_flash_time(flash, n_layers, profile)
@@ -7307,6 +7812,7 @@ def main():
     tpu = run_tpu_lane(dev, smi, lane["stats"], op_rate)
     native_lane = run_native_lane(dev, smi, tpu_row=LAST_ROWS["tpu_lane"])
     shard_launches = run_shard_plane(dev, smi, n_layers, auto)
+    kernel_tool_launches = run_kernel_tools(dev, smi)
 
     main_row = flash[MAIN_SHAPE]
     kernels = [{
@@ -7329,6 +7835,7 @@ def main():
         "launches_grpc": grpc_launches,
         "launches_fleet": fleet_launches,
         "launches_tools": tools_launches,
+        "launches_operator_tools": ops_launches,
         "launches_shard": shard_launches,
         "max_abs_err": max(r["max_err"] for r in flash.values()),
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
@@ -7343,7 +7850,12 @@ def main():
         xent, qgrid, carry, counts, ring_counts) + slice4_rows(
         copy_times, lane, probe_launches, op_rate_launches, ceiling, tpu,
         native_lane)
+    kernel_tool_launches["copy_ceiling"] = kernel_tool_launches.pop(
+        "hbm_copy")
     for e in kernels:
+        if e["name"] in kernel_tool_launches:
+            # phase 21: the kernel tools' bench functions, called here
+            e["launches_kernel_tools"] = kernel_tool_launches[e["name"]]
         if e["name"] in example_launches:
             e["launches_examples"] = example_launches[e["name"]]
         if e["name"] in ("flash_carry", "flash_bwd_dq", "flash_bwd_dkv"):

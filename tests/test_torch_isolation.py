@@ -624,12 +624,17 @@ TOOLS_SLICE = {
     "tools/rpc_view.py", "tools/bench_server.py",
     "tools/record_serving_corpus.py", "tools/record_serving_corpus_overload.py",
     "tools/record_serving_corpus_spec.py", "bench/qos_replay.py",
-    "bench/qos_stalls.py"}
+    "bench/qos_stalls.py",
+    # the kernel and operator tools
+    "tools/kernel_bench.py", "tools/causal_sweep.py", "tools/qgrid_sweep.py",
+    "tools/trace_diff.py", "tools/prof_diff.py", "tools/trace_view.py",
+    "tools/vars_view.py", "tools/flame_view.py", "tools/chaos_run.py",
+    "tools/tpulint.py"}
 
 
 def test_the_walk_reaches_the_tools_slices_modules():
-    """The import checks above walk the traffic tools and the benches
-    over them."""
+    """The import checks above walk the traffic, kernel and operator
+    tools and the benches over them."""
     rel = {os.path.relpath(p, PKG) for p in _port_files()}
     assert TOOLS_SLICE <= rel, sorted(TOOLS_SLICE - rel)
 
@@ -654,9 +659,9 @@ def test_every_reference_tool_is_ported_or_queued():
 
 
 def test_the_tools_load_no_protobuf_or_jax():
-    """Every module of the tools slice imports, and a port press and a
-    replay of the committed corpus run, with neither protobuf nor JAX
-    loaded."""
+    """Every module of the tools slices imports, and a port press, a
+    replay of the committed corpus, an operator tool's fetch and a lint
+    run, with neither protobuf nor JAX loaded."""
     mods = sorted("brpc_tpu_torch." + m[:-3].replace("/", ".")
                   .replace(".__init__", "") for m in TOOLS_SLICE)
     _run(f"import sys\nimport {', '.join(mods)}\n"
@@ -675,6 +680,10 @@ def test_the_tools_load_no_protobuf_or_jax():
          " '0.2', '--quiet']) == 0\n"
          "items, skipped = rpc_replay.load_items('tests/data/serving_corpus')\n"
          "assert len(items) == 12 and not skipped\n"
+         "from brpc_tpu_torch.tools import tpulint, trace_view, vars_view\n"
+         "assert trace_view._fetch(ep)['spans'] is not None\n"
+         "assert 'series' in vars_view.fetch(ep, 'g_*')\n"
+         "assert tpulint.main(['--list-rules']) == 0\n"
          "srv.stop(); srv.join()\n"
          "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
          "('jax', 'jaxlib', 'brpc_tpu', 'tools') or "

@@ -36,6 +36,20 @@ The operator tools, over a server's builtin pages or files they wrote:
   ``/fault``) and :mod:`~brpc_tpu_torch.tools.tpulint` (the linter's
   CLI).
 
+The last tools, host code that needs no card:
+
+- :mod:`~brpc_tpu_torch.tools.fuzz` — the mutational fuzzer over the
+  port's wire parsers and its C++ engine's h2 parser.
+- :mod:`~brpc_tpu_torch.tools.subinterp_probe` — the cost of a dispatch
+  through a subinterpreter against an inline call.
+- :mod:`~brpc_tpu_torch.tools.gen_hpack_tables`,
+  :mod:`~brpc_tpu_torch.tools.gen_press_echo_desc`,
+  :mod:`~brpc_tpu_torch.tools.gen_rpc_meta_proto` and
+  :mod:`~brpc_tpu_torch.tools.gen_serving_proto` — regenerate the
+  engine's HPACK header, the vendored descriptor set and the two
+  ``*_pb2`` modules from the port's own tables (the three descriptor
+  generators share ``_proto_schema``'s writer), without protobuf.
+
 Run each as ``python -m brpc_tpu_torch.tools.<name>`` or as a file. The
 traffic tools that run an engine or touch a device run on ``cuda`` unless
 ``--torch-device cpu`` is given, and raise with no card.

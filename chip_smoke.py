@@ -5,7 +5,7 @@
 Builds every kernel of ``brpc_tpu_torch`` from ``brpc_tpu_torch/csrc``
 (nvcc, sm_90a, one process per source, all at once) and, beside them, the
 native core from ``brpc_tpu_torch/native`` (g++; one line: its version,
-seconds and libraries under ``build/``). Then twenty-two paths:
+seconds and libraries under ``build/``). Then twenty-three paths:
 
 - Serving: holds the flash forward kernel, as the serving path calls it
   (fp32 (S, H, 16) views of a fused QKV product, no lse; the kernel
@@ -272,7 +272,7 @@ seconds and libraries under ``build/``). Then twenty-two paths:
   engine thread, none forwarded; a worker crash during an echo soak
   losing no call and firing ``shard_worker_death``; no worker on the card;
   no shard segment or worker left after shutdown.
-- The kernel tools (phase 21, last): ``kernel_bench``, ``causal_sweep``
+- The kernel tools (phase 21): ``kernel_bench``, ``causal_sweep``
   and ``qgrid_sweep`` as users run them, one after another: every line
   of the reference tools' output, rates against the H100's 989 TFLOP/s
   and 3.35 TB/s, the flagship's step with kernels, without, and at scale
@@ -281,6 +281,14 @@ seconds and libraries under ``build/``). Then twenty-two paths:
   output within the bf16 bound of the plain forward and bit-equal
   across configs, RMSNorm at D 2048 and the cross-entropy at vocab 32768
   held against their plain versions.
+- The last tools (phase 22, last; host code only), each a fresh
+  interpreter with no JAX, protobuf or JAX package loaded, all started
+  together: ``fuzz --iters 20000`` over its 15 targets (the two native
+  ones on the port's engine built above), no crash and every target's
+  count; ``subinterp_probe``'s line with rc 0; the four generators into a
+  temporary directory: the HPACK header and the descriptor set byte for
+  byte the committed ones, the two written ``*_pb2`` modules importing
+  with the committed modules' ``serialized_pb``.
 
 Exits non-zero, with no result line, on any failure, without a card, or
 without the package beside it.
@@ -7414,6 +7422,116 @@ def run_kernel_tools(dev, smi):
     return total
 
 
+# ------------------------------------------------ phase 22: the last tools
+FUZZ_ITERS = 20000    # cases a target
+SUBINTERP_LINE = re.compile(
+    r"# subinterp dispatch probe \(PEP-684 pool lever, VERDICT r4 #2b\): "
+    r"(\d+\.\d) us/dispatch round-trip vs (\d+\.\d\d) us inline on "
+    r"(\d+) core\(s\) — ")
+GEN_HPACK = (
+    "import sys\n"
+    "from brpc_tpu_torch.tools import gen_hpack_tables as g\n"
+    "g.OUT = {out!r}\n"
+    "g.main()\n"
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'brpc_tpu') or m.startswith('google.protobuf'))\n"
+    "print('foreign modules', bad, flush=True)\n"
+    "sys.exit(1 if bad else 0)")
+
+
+def run_last_tools(smi):
+    """Phase 22: the fuzzer, the probe and the four generators, host code
+    each in a fresh interpreter, all started together. The fuzz runs its
+    15 targets at FUZZ_ITERS cases with no crash (the native targets on
+    the engine built at the start); the probe prints its line with rc 0;
+    the generators write into a temporary directory what is committed:
+    the HPACK header and the descriptor set byte for byte, two ``*_pb2``
+    modules that import with the committed modules' ``serialized_pb``.
+    No interpreter of the phase may load JAX, protobuf or the JAX
+    package. Prints one ``{"last_tools": ...}`` line."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from brpc_tpu_torch.proto import rpc_meta_pb2, serving_pb2
+    from brpc_tpu_torch.tools import fuzz
+
+    t0 = time.perf_counter()
+    root, env = example_env()
+    tmp = tempfile.mkdtemp(prefix="last-tools-")
+    hpack = None
+    try:
+        out = {k: os.path.join(tmp, f) for k, f in (
+            ("hpack", "hpack_tables.h"), ("desc", "press_echo.desc"),
+            ("rpc_meta", "rpc_meta_pb2.py"),
+            ("serving", "serving_pb2.py"))}
+        hpack = subprocess.Popen(
+            [sys.executable, "-c", GEN_HPACK.format(out=out["hpack"])],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        outs = run_tools_together({
+            "fuzz": ("fuzz", ["--iters", str(FUZZ_ITERS)], (0,)),
+            "probe": ("subinterp_probe", [], (0,)),
+            "desc": ("gen_press_echo_desc", [out["desc"]], (0,)),
+            "rpc_meta": ("gen_rpc_meta_proto", [out["rpc_meta"]], (0,)),
+            "serving": ("gen_serving_proto", [out["serving"]], (0,)),
+        }, timeout=600)
+        children_s = time.perf_counter() - t0
+        hpack_out, hpack_err = hpack.communicate(timeout=60)
+        if hpack.returncode or "foreign modules []" not in hpack_out:
+            raise AssertionError(f"gen_hpack_tables exited "
+                                 f"{hpack.returncode}:\n{hpack_out}"
+                                 f"{hpack_err}")
+        counts = {}
+        for line in outs["fuzz"].splitlines():
+            m = re.fullmatch(r"fuzz\[(\w+)\]: (\d+) cases ok", line)
+            if m:
+                counts[m.group(1)] = int(m.group(2))
+        want = {name: FUZZ_ITERS for name in fuzz._allowed()}
+        if counts != want or len(want) != 15:
+            raise AssertionError(f"fuzz counts {counts}, want {want}:\n"
+                                 f"{outs['fuzz']}")
+        probe = SUBINTERP_LINE.match(outs["probe"])
+        if not probe or not float(probe.group(1)) > 0:
+            raise AssertionError(f"subinterp_probe: {outs['probe']!r}")
+        here = os.path.dirname(os.path.abspath(__file__))
+        committed = {
+            "hpack": os.path.join(here, "brpc_tpu_torch", "native",
+                                  "hpack_tables.h"),
+            "desc": os.path.join(here, "tests", "data", "press_echo.desc")}
+        for key, path in committed.items():
+            with open(out[key], "rb") as a, open(path, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{out[key]} differs from {path}")
+        for key, mod in (("rpc_meta", rpc_meta_pb2),
+                         ("serving", serving_pb2)):
+            spec = importlib.util.spec_from_file_location(
+                f"written_{key}_pb2", out[key])
+            written = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(written)
+            if written.DESCRIPTOR.serialized_pb != \
+                    mod.DESCRIPTOR.serialized_pb:
+                raise AssertionError(f"{key}: the written module's "
+                                     f"serialized_pb differs")
+        no_protobuf_or_jax("after the last tools")
+        cases = sum(counts.values())
+        row = {"card": smi, "fuzz_cases": counts, "fuzz_crashes": 0,
+               "children_s": children_s,
+               "fuzz_cases_per_s": cases / children_s,
+               "probe": {"sub_us": float(probe.group(1)),
+                         "inline_us": float(probe.group(2)),
+                         "cores": int(probe.group(3)),
+                         "line": outs["probe"].strip()},
+               "generators": {k: os.path.getsize(v) for k, v in out.items()},
+               "s": time.perf_counter() - t0}
+    finally:
+        if hpack is not None and hpack.poll() is None:
+            hpack.kill()
+            hpack.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"last_tools": row}), flush=True)
+
+
 # ------------------------------- phase 20s: the sharded dispatch plane
 SHARD_FACTORY = "brpc_tpu_torch.shard.testing:echo_services"
 SHARD_DEPTH = 8                  # every size at depth 8
@@ -7813,6 +7931,7 @@ def main():
     native_lane = run_native_lane(dev, smi, tpu_row=LAST_ROWS["tpu_lane"])
     shard_launches = run_shard_plane(dev, smi, n_layers, auto)
     kernel_tool_launches = run_kernel_tools(dev, smi)
+    run_last_tools(smi)
 
     main_row = flash[MAIN_SHAPE]
     kernels = [{

@@ -629,7 +629,11 @@ TOOLS_SLICE = {
     "tools/kernel_bench.py", "tools/causal_sweep.py", "tools/qgrid_sweep.py",
     "tools/trace_diff.py", "tools/prof_diff.py", "tools/trace_view.py",
     "tools/vars_view.py", "tools/flame_view.py", "tools/chaos_run.py",
-    "tools/tpulint.py"}
+    "tools/tpulint.py",
+    # the last tools: the fuzzer, the probe and the generators
+    "tools/fuzz.py", "tools/subinterp_probe.py", "tools/_proto_schema.py",
+    "tools/gen_hpack_tables.py", "tools/gen_press_echo_desc.py",
+    "tools/gen_rpc_meta_proto.py", "tools/gen_serving_proto.py"}
 
 
 def test_the_walk_reaches_the_tools_slices_modules():
@@ -641,27 +645,19 @@ def test_the_walk_reaches_the_tools_slices_modules():
 
 def test_every_reference_tool_is_ported_or_queued():
     """Each ``tools/*.py`` of the JAX package has a file of the same name
-    under ``brpc_tpu_torch/tools/`` or is named in ROADMAP.md's Queue 1,
-    so a tool cannot go missing unnoticed."""
-    with open(os.path.join(REPO, "ROADMAP.md"), encoding="utf-8") as fh:
-        roadmap = fh.read()
-    queue1 = roadmap[roadmap.index("### Queue 1"):
-                     roadmap.index("### Queue 2")]
-    missing = []
-    for f in sorted(os.listdir(os.path.join(REPO, "tools"))):
-        if not f.endswith(".py") or f == "__init__.py":
-            continue
-        if os.path.exists(os.path.join(PKG, "tools", f)):
-            continue
-        if f"`{f[:-3]}`" not in queue1:
-            missing.append(f)
+    under ``brpc_tpu_torch/tools/``: ROADMAP.md's Queue 1 of tools still
+    to port is empty, so a tool cannot go missing unnoticed."""
+    missing = [f for f in sorted(os.listdir(os.path.join(REPO, "tools")))
+               if f.endswith(".py")
+               and not os.path.exists(os.path.join(PKG, "tools", f))]
     assert not missing, missing
 
 
 def test_the_tools_load_no_protobuf_or_jax():
     """Every module of the tools slices imports, and a port press, a
-    replay of the committed corpus, an operator tool's fetch and a lint
-    run, with neither protobuf nor JAX loaded."""
+    replay of the committed corpus, an operator tool's fetch, a lint run,
+    a fuzz of the h2 parser and a generator's descriptor, with neither
+    protobuf nor JAX loaded."""
     mods = sorted("brpc_tpu_torch." + m[:-3].replace("/", ".")
                   .replace(".__init__", "") for m in TOOLS_SLICE)
     _run(f"import sys\nimport {', '.join(mods)}\n"
@@ -684,6 +680,9 @@ def test_the_tools_load_no_protobuf_or_jax():
          "assert trace_view._fetch(ep)['spans'] is not None\n"
          "assert 'series' in vars_view.fetch(ep, 'g_*')\n"
          "assert tpulint.main(['--list-rules']) == 0\n"
+         "from brpc_tpu_torch.tools import fuzz, gen_serving_proto\n"
+         "assert fuzz.run_target('h2', 100) == 100\n"
+         "assert gen_serving_proto.build()\n"
          "srv.stop(); srv.join()\n"
          "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
          "('jax', 'jaxlib', 'brpc_tpu', 'tools') or "

@@ -39,6 +39,8 @@ from brpc_tpu.tpu import ring as jax_ring
 from brpc_tpu.tpu import train as jax_train
 from brpc_tpu_torch import graft_entry
 from brpc_tpu_torch.tpu import collective, launch, ring, train
+from tests.test_torch_tracemalloc_guard import (  # noqa: F401
+    no_leaked_tracemalloc, no_leaked_tracemalloc_in_module)
 
 AXES = {"dp": 2, "sp": 2, "tp": 2}
 OPS = ["all_reduce", "all_gather", "reduce_scatter", "all_to_all", "shift",

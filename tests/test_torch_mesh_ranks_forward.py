@@ -38,6 +38,8 @@ from brpc_tpu.tpu import mesh as jax_mesh
 from brpc_tpu.tpu import train as jax_train
 from brpc_tpu_torch.tpu import launch, pallas_ops, ring, train
 from brpc_tpu_torch.tpu import mesh as port_mesh
+from tests.test_torch_tracemalloc_guard import (  # noqa: F401
+    no_leaked_tracemalloc, no_leaked_tracemalloc_in_module)
 
 AXES = {"dp": 2, "sp": 2, "tp": 2}
 WIDTHS = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,

@@ -56,6 +56,8 @@ from brpc_tpu_torch.serving.service import LlmServingService
 from brpc_tpu_torch.serving.weights import params_from_jax
 from brpc_tpu_torch.tpu import launch
 from brpc_tpu_torch.tpu import mesh as port_mesh
+from tests.test_torch_tracemalloc_guard import (  # noqa: F401
+    no_leaked_tracemalloc, no_leaked_tracemalloc_in_module)
 from tools.record_serving_corpus import SCHEDULE
 
 CFG = dict(vocab=256, d_model=32, n_heads=2, n_layers=2)

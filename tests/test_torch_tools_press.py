@@ -10,6 +10,8 @@ import io
 import json
 import os
 import shutil
+import time
+from collections import Counter
 from contextlib import redirect_stdout
 
 import pytest
@@ -35,6 +37,8 @@ from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig, ModelConfig,
                                     TinyTransformer)
 from brpc_tpu_torch.serving.service import LlmServingService
 from brpc_tpu_torch.tools import rpc_press as port_press
+from tests.test_torch_tracemalloc_guard import (  # noqa: F401
+    no_leaked_tracemalloc, no_leaked_tracemalloc_in_module)
 from tools import rpc_press as jax_press
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -50,10 +54,13 @@ def _cold_run_to_completion():
     across the process (ROADMAP Queue 3): these tests' fast
     EchoService.Echo traffic would leave the name classified cheap for
     the next test on this worker, whose slow EchoService.Echo then runs
-    inline. Each test here leaves both packages' classification cold."""
+    inline. Each test here starts and leaves both packages'
+    classification cold, whatever ran before it on this worker."""
     from brpc_tpu.rpc import run_to_completion as jax_rtc
     from brpc_tpu_torch.rpc import run_to_completion as port_rtc
 
+    jax_rtc._reset_for_test()
+    port_rtc._reset_for_test()
     yield
     jax_rtc._reset_for_test()
     port_rtc._reset_for_test()
@@ -95,17 +102,43 @@ def _main(tool, args):
     return rc, buf.getvalue()
 
 
-def test_echo_press(pair):
+class _ToolClock:
+    """The press loop's clock: time passes only in the tool's own sleeps
+    (which still sleep as long on the real clock), so a press of ``qps``
+    for ``duration`` fires exactly its ``qps x duration`` calls at no
+    more than that pace however slowly the worker runs (a worker whose
+    threads fought for the GIL once sent 9 of 100 real-time calls). The
+    calls themselves, their deadlines and latencies keep the real
+    clock."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def monotonic(self):
+        return self.now
+
+    def sleep(self, seconds):
+        self.now += seconds
+        time.sleep(seconds)
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_echo_press(pair, monkeypatch):
     tool, server, impl = pair
+    # 1/256 s and 0.5 s are exact in binary: calls at k/256 s, k < 128
+    monkeypatch.setattr(tool, "time", _ToolClock())
     rc, out = _main(tool, ["--server", str(server.listen_endpoint()),
-                           "--qps", "200", "--duration", "0.5", "--quiet"])
+                           "--qps", "256", "--duration", "0.5", "--quiet"])
     assert rc == 0, out
-    assert "latency_p99_us" in out and impl.calls > 10
-    sent = int(out.split()[1])
-    assert out.startswith(f"sent {sent} ok {sent} errors 0")
+    assert "latency_p99_us" in out
+    assert out.startswith("sent 128 ok 128 errors 0\n"), out
+    assert impl.calls == 128
 
 
-def _json_io(tool, server, impl, method_args, tmp_path):
+def _json_io(tool, server, impl, method_args, tmp_path, monkeypatch):
+    monkeypatch.setattr(tool, "time", _ToolClock())  # 128 calls
     inp = tmp_path / "reqs.json"
     inp.write_text('{"message": "a"}\n{"message": "b"}\n')
     outp = tmp_path / "resps.json"
@@ -115,19 +148,22 @@ def _json_io(tool, server, impl, method_args, tmp_path):
         "--full-method", "press.test.EchoService.Echo",
         "--input", str(inp), "--output", str(outp),
         "--connection-type", "pooled", "--attachment-size", "64",
-        "--qps", "200", "--duration", "0.5", "--quiet"])
+        "--qps", "256", "--duration", "0.5", "--quiet"])
     assert rc == 0, out
     assert "latency_p99_us" in out
+    assert out.startswith("sent 128 ok 128 errors 0\n"), out
     lines = [l for l in outp.read_text().splitlines() if l.strip()]
-    assert len(lines) > 10 and len(lines) == impl.calls
-    assert {json.loads(l)["message"] for l in lines} == {"a", "b"}
+    assert len(lines) == impl.calls == 128
+    # the two inputs in turn
+    assert Counter(json.loads(l)["message"] for l in lines) == \
+        {"a": 64, "b": 64}
 
 
-def test_descriptor_set_json_io(pair, tmp_path):
+def test_descriptor_set_json_io(pair, tmp_path, monkeypatch):
     tool, server, impl = pair
     _json_io(tool, server, impl, ["--descriptor-set",
                                   os.path.join(DATA, "press_echo.desc")],
-             tmp_path)
+             tmp_path, monkeypatch)
 
 
 PRESS_PROTO = ('syntax = "proto3";\n'
@@ -138,13 +174,14 @@ PRESS_PROTO = ('syntax = "proto3";\n'
                "service EchoService { rpc Echo(Req) returns (Resp); }\n")
 
 
-def test_proto_through_protoc(pair, tmp_path):
+def test_proto_through_protoc(pair, tmp_path, monkeypatch):
     if shutil.which("protoc") is None:
         pytest.skip("needs protoc")
     tool, server, impl = pair
     proto = tmp_path / "press_echo.proto"
     proto.write_text(PRESS_PROTO)
-    _json_io(tool, server, impl, ["--proto", str(proto)], tmp_path)
+    _json_io(tool, server, impl, ["--proto", str(proto)], tmp_path,
+             monkeypatch)
 
 
 def test_proto_without_protoc_exits_with_a_message(tmp_path, monkeypatch):

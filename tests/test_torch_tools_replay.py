@@ -35,6 +35,8 @@ from brpc_tpu_torch.serving import (EngineConfig, KVCacheConfig, ModelConfig,
 from brpc_tpu_torch.serving.service import LlmServingService
 from brpc_tpu_torch.tools import rpc_replay as port_replay
 from brpc_tpu_torch.trace import span as port_span
+from tests.test_torch_tracemalloc_guard import (  # noqa: F401
+    no_leaked_tracemalloc, no_leaked_tracemalloc_in_module)
 from tools import rpc_replay as jax_replay
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
